@@ -1,0 +1,167 @@
+"""Full-song synthesis by segment chaining, in PyTorch.
+
+Port of `Synthesizer.render_songs` / `render_song` from
+music_spectrogram_diffusion_tpu/infer/synthesize.py: per segment the model
+runs with the previous segment's prediction as its context (the first
+segment's context is masked out), songs are batched so the sequential
+dependency is only along segments, and the concatenated spectrogram is
+vocoded at the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
+
+# (segment index, number of songs) -> the noise of that segment's sampler.
+SegmentNoise = Callable[[int, int], dops.NoiseFn]
+
+
+@dataclasses.dataclass
+class SongRender:
+  """Result of rendering one song."""
+  mel: np.ndarray  # [frames, n_dims] in codec feature space
+  audio: Optional[np.ndarray]  # [samples] if a vocoder was attached
+  timings: Dict[str, float]
+
+
+def seeded_noise(seed: int, device) -> SegmentNoise:
+  """One generator per (song, segment), seeded from (seed, song, segment),
+  so a song renders the same whether batched with others or alone."""
+  def for_segment(segment: int, n_songs: int) -> dops.NoiseFn:
+    gens = []
+    for song in range(n_songs):
+      state = np.random.SeedSequence((seed, song, segment)).generate_state(1)
+      gens.append(torch.Generator(device).manual_seed(int(state[0])))
+    return dops.generator_noise(gens, device)
+  return for_segment
+
+
+def _sync(device: torch.device):
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)
+
+
+class Synthesizer:
+  """Segment-chained renderer for the context diffusion model."""
+
+  # Smallest bucket that fits the longest segment: padding is masked out
+  # of every attention, so a shorter bucket gives the same result faster.
+  INPUT_BUCKETS = (256, 512, 1024, 2048)
+
+  def __init__(self, model, task_feature_lengths: Mapping[str, int],
+               vocoder=None):
+    """Args:
+      model: ContextDiffusionModel (or anything with its .predict).
+      task_feature_lengths: {'inputs', 'targets', 'targets_context'}.
+      vocoder: optional callable [B, T, D] mel -> [B, T*hop] audio.
+    """
+    self.model = model
+    self.lengths = dict(task_feature_lengths)
+    if self.lengths["targets_context"] > self.lengths["targets"]:
+      raise ValueError(
+          f"targets_context ({self.lengths['targets_context']}) > targets "
+          f"({self.lengths['targets']}) is unsupported: segment chaining "
+          "uses the previous segment's prediction as context")
+    self.vocoder = vocoder
+
+  def _input_length(self, max_tokens: int) -> int:
+    cap = self.lengths["inputs"]
+    for bucket in self.INPUT_BUCKETS:
+      if max_tokens <= bucket <= cap:
+        return bucket
+    return cap
+
+  def render_songs(self,
+                   songs: Sequence[Sequence[np.ndarray]],
+                   noise: Optional[SegmentNoise] = None
+                   ) -> List[SongRender]:
+    """Render a batch of songs, chaining context across segments.
+
+    Args:
+      songs: per song, its per-segment `encoder_input_tokens` (1-d ints,
+        padded/EOS'd to at most the task inputs length).
+      noise: the sampler noise per segment; default `seeded_noise(0)`.
+    """
+    device = self.model.device
+    if noise is None:
+      noise = seeded_noise(0, device)
+    codec = self.model.audio_codec
+    n_songs = len(songs)
+    max_segments = max(len(s) for s in songs)
+    max_tokens = max((len(seg) for s in songs for seg in s), default=1)
+    l_in = self._input_length(max_tokens)
+    l_ctx = self.lengths["targets_context"]
+    l_tgt = self.lengths["targets"]
+
+    tokens = np.zeros((max_segments, n_songs, l_in), np.int64)
+    for si, song in enumerate(songs):
+      for gi, seg in enumerate(song):
+        seg = np.asarray(seg)[:l_in]
+        tokens[gi, si, :len(seg)] = seg
+
+    context = torch.full((n_songs, l_ctx, codec.n_dims), codec.pad_value,
+                         dtype=torch.float32, device=device)
+    context_mask = torch.zeros((n_songs, l_ctx), dtype=torch.bool,
+                               device=device)
+    mel_segments, seg_times = [], []
+    for gi in range(max_segments):
+      batch = {
+          "encoder_input_tokens": torch.as_tensor(tokens[gi], device=device),
+          "encoder_continuous_inputs": context,
+          "encoder_continuous_mask": context_mask,
+          "decoder_target_tokens": torch.zeros(
+              (n_songs, l_tgt, codec.n_dims), device=device),
+      }
+      _sync(device)
+      t0 = time.perf_counter()
+      pred = self.model.predict(batch, noise(gi, n_songs))
+      _sync(device)
+      seg_times.append(time.perf_counter() - t0)
+      mel_segments.append(pred)
+      context = pred[:, -l_ctx:, :]
+      context_mask = torch.ones((n_songs, l_ctx), dtype=torch.bool,
+                                device=device)
+    mel = torch.cat(mel_segments, dim=1)
+
+    audio, vocode_time = None, 0.0
+    if self.vocoder is not None:
+      t0 = time.perf_counter()
+      audio = self.vocoder(mel)
+      _sync(audio.device)
+      vocode_time = time.perf_counter() - t0
+      audio = audio.cpu().numpy()
+
+    # The realtime factor leaves out the first segment, as the reference's
+    # timing does; songs render batched, so rates are per batch.
+    frame_rate = codec.frame_rate
+    steady = seg_times[1:] if len(seg_times) > 1 else seg_times
+    seg_audio = l_tgt / frame_rate
+    steady_rate = float(np.sum(steady)) / max(
+        len(steady) * seg_audio * n_songs, 1e-9)
+    mel_np = mel.cpu().numpy()
+    results = []
+    for si, song in enumerate(songs):
+      n_frames = len(song) * l_tgt
+      results.append(SongRender(
+          mel=mel_np[si, :n_frames],
+          audio=(audio[si, :n_frames * codec.hop_size]
+                 if audio is not None else None),
+          timings={
+              "prediction_seconds": float(np.sum(seg_times)),
+              "prediction_seconds_per_audio_second": steady_rate,
+              "steady_segment_seconds": float(np.median(steady)),
+              "audio_decode_seconds": vocode_time,
+              "audio_seconds": n_frames / frame_rate,
+          }))
+    return results
+
+  def render_song(self, segments: Sequence[np.ndarray],
+                  noise: Optional[SegmentNoise] = None) -> SongRender:
+    return self.render_songs([segments], noise=noise)[0]

@@ -1,0 +1,269 @@
+"""T5.1.1-style layers in PyTorch, inference only.
+
+Port of music_spectrogram_diffusion_tpu/models/layers.py. Parameters keep
+the Flax layout and names (2-D `kernel` [in, out], `scale`, `embedding`),
+so `convert.py` moves a Flax tree over leaf for leaf. Training is not
+ported yet: there is no dropout here.
+
+Every attention goes through `ops.attention.flash_attention`: the CUDA
+kernel on the card, its plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from music_spectrogram_diffusion_tpu_torch.ops import attention
+
+_ACTIVATIONS = {
+    "linear": lambda x: x,
+    "relu": F.relu,
+    # Flax's nn.gelu is the tanh approximation.
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def sinusoidal_table(max_len: int, features: int,
+                     generator: Optional[torch.Generator] = None,
+                     min_scale: float = 1.0,
+                     max_scale: float = 10000.0) -> torch.Tensor:
+  """Sinusoidal position table [max_len, features].
+
+  With a generator the phases are offset at random and the bands permuted
+  ('fixed_permuted_offset'); without one it is the plain table ('fixed').
+  A trained model's table is a parameter and is loaded, not recomputed.
+  """
+  half = features // 2
+  position = np.arange(max_len)[:, None]
+  scale_factor = -np.log(max_scale / min_scale) / (half - 1)
+  div_term = min_scale * np.exp(np.arange(half) * scale_factor)
+  rads = torch.as_tensor(position * div_term, dtype=torch.float32)
+  sin_off = cos_off = 0.0
+  if generator is not None:
+    sin_off = torch.rand(half, generator=generator) * (2 * math.pi)
+    cos_off = torch.rand(half, generator=generator) * (2 * math.pi)
+  pe = torch.zeros(max_len, features)
+  pe[:, :half] = torch.sin(rads + sin_off)
+  pe[:, half:2 * half] = torch.cos(rads + cos_off)
+  if generator is not None:
+    pe = pe[:, torch.randperm(features, generator=generator)]
+  return pe
+
+
+def _normal_(t: torch.Tensor, std: float, generator: torch.Generator,
+             truncated: bool):
+  """Flax variance-scaling init: a normal, or one truncated at 2 std."""
+  if truncated:
+    # Flax divides by the std of a unit normal truncated to [-2, 2].
+    std = std / 0.87962566103423978
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+  else:
+    nn.init.normal_(t, std=std, generator=generator)
+
+
+class DenseGeneral(nn.Module):
+  """Bias-free linear map over the last len(in_features) input axes.
+
+  `kernel` is stored flat, [prod(in_shape), prod(features)], as in Flax.
+  """
+
+  def __init__(self, in_features: Sequence[int] | int,
+               features: Sequence[int] | int, *, dtype=torch.float32):
+    super().__init__()
+    self.in_features = tuple(np.atleast_1d(in_features).tolist())
+    self.features = tuple(np.atleast_1d(features).tolist())
+    self.dtype = dtype
+    self.kernel = nn.Parameter(torch.empty(
+        int(np.prod(self.in_features)), int(np.prod(self.features))),
+        requires_grad=False)
+
+  def init_weights(self, generator: torch.Generator, *, scale: float = 1.0,
+                   truncated: bool = True):
+    _normal_(self.kernel, scale / math.sqrt(self.kernel.shape[0]), generator,
+             truncated)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    n_in = len(self.in_features)
+    lead = x.shape[:x.ndim - n_in]
+    y = x.to(self.dtype).reshape(-1, self.kernel.shape[0]) @ self.kernel.to(
+        self.dtype)
+    return y.reshape(*lead, *self.features)
+
+
+class MlpBlock(nn.Module):
+  """Feed-forward block with gated activations (e.g. gelu * linear)."""
+
+  def __init__(self, emb_dim: int, intermediate_dim: int,
+               activations: Sequence[str], *, dtype=torch.float32):
+    super().__init__()
+    self.activations = tuple(activations)
+    names = (["wi"] if len(self.activations) == 1 else
+             [f"wi_{i}" for i in range(len(self.activations))])
+    self.wi_names = names
+    for name in names:
+      setattr(self, name, DenseGeneral(emb_dim, intermediate_dim,
+                                       dtype=dtype))
+    self.wo = DenseGeneral(intermediate_dim, emb_dim, dtype=dtype)
+
+  def init_weights(self, generator):
+    for name in self.wi_names:
+      getattr(self, name).init_weights(generator)
+    self.wo.init_weights(generator)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    h = None
+    for name, act in zip(self.wi_names, self.activations):
+      branch = _ACTIVATIONS[act](getattr(self, name)(x))
+      h = branch if h is None else h * branch
+    return self.wo(h)
+
+
+class MultiHeadAttention(nn.Module):
+  """Multi-head attention with a split K/V projection.
+
+  Call patterns:
+    * `forward(q_in, kv_in, kv_mask=...)`: self- or cross-attention.
+    * `project_kv(memory)` once, then `forward(q_in, cached_kv=kv, ...)`:
+      cross-attention over a fixed memory (cached K/V are [b, h, l, d]).
+
+  T5-style: no 1/sqrt(d) on the scores (it is in the query init), and a
+  dropped key adds -1e10 to its score.
+  """
+
+  def __init__(self, emb_dim: int, num_heads: int, head_dim: int,
+               out_features: int, *, dtype=torch.float32):
+    super().__init__()
+    self.num_heads, self.head_dim = num_heads, head_dim
+    proj = (num_heads, head_dim)
+    self.query = DenseGeneral(emb_dim, proj, dtype=dtype)
+    self.key = DenseGeneral(emb_dim, proj, dtype=dtype)
+    self.value = DenseGeneral(emb_dim, proj, dtype=dtype)
+    self.out = DenseGeneral(proj, out_features, dtype=dtype)
+
+  def init_weights(self, generator):
+    self.query.init_weights(generator, scale=1.0 / math.sqrt(self.head_dim),
+                            truncated=False)
+    for dense in (self.key, self.value, self.out):
+      dense.init_weights(generator, truncated=False)
+
+  def project_kv(self, memory: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Memory [b, l, emb] -> (key, value), each [b, h, l, d] contiguous."""
+    return attention.transpose_kv(self.key(memory), self.value(memory))
+
+  def forward(self, inputs_q: torch.Tensor,
+              inputs_kv: Optional[torch.Tensor] = None, *,
+              cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """kv_mask: optional bool [b, kv_len] keep-mask, constant over queries."""
+    query = self.query(inputs_q)
+    if cached_kv is not None:
+      key, value = cached_kv
+      x = attention.flash_attention(query, key, value, kv_mask=kv_mask,
+                                    kv_transposed=True)
+    else:
+      x = attention.flash_attention(query, self.key(inputs_kv),
+                                    self.value(inputs_kv), kv_mask=kv_mask)
+    return self.out(x)
+
+
+class Embed(nn.Module):
+  """Integer-id embedding table [num_embeddings, features]."""
+
+  def __init__(self, num_embeddings: int, features: int, *,
+               dtype=torch.float32):
+    super().__init__()
+    self.dtype = dtype
+    self.embedding = nn.Parameter(torch.empty(num_embeddings, features),
+                                  requires_grad=False)
+
+  def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    if ids.dtype.is_floating_point:
+      raise ValueError("Embed inputs must be integers.")
+    return F.embedding(ids.long(), self.embedding).to(self.dtype)
+
+
+class FixedEmbed(Embed):
+  """A fixed sinusoidal table (position ids -> rows), never trained."""
+
+  def __init__(self, features: int, max_length: int = 2048, *,
+               dtype=torch.float32):
+    super().__init__(max_length, features, dtype=dtype)
+    with torch.no_grad():
+      self.embedding.copy_(sinusoidal_table(max_length, features))
+
+
+class RMSNorm(nn.Module):
+  """T5 layer norm: rms only, no mean subtraction, no bias; f32 inside."""
+
+  def __init__(self, features: int, *, epsilon: float = 1e-6,
+               dtype=torch.float32):
+    super().__init__()
+    self.epsilon, self.dtype = epsilon, dtype
+    self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    x32 = x.float()
+    mean2 = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = (x32 * torch.rsqrt(mean2 + self.epsilon)).to(self.dtype)
+    return y * self.scale.to(self.dtype)
+
+
+class FiLM(nn.Module):
+  """Feature-wise linear modulation: x * (scale + 1) + bias."""
+
+  def __init__(self, cond_dim: int, features: int, *, dtype=torch.float32):
+    super().__init__()
+    self.dense = DenseGeneral(cond_dim, 2 * features, dtype=dtype)
+
+  def init_weights(self, generator):
+    self.dense.init_weights(generator)
+
+  def forward(self, x: torch.Tensor,
+              conditioning: torch.Tensor) -> torch.Tensor:
+    scale, bias = torch.chunk(self.dense(conditioning), 2, dim=-1)
+    return x * (scale + 1.0) + bias
+
+
+def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+  """0/1 mask -> additive attention bias (0 or -1e10)."""
+  return torch.where(mask > 0, torch.zeros((), dtype=dtype),
+                     torch.full((), -1e10, dtype=dtype))
+
+
+def make_attention_mask(query_input: torch.Tensor, key_input: torch.Tensor,
+                        pairwise_fn=torch.mul,
+                        dtype=torch.float32) -> torch.Tensor:
+  """[b, len_q] x [b, len_kv] -> [b, 1, len_q, len_kv] mask."""
+  mask = pairwise_fn(query_input[..., :, None], key_input[..., None, :])
+  return mask[..., None, :, :].to(dtype)
+
+
+def combine_masks(*masks: Optional[torch.Tensor],
+                  dtype=torch.float32) -> Optional[torch.Tensor]:
+  """Logical AND of the given masks (None entries skipped)."""
+  masks = [m for m in masks if m is not None]
+  if not masks:
+    return None
+  mask = masks[0] > 0
+  for other in masks[1:]:
+    mask = torch.logical_and(mask, other > 0)
+  return mask.to(dtype)
+
+
+def zero_if_all_masked(y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+  """Zero y where the whole [b, kv] keep-mask row is 0.
+
+  With every key masked the softmax averages all keys evenly, which looks
+  like nothing masked; this makes all-masked cross-attention (the CFG
+  unconditional rows, the empty first-segment context) exactly zero.
+  """
+  is_not_empty = torch.any(mask == 1, dim=-1)[:, None, None]
+  return y * is_not_empty.to(y.dtype)

@@ -1,0 +1,90 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+Each `.cu` source under `ops/csrc/` exposes a plain C interface, so it is
+compiled by `nvcc` alone into a shared library: no PyTorch headers, no
+CUTLASS, no ninja. The library is built on first use into `ops/csrc/build/`
+(git-ignored), under a name keyed by a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libraries: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+  """The CUDA compiler: `nvcc` on PATH, else the toolkit's default place."""
+  found = shutil.which("nvcc")
+  if found:
+    return found
+  default = Path("/usr/local/cuda/bin/nvcc")
+  if default.exists():
+    return str(default)
+  raise RuntimeError(
+      "nvcc not found (neither on PATH nor at /usr/local/cuda/bin/nvcc); "
+      "the port's CUDA kernels are built from source on first use")
+
+
+def library_path(name: str) -> Path:
+  """Where `csrc/<name>.cu` is built: keyed by the source and the flags."""
+  source = (CSRC / f"{name}.cu").read_bytes()
+  digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+  return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> Path:
+  """Compile `csrc/<name>.cu` unless a build of this source exists.
+
+  The compiler's report (registers, shared memory, spills per kernel, from
+  `-Xptxas -v`) is kept beside the library as `<library>.log`.
+  """
+  out = library_path(name)
+  if out.exists():
+    return out
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+  os.close(fd)
+  try:
+    proc = subprocess.run(
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+      raise RuntimeError(
+          f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+          f"{proc.stdout}\n{proc.stderr}")
+    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+  finally:
+    if os.path.exists(tmp):
+      os.remove(tmp)
+  return out
+
+
+def load(name: str) -> ctypes.CDLL:
+  """Build (if needed) and load `csrc/<name>.cu`; one handle per process."""
+  with _lock:
+    if name not in _libraries:
+      _libraries[name] = ctypes.CDLL(str(build(name)))
+    return _libraries[name]
+
+
+def compiler_report(name: str) -> str:
+  """The `-Xptxas -v` report of the current build of `csrc/<name>.cu`."""
+  log = Path(str(library_path(name)) + ".log")
+  return log.read_text() if log.exists() else ""

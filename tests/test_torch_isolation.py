@@ -1,0 +1,49 @@
+"""The port stands alone: importing every module of it (and chip_smoke.py)
+pulls in neither JAX nor the JAX package, and a request for the card on a
+machine without one raises instead of running on the CPU."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import music_spectrogram_diffusion_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                                port.__name__ + ".")]
+for name in names:
+  importlib.import_module(name)
+importlib.import_module("chip_smoke")
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "music_spectrogram_diffusion_tpu"))
+assert not bad, bad
+assert len(names) >= 20, names
+
+import torch
+assert not torch.cuda.is_available()
+from music_spectrogram_diffusion_tpu_torch import config
+from music_spectrogram_diffusion_tpu_torch.audio import vocoder
+from music_spectrogram_diffusion_tpu_torch.infer import inference
+for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
+             lambda: inference.build_model(config.preset("context_tiny")),
+             lambda: vocoder.GriffinLimVocoder()):
+  try:
+    make()
+  except RuntimeError as e:
+    assert "cuda" in str(e), e
+  else:
+    raise AssertionError("a cuda request ran without a card")
+print("isolated", len(names))
+"""
+
+
+def test_port_imports_no_jax_and_refuses_missing_cuda():
+  env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+  env["CUDA_VISIBLE_DEVICES"] = ""  # no card, even on a machine with one
+  proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode == 0, proc.stderr
+  assert "isolated" in proc.stdout
