@@ -4,19 +4,35 @@
 
 Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
-  2. build    nvcc builds the flash-attention kernel from ops/csrc/;
-  3. kernel   the kernel against its plain PyTorch version at the three
-              attention shapes of the serving path, in float32 and bfloat16:
-              error and tolerance, kernel / plain / SDPA (yardstick only)
-              times, and the least time the card could take;
-  4. main     context_base at full width (random weights from --seed)
-              renders one song of 3 chained segments with the serving
-              sampler (100-step sde-dpm++, CFG 5 in t in [0.1, 0.8]) and
-              vocodes it with Griffin-Lim (PGHI init, 32 iterations) into
-              out/chip_smoke_seed<seed>.wav; the kernel's launch
-              count must match the config's;
-  5. check    one decoder step of the same model on the card against the
-              same step on the CPU (plain attention there).
+  2. build    nvcc builds both kernels from ops/csrc/ (flash_fwd.cu and
+              qmm.cu, two compilers started together) and reports ptxas's
+              registers and spills;
+  3. kernel   flash attention against its plain PyTorch version at the
+              three attention shapes of the serving path, in float32 and
+              bfloat16: error and tolerance, kernel / plain / SDPA
+              (yardstick only) times, and the least time the card could take;
+  4. kernel   the weight-only int8 GEMM against its plain version at every
+              (M, K, N, dtype) of the int8 path: error and tolerance,
+              kernel / plain / bf16-matmul (yardstick only) times from CUDA
+              graphs over weights that do not fit the L2, and the bound;
+  5. main     float32 context_base at full width (random weights from
+              --seed) renders one song of 3 chained segments of event
+              tokens with the serving sampler (100-step sde-dpm++, CFG 5 in
+              t in [0.1, 0.8]) and vocodes it with Griffin-Lim (PGHI init,
+              32 iterations) into out/chip_smoke_seed<seed>.wav; the
+              attention kernel's launch count must match the config's;
+  6. check    one float32 decoder step on the card against the same step
+              on the CPU (plain versions there);
+  7. main     int8 context_base (bf16 network, int8 weights from the same
+              seed) renders a seeded MIDI file of 3 segments, written to
+              and read back from out/chip_smoke_seed<seed>.mid and cut by
+              the port's segment_midi, under the same sampler and vocoder;
+              both kernels' launch counts must match the config's;
+  8. check    one int8 decoder step on the card against the same step on
+              the CPU;
+  9. bf16     bf16 context_base (compute_dtype="bfloat16", same seed): every
+              projection stores its kernel in the dtype it computes in, and
+              one CFG-pair decoder forward is timed eager and as a CUDA graph.
 Then one JSON line of the kernels, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
@@ -39,11 +55,16 @@ import torch.nn.functional as F
 from music_spectrogram_diffusion_tpu_torch import config
 from music_spectrogram_diffusion_tpu_torch.audio import vocoder
 from music_spectrogram_diffusion_tpu_torch.audio import wav_io
+from music_spectrogram_diffusion_tpu_torch.cli import synthesize_midi
 from music_spectrogram_diffusion_tpu_torch.infer import inference
+from music_spectrogram_diffusion_tpu_torch.midi import midi_io
 from music_spectrogram_diffusion_tpu_torch.midi import note_tokens
+from music_spectrogram_diffusion_tpu_torch.midi import sequences
 from music_spectrogram_diffusion_tpu_torch.midi import vocabularies
+from music_spectrogram_diffusion_tpu_torch.models import layers
 from music_spectrogram_diffusion_tpu_torch.ops import _build
 from music_spectrogram_diffusion_tpu_torch.ops import attention
+from music_spectrogram_diffusion_tpu_torch.ops import quantize
 from music_spectrogram_diffusion_tpu_torch.ops import stft
 
 # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet).
@@ -51,20 +72,34 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 SEGMENTS = 3
 # (name, q_len, kv_len, key mask, kv_transposed): the serving path's
-# attentions. Each runs at b=2 (the 2 CFG rows of one song) in f32 and
-# bf16, and at b=1 in f32: the encoders and cross-attention see one row on
-# the main path, and so does self-attention outside the guidance interval.
+# attentions. Each runs at b=2 (the 2 CFG rows of one song) and at b=1 (the
+# encoders and cross-attention see one row on the main path, and so does
+# self-attention outside the guidance interval), in f32 (the float32 path)
+# and bf16 (the int8 path).
 SHAPES = (
     ("encoder_self_2048x2048", 2048, 2048, True, False),
+    ("context_self_256x256", 256, 256, True, False),
     ("decoder_self_256x256", 256, 256, False, False),
     ("cross_256x2304", 256, 2304, True, True),
 )
-RUNS = ((2, torch.float32), (2, torch.bfloat16), (1, torch.float32))
+RUNS = ((2, torch.float32), (2, torch.bfloat16), (1, torch.float32),
+        (1, torch.bfloat16))
 HEADS, HEAD_DIM = 12, 64
 # f32: the kernel sums in another order than cuBLAS (observed <= 6e-6).
 # bf16: p is rounded to bf16 before p.v and the output is stored in bf16,
 # whose step at |x| in [2, 4) is 2^-6.
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# The int8 GEMM against its plain version, relative to the output's max:
+# f32 out, the same exact products summed in another order; bf16 out, one
+# rounding step of the output, which that order can flip.
+QMM_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# Distinct weights cycled through in a timed run: more bytes than the 50 MB
+# L2, so each call reads its weight from HBM, as the main path does.
+L2_BYTES = 50 * 2 ** 20
+# The MIDI song of the int8 path: a dense multi-instrument arrangement, so
+# that its longest segment needs the task's full 2048 input tokens.
+MIDI_PROGRAMS = (0, 24, 32, 40, 48, 56, 65, 73)
+MIDI_NOTES_PER_SECOND = 36.0
 
 
 def log(line: str) -> None:
@@ -177,6 +212,206 @@ def kernel_phase(gen):
   return rows
 
 
+def graph_ms(fn, iters: int, stream: torch.cuda.Stream) -> float:
+  """Mean ms of fn(i) for i in range(iters), captured in one CUDA graph and
+  replayed: the device's time without the host's launch overhead.
+
+  Every capture and warm-up runs on the caller's one `stream`: cuBLAS keeps
+  a workspace for each stream it ever ran on, so a new stream per capture
+  would hold on to device memory for the rest of the run.
+  """
+  stream.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(stream):
+    for i in range(2):
+      fn(i)
+  torch.cuda.current_stream().wait_stream(stream)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph, stream=stream):
+    for i in range(iters):
+      fn(i)
+  graph.replay()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  stop = torch.cuda.Event(enable_timing=True)
+  start.record()
+  graph.replay()
+  stop.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(stop) / iters
+
+
+def guided_steps(experiment):
+  """(paired, single): sampler steps inside the guidance interval (the
+  two-row CFG forward) and outside it (one conditional row)."""
+  sampler = experiment.diffusion.sampler
+  lo, hi = (np.float32(x) for x in experiment.diffusion.guidance.interval)
+  times = (np.arange(sampler.num_steps, dtype=np.float32) + 1) / np.float32(
+      sampler.num_steps)
+  paired = int(((times >= lo) & (times <= hi)).sum())
+  return paired, sampler.num_steps - paired
+
+
+def qmm_shapes(experiment, l_in: int) -> list:
+  """Every int8 GEMM of one segment of the int8 path, from the config:
+  [(M, K, N, dtype, launches per segment, what)], one row per distinct
+  (M, K, N, dtype). Batch 1; the CFG pair doubles the decoder's rows
+  inside the guidance interval, and cross-attention runs on the
+  conditional rows only, its K/V projected once per segment."""
+  net = experiment.network()
+  tl = experiment.task_lengths
+  e, hd, f, c = (net.emb_dim, net.num_heads * net.head_dim, net.mlp_dim,
+                 4 * net.emb_dim)
+  n_wi = len(net.mlp_activations)
+  bf16, f32 = torch.bfloat16, torch.float32
+  rows = []
+
+  def add(m, k, n, dtype, count, what):
+    rows.append((m, k, n, dtype, count, what))
+
+  for m, stack in ((l_in, "token encoder"), (tl.targets_context,
+                                              "context encoder")):
+    layers_ = net.num_encoder_layers
+    add(m, e, hd, bf16, 3 * layers_, f"{stack} q/k/v")
+    add(m, hd, e, bf16, layers_, f"{stack} attention out")
+    add(m, e, f, bf16, n_wi * layers_, f"{stack} mlp wi")
+    add(m, f, e, bf16, layers_, f"{stack} mlp wo")
+  add(l_in + tl.targets_context, e, hd, bf16, 2 * net.num_decoder_layers,
+      "cross K/V (once a segment)")
+  t, dec = tl.targets, net.num_decoder_layers
+  for rows_, steps in zip((2, 1), guided_steps(experiment)):
+    tag = "CFG pair" if rows_ == 2 else "cond row"
+    add(rows_ * t, e, hd, bf16, 3 * dec * steps, f"decoder self q/k/v, {tag}")
+    add(rows_ * t, hd, e, bf16, dec * steps, f"decoder self out, {tag}")
+    add(t, e, hd, bf16, dec * steps, "decoder cross q (cond rows)")
+    add(t, hd, e, bf16, dec * steps, "decoder cross out (cond rows)")
+    add(rows_ * t, e, f, bf16, n_wi * dec * steps, f"decoder mlp wi, {tag}")
+    add(rows_ * t, f, e, bf16, dec * steps, f"decoder mlp wo, {tag}")
+    add(rows_, c, 2 * e, f32, 2 * dec * steps, f"FiLM, {tag} (f32)")
+    add(rows_, e, c, bf16, steps, f"time_emb_dense0, {tag}")
+    add(rows_, c, c, bf16, steps, f"time_emb_dense1, {tag}")
+  merged = {}
+  for m, k, n, dtype, count, what in rows:
+    if count == 0:
+      continue
+    check(quantize.quantizable("kernel", torch.empty(k, n, device="meta")),
+          f"{what}: {k}x{n} is not quantized by quantize_params")
+    key = (m, k, n, dtype)
+    old = merged.get(key, (0, []))
+    merged[key] = (old[0] + count, old[1] + [what])
+  return [(m, k, n, dtype, count, "; ".join(sorted(set(whats))))
+          for (m, k, n, dtype), (count, whats) in sorted(
+              merged.items(), key=lambda kv: (-kv[0][0], kv[0][1:3]))]
+
+
+def qmm_bound_ms(m, k, n, dtype):
+  """max(2MKN at the bf16 tensor-core peak, bytes at the HBM rate): x and
+  the output in `dtype`, the weight int8, the scales f32."""
+  elt = torch.finfo(dtype).bits // 8
+  nbytes = m * k * elt + k * n + 4 * n + m * n * elt
+  t_ops = 2.0 * m * k * n / PEAK_FLOPS[torch.bfloat16]
+  t_bytes = nbytes / HBM_BYTES_PER_S
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def qmm_phase(shapes, gen, stream):
+  rows = []
+  for m, k, n, dtype, per_segment, what in shapes:
+    copies = int(np.ceil(L2_BYTES / (k * n))) + 1
+    q, s = quantize.quantize_kernel(
+        torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5)
+    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    ss = [s] + [s.clone() for _ in range(copies - 1)]
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+    got = quantize.quantized_matmul(x, q, s)
+    torch.cuda.synchronize()
+    want = quantize.qmm_reference(x, q, s)
+    check(bool(torch.isfinite(got).all()), f"qmm {m}x{k}x{n} finite")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = QMM_TOLERANCE[dtype] * want.float().abs().max().item()
+    check(err <= tol, f"qmm M={m} K={k} N={n} {dtype}: max |kernel - "
+          f"plain| {err} > {tol}")
+    wb = [quantize.dequantize_kernel(qi, si, torch.bfloat16)
+          for qi, si in zip(qs, ss)]
+    xb = x.to(torch.bfloat16)
+    iters = max(2 * copies, 50)
+    ms = graph_ms(lambda i: quantize.quantized_matmul(
+        x, qs[i % copies], ss[i % copies]), iters, stream)
+    plain_ms = graph_ms(lambda i: quantize.qmm_reference(
+        x, qs[i % copies], ss[i % copies]), iters, stream)
+    lib_ms = graph_ms(lambda i: xb @ wb[i % copies], iters, stream)
+    bound, bound_by = qmm_bound_ms(m, k, n, dtype)
+    dt = str(dtype).replace("torch.", "")
+    log(f"  M={m} K={k} N={n} {dt} ({what}; {per_segment} per segment): "
+        f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms; bound "
+        f"{bound:.5f} ms ({bound_by})")
+    rows.append(dict(m=m, k=k, n=n, dtype=dt, what=what,
+                     launches_per_segment=per_segment, max_abs_err=err,
+                     tolerance=tol, ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+    del qs, ss, wb
+  return rows
+
+
+def midi_song(seed: int, path: str, seconds: float) -> sequences.NoteSequence:
+  """A seeded multi-instrument song, written as a MIDI file."""
+  rng = np.random.default_rng(seed)
+  ns = sequences.NoteSequence()
+  for _ in range(int(seconds * MIDI_NOTES_PER_SECOND)):
+    start = float(rng.uniform(0.0, seconds - 0.3))
+    ns.add(start_time=start,
+           end_time=start + float(rng.uniform(0.1, min(1.5,
+                                                       seconds - start))),
+           pitch=int(rng.integers(36, 96)),
+           velocity=int(rng.integers(40, 128)),
+           program=int(rng.choice(MIDI_PROGRAMS)), is_drum=False)
+  midi_io.write_midi_file(ns, path)
+  return ns
+
+
+def forward_ms(model, tokens: np.ndarray, stream: torch.cuda.Stream,
+               iters: int = 20):
+  """One CFG-pair decoder forward of the main path (2 rows, cached cross
+  K/V), as the sampler calls it eagerly (host clock, synchronized) and as
+  the card runs it alone (one forward captured in a CUDA graph and
+  replayed): the gap is the host's launch overhead. Returns the two ms
+  and the forward's output."""
+  l_in = model.task_lengths["inputs"]
+  padded = np.zeros((1, l_in), np.int64)
+  padded[0, :len(tokens)] = tokens[:l_in]
+  batch = {"encoder_input_tokens": torch.as_tensor(padded, device="cuda"),
+           "encoder_continuous_inputs": torch.full(
+               (1, 256, 128), model.audio_codec.pad_value, device="cuda"),
+           "encoder_continuous_mask": torch.ones(1, 256, dtype=torch.bool,
+                                                 device="cuda")}
+  z = torch.randn(2, 256, 128, device="cuda")
+  time_ = torch.full((2,), 0.5, device="cuda")
+  counts = (attention.flash_attention.launches,
+            quantize.quantized_matmul.launches)
+  with torch.inference_mode():
+    enc = model.model.encode(batch)
+    kv = model.model.module.precompute_cross_kv(enc)
+
+    def forward():
+      return model.model.module.decode(enc, z, time_, cross_kv=kv,
+                                       cond_rows=1)
+
+    for _ in range(3):
+      out = forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+      forward()
+    torch.cuda.synchronize()
+    eager = 1e3 * (time.perf_counter() - t0) / iters
+    replay = graph_ms(lambda i: forward(), iters, stream)
+  # These launches measure the path; they are not the main path's.
+  attention.flash_attention.launches, quantize.quantized_matmul.launches = (
+      counts)
+  return eager, replay, out
+
+
 def song_tokens(seed: int, experiment) -> list:
   codec = vocabularies.build_codec(experiment.vocab_config())
   vocab = vocabularies.vocabulary_from_codec(codec)
@@ -187,22 +422,17 @@ def song_tokens(seed: int, experiment) -> list:
       max_tokens=experiment.task_lengths.inputs, codec=codec, vocab=vocab)
 
 
-def attention_ms_per_segment(rows, experiment) -> dict:
-  """Kernel time per segment from phase 3's f32 call times and the main
-  path's launches (the context encoder's masked 256x256 self-attention is
-  timed as the decoder's 256x256 shape)."""
+def attention_ms_per_segment(rows, experiment, dtype: str) -> dict:
+  """Kernel time per segment from phase 3's call times in `dtype` and the
+  main path's launches."""
   ms = {(r["shape"], r["batch"]): r["ms"] for r in rows
-        if r["dtype"] == "float32"}
+        if r["dtype"] == dtype}
   net = experiment.network()
   sampler = experiment.diffusion.sampler
-  lo, hi = (np.float32(x) for x in experiment.diffusion.guidance.interval)
-  times = (np.arange(sampler.num_steps, dtype=np.float32) + 1) / np.float32(
-      sampler.num_steps)
-  paired = int(((times >= lo) & (times <= hi)).sum())
-  single = sampler.num_steps - paired
+  paired, single = guided_steps(experiment)
   return {
       "encoders": net.num_encoder_layers * (
-          ms["encoder_self_2048x2048", 1] + ms["decoder_self_256x256", 1]),
+          ms["encoder_self_2048x2048", 1] + ms["context_self_256x256", 1]),
       "decoder_self": net.num_decoder_layers * (
           paired * ms["decoder_self_256x256", 2]
           + single * ms["decoder_self_256x256", 1]),
@@ -211,10 +441,22 @@ def attention_ms_per_segment(rows, experiment) -> dict:
   }
 
 
-def main_phase(seed: int, card: str, rows):
-  experiment = inference.with_sampler(
+def serving_experiment():
+  return inference.with_sampler(
       config.preset("context_base"), sampler_steps=100,
       sampler_name="sde-dpm++", guidance_interval=(0.1, 0.8))
+
+
+def attention_launches(experiment) -> int:
+  """Flash-attention launches of one segment: each encoder's self-attention
+  once a segment, the decoder's self- and cross-attention every step."""
+  net = experiment.network()
+  return (2 * net.num_encoder_layers + 2 * net.num_decoder_layers
+          * experiment.diffusion.sampler.num_steps)
+
+
+def main_phase(seed: int, card: str, rows, stream):
+  experiment = serving_experiment()
   t0 = time.perf_counter()
   model = inference.InferenceModel(experiment, seed=seed, device="cuda")
   log(f"  context_base built from seed {seed} on the card "
@@ -223,15 +465,19 @@ def main_phase(seed: int, card: str, rows):
   voc = vocoder.GriffinLimVocoder(num_iters=32, device="cuda")
   synth = model.synthesizer(voc)
   torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated() / 2**30
   attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   render = synth.render_song(segments)
   wall = time.perf_counter() - t0
   launches = attention.flash_attention.launches
+  check(quantize.quantized_matmul.launches == 0,
+        f"the float32 path launched the int8 GEMM "
+        f"{quantize.quantized_matmul.launches} times")
   net = experiment.network()
   steps = experiment.diffusion.sampler.num_steps
-  per_segment = 2 * net.num_encoder_layers + 2 * net.num_decoder_layers * steps
-  expected = SEGMENTS * per_segment
+  expected = SEGMENTS * attention_launches(experiment)
   n_frames = SEGMENTS * experiment.task_lengths.targets
   hop = model.audio_codec.hop_size
   check(render.mel.shape == (n_frames, 128), f"mel shape {render.mel.shape}")
@@ -249,9 +495,9 @@ def main_phase(seed: int, card: str, rows):
       f"({SEGMENTS} segments x (2 encoders x {net.num_encoder_layers} "
       f"self-attention layers + {net.num_decoder_layers} decoder layers x 2 "
       f"attentions x {steps} steps))")
-  parts = attention_ms_per_segment(rows, experiment)
-  log(f"  [{card}] attention kernel per segment, from phase 3's call times x "
-      f"launches: {sum(parts.values()):.1f} ms (" + ", ".join(
+  parts = attention_ms_per_segment(rows, experiment, "float32")
+  log(f"  [{card}] attention kernel per segment, from phase 3's f32 call "
+      f"times x launches: {sum(parts.values()):.1f} ms (" + ", ".join(
           f"{k} {v:.1f} ms" for k, v in parts.items()) + ") of the steady "
       f"segment's {1e3 * tm['steady_segment_seconds']:.1f} ms")
   log(f"  [{card}] sampler {tm['prediction_seconds']:.3f} s for "
@@ -259,7 +505,12 @@ def main_phase(seed: int, card: str, rows):
       f"{experiment.task_lengths.targets / 50.0:.2f} s segment); vocoder "
       f"{tm['audio_decode_seconds']:.3f} s; realtime factor "
       f"{audio_s / wall:.3f} (audio s / wall s, {wall:.3f} s wall); peak "
-      f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+      f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+      f"({resident:.2f} GiB of it allocated before the render)")
+  eager, replay, _ = forward_ms(model, segments[0], stream)
+  log(f"  [{card}] one CFG-pair decoder forward: {eager:.3f} ms eager "
+      f"(host clock), {replay:.3f} ms on the card alone (CUDA graph); "
+      f"x {experiment.diffusion.sampler.num_steps} steps")
   os.makedirs("out", exist_ok=True)
   wav = os.path.join("out", f"chip_smoke_seed{seed}.wav")
   peak = max(float(np.abs(render.audio).max()), 1e-9)
@@ -274,12 +525,132 @@ def main_phase(seed: int, card: str, rows):
   return model, segments, launches
 
 
-def reference_phase(model, segments):
-  """One CFG decoder step at full width on the card (kernel) and on the
-  CPU (plain attention, float32 matmuls on both)."""
-  tokens = torch.as_tensor(segments[0][None].astype(np.int64))
-  ctx = torch.full((1, 256, 128), model.audio_codec.pad_value)
-  batch = {"encoder_input_tokens": tokens, "encoder_continuous_inputs": ctx,
+def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
+  """The int8 path from a MIDI file; returns the model, the segments and
+  the two kernels' launch counts."""
+  experiment = serving_experiment()
+  t0 = time.perf_counter()
+  model = inference.InferenceModel(experiment, seed=seed, device="cuda",
+                                   compute_dtype="int8")
+  total, int8 = quantize.quantized_bytes(model.model.module.state_dict())
+  log(f"  int8 context_base built from seed {seed} on the card "
+      f"({time.perf_counter() - t0:.2f} s): weights {total / 2**30:.3f} GiB, "
+      f"{int8 / 2**30:.3f} GiB of it int8 (quantized_bytes)")
+  os.makedirs("out", exist_ok=True)
+  midi = os.path.join("out", f"chip_smoke_seed{seed}.mid")
+  seg_seconds = experiment.task_lengths.targets / 50.0  # 50 frames/s
+  # segment_midi covers the song's end + 0.5 s: 3 segments of 5.12 s.
+  midi_song(seed, midi, SEGMENTS * seg_seconds - 1.3)
+  t0 = time.perf_counter()
+  ns = midi_io.read_midi_file(midi)
+  segments = synthesize_midi.segment_midi(
+      ns, synthesize_midi.SegmentSettings.for_experiment(experiment),
+      model.task_lengths)
+  host_s = time.perf_counter() - t0
+  check(len(segments) == SEGMENTS, f"{len(segments)} segments from {midi}")
+  log(f"  wrote and read back {midi}: {len(ns.notes)} notes, "
+      f"{ns.total_time:.2f} s; segment_midi gave {len(segments)} segments "
+      f"of {[len(x) for x in segments]} tokens ({host_s:.2f} s on the host)")
+  voc = vocoder.GriffinLimVocoder(num_iters=32, device="cuda")
+  synth = model.synthesizer(voc)
+  l_in = synth._input_length(max(len(x) for x in segments))
+  check(l_in == experiment.task_lengths.inputs,
+        f"the song's longest segment runs at {l_in} input tokens, not the "
+        f"task's {experiment.task_lengths.inputs}")
+  torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated() / 2**30
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+  t0 = time.perf_counter()
+  render = synth.render_song(segments)
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              quantize.quantized_matmul.launches)
+  expected = (SEGMENTS * attention_launches(experiment),
+              SEGMENTS * sum(r["launches_per_segment"] for r in qmm_rows))
+  n_frames = SEGMENTS * experiment.task_lengths.targets
+  check(render.mel.shape == (n_frames, 128), f"mel shape {render.mel.shape}")
+  check(bool(np.isfinite(render.mel).all()), "mel finite")
+  check(render.audio.shape == (n_frames * model.audio_codec.hop_size,),
+        f"audio shape {render.audio.shape}")
+  check(bool(np.isfinite(render.audio).all()), "audio finite")
+  check(launches[0] > 0 and launches[0] == expected[0],
+        f"flash_attention launches {launches[0]}, expected {expected[0]}")
+  check(launches[1] > 0 and launches[1] == expected[1],
+        f"quantized_matmul launches {launches[1]}, expected {expected[1]}")
+  tm = render.timings
+  audio_s = tm["audio_seconds"]
+  log(f"  mel {render.mel.shape} finite, audio {render.audio.shape} finite "
+      f"({audio_s:.2f} s of audio)")
+  log(f"  flash_attention launches {launches[0]} = expected {expected[0]} "
+      f"(bf16); quantized_matmul launches {launches[1]} = expected "
+      f"{expected[1]} ({SEGMENTS} x {expected[1] // SEGMENTS} per segment, "
+      f"from phase 4's shapes)")
+  parts = attention_ms_per_segment(rows, experiment, "bfloat16")
+  log(f"  [{card}] attention kernel per segment, from phase 3's bf16 call "
+      f"times x launches: {sum(parts.values()):.1f} ms (" + ", ".join(
+          f"{k} {v:.1f} ms" for k, v in parts.items()) + ")")
+  qmm_ms = sum(r["ms"] * r["launches_per_segment"] for r in qmm_rows)
+  log(f"  [{card}] int8 GEMM kernel per segment, from phase 4's call times x "
+      f"launches: {qmm_ms:.1f} ms of the steady segment's "
+      f"{1e3 * tm['steady_segment_seconds']:.1f} ms")
+  log(f"  [{card}] sampler {tm['prediction_seconds']:.3f} s for "
+      f"{SEGMENTS} segments (steady {tm['steady_segment_seconds']:.3f} s per "
+      f"{seg_seconds:.2f} s segment); vocoder "
+      f"{tm['audio_decode_seconds']:.3f} s; realtime factor "
+      f"{audio_s / wall:.3f} (audio s / wall s, {wall:.3f} s wall); peak "
+      f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+      f"({resident:.2f} GiB of it allocated before the render)")
+  eager, replay, _ = forward_ms(model, segments[0], stream)
+  log(f"  [{card}] one CFG-pair decoder forward: {eager:.3f} ms eager "
+      f"(host clock), {replay:.3f} ms on the card alone (CUDA graph); "
+      f"x {experiment.diffusion.sampler.num_steps} steps")
+  wav = os.path.join("out", f"chip_smoke_seed{seed}_int8.wav")
+  peak = max(float(np.abs(render.audio).max()), 1e-9)
+  wav_io.write_wav(wav, render.audio / peak, model.audio_codec.sample_rate)
+  log(f"  wrote {wav} (peak-normalized; the weights are random)")
+  return model, segments, launches
+
+
+def bf16_phase(seed: int, card: str, tokens: np.ndarray, stream):
+  """The bf16 serving cast at full width: what each projection stores, and
+  one CFG-pair decoder forward on the card."""
+  experiment = serving_experiment()
+  t0 = time.perf_counter()
+  model = inference.InferenceModel(experiment, seed=seed, device="cuda",
+                                   compute_dtype="bfloat16")
+  module = model.model.module
+  n_f32 = 0
+  for name, sub in module.named_modules():
+    if isinstance(sub, layers.DenseGeneral):
+      check(not sub.is_int8 and sub.kernel.dtype == sub.dtype,
+            f"{name} computes in {sub.dtype} but stores {sub.kernel.dtype}")
+      n_f32 += sub.dtype == torch.float32
+  nbytes = sum(t.numel() * t.element_size()
+               for t in module.state_dict().values())
+  log(f"  bf16 context_base built from seed {seed} on the card "
+      f"({time.perf_counter() - t0:.2f} s): weights {nbytes / 2**30:.3f} GiB;"
+      f" every projection stores the dtype it computes in ({n_f32} float32: "
+      f"FiLM and spec_out_dense)")
+  eager, replay, out = forward_ms(model, tokens, stream)
+  check(out.shape == (2, experiment.task_lengths.targets, 128)
+        and out.dtype == torch.bfloat16, f"bf16 forward gave {out.dtype} "
+        f"{tuple(out.shape)}")
+  check(bool(torch.isfinite(out).all()), "bf16 forward finite")
+  log(f"  [{card}] one CFG-pair decoder forward (bf16): {eager:.3f} ms eager "
+      f"(host clock), {replay:.3f} ms on the card alone (CUDA graph); "
+      f"output {tuple(out.shape)} bf16 finite")
+
+
+def reference_phase(model, segments, tolerance):
+  """One CFG decoder step at full width on the card (kernels) and on the
+  CPU (plain versions); `tolerance(output max)` bounds the max abs diff."""
+  l_in = model.task_lengths["inputs"]
+  tokens = np.zeros((1, l_in), np.int64)
+  tokens[0, :len(segments[0])] = segments[0][:l_in]
+  batch = {"encoder_input_tokens": torch.as_tensor(tokens),
+           "encoder_continuous_inputs": torch.full(
+               (1, 256, 128), model.audio_codec.pad_value),
            "encoder_continuous_mask": torch.zeros(1, 256, dtype=torch.bool)}
   z = torch.randn(2, 256, 128, generator=torch.Generator().manual_seed(1))
   time_ = torch.tensor([0.5, 0.5])
@@ -292,17 +663,31 @@ def reference_phase(model, segments):
       enc = m.encode(b)
       kv = m.module.precompute_cross_kv(enc)
       outs.append(m.module.decode(enc, z.to(dev), time_.to(dev),
-                                  cross_kv=kv, cond_rows=1).cpu())
+                                  cross_kv=kv, cond_rows=1).cpu().float())
   err = (outs[0] - outs[1]).abs().max().item()
+  rms = ((outs[0] - outs[1]).pow(2).mean() / outs[1].pow(2).mean()).sqrt()
   scale = outs[1].abs().max().item()
   check(bool(torch.isfinite(outs[0]).all()), "card decoder output finite")
+  tol, why = tolerance(scale)
+  check(err <= tol, f"card vs CPU decoder step: max abs diff {err} > {tol}")
+  log(f"  decoder CFG step ({model.experiment.dtype}), card vs CPU: max abs "
+      f"diff {err:.3g}, relative RMS {rms.item():.3g} (output max "
+      f"{scale:.3g}; tol {why} = {tol:.3g})")
+
+
+def f32_tolerance(scale):
   # The FiLM time embedding takes sin/cos of up to 1e4 rad at t = 0.5,
   # where one ulp of exp in an inverse timescale (the two devices' float32
   # exp differ there) moves the argument by ~6e-4.
-  tol = 3e-4 * scale + 1e-4
-  check(err <= tol, f"card vs CPU decoder step: max abs diff {err} > {tol}")
-  log(f"  decoder CFG step, card vs CPU: max abs diff {err:.3g} "
-      f"(output max {scale:.3g}; tol 3e-4 x max + 1e-4 = {tol:.3g})")
+  return 3e-4 * scale + 1e-4, "3e-4 x max + 1e-4"
+
+
+def int8_tolerance(scale):
+  # The same weights and arithmetic, but bf16 activations: the kernels sum
+  # in another order than the CPU and the flash kernel rounds p to bf16
+  # before p.v, so values differ by bf16 rounding steps (2^-8 relative),
+  # carried through 24 residual layers.
+  return 5e-2 * scale, "5e-2 x max"
 
 
 def main() -> int:
@@ -317,6 +702,7 @@ def main() -> int:
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   gen = torch.Generator("cuda").manual_seed(args.seed)
+  capture = torch.cuda.Stream()  # every CUDA-graph timing runs on it
 
   t0 = time.perf_counter()
   card = card_line()
@@ -326,45 +712,98 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
+  _build.build("flash_fwd", "qmm")  # both nvcc processes run together
   attention._library()
-  report = _build.compiler_report("flash_fwd")
-  usage = [l.strip() for l in report.splitlines()
-           if "registers" in l or "spill" in l]
-  log(f"phase 2 build: flash_fwd.cu with nvcc "
+  quantize._library()
+  log(f"phase 2 build: flash_fwd.cu and qmm.cu with nvcc "
       f"({time.perf_counter() - t0:.2f} s)")
-  for line in usage[:4]:
-    log(f"  ptxas: {line}")
+  for name in ("flash_fwd", "qmm"):
+    usage = sorted({l.strip() for l in _build.compiler_report(name)
+                    .splitlines() if "registers" in l or "spill" in l})
+    for line in usage:  # distinct lines over the kernel's instantiations
+      log(f"  ptxas {name}: {line}")
 
   t0 = time.perf_counter()
   rows = kernel_phase(gen)
-  log(f"phase 3 kernel vs plain: {len(rows)} checks passed "
+  log(f"phase 3 attention kernel vs plain: {len(rows)} checks passed "
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  model, segments, launches = main_phase(args.seed, card, rows)
-  log(f"phase 4 main path ({time.perf_counter() - t0:.2f} s)")
+  # The int8 path's input length: its MIDI song is made dense enough that
+  # the longest segment needs all of the task's input tokens (phase 7
+  # checks that it does).
+  experiment = serving_experiment()
+  shapes = qmm_shapes(experiment, experiment.task_lengths.inputs)
+  qmm_rows = qmm_phase(shapes, gen, capture)
+  log(f"phase 4 int8 GEMM kernel vs plain: {len(qmm_rows)} shapes passed "
+      f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  reference_phase(model, segments)
-  log(f"phase 5 reference check ({time.perf_counter() - t0:.2f} s)")
+  model, segments, f32_launches = main_phase(args.seed, card, rows, capture)
+  log(f"phase 5 main path, float32 from event tokens "
+      f"({time.perf_counter() - t0:.2f} s)")
 
-  # The kernel line's numbers: one f32 call at each shape at b=2.
+  t0 = time.perf_counter()
+  reference_phase(model, segments, f32_tolerance)
+  log(f"phase 6 reference check, float32 ({time.perf_counter() - t0:.2f} s)")
+  del model
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  model, segments, int8_launches = int8_phase(args.seed, card, rows,
+                                              qmm_rows, capture)
+  log(f"phase 7 main path, int8 from a MIDI file "
+      f"({time.perf_counter() - t0:.2f} s)")
+
+  t0 = time.perf_counter()
+  reference_phase(model, segments, int8_tolerance)
+  log(f"phase 8 reference check, int8 ({time.perf_counter() - t0:.2f} s)")
+  del model
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  bf16_phase(args.seed, card, segments[0], capture)
+  log(f"phase 9 bf16 decoder forward ({time.perf_counter() - t0:.2f} s)")
+
+  # Each kernel's numbers: one call at each of its main-path shapes (the
+  # attention kernel's f32 calls at b=2), summed.
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
-  total = lambda key: sum(r[key] for r in f32)  # noqa: E731
+
+  def total(key, rows_):
+    return sum(r[key] for r in rows_)
+
   kernels = {"kernels": [{
       "name": "flash_attention_fwd",
       "route": "cuda",
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_fwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:441",
-      "launches": launches,
+      "launches": f32_launches + int8_launches[0],
+      "launches_by_path": {"float32": f32_launches,
+                           "int8": int8_launches[0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
-      "ms": total("ms"),
-      "plain_ms": total("plain_ms"),
-      "bound_ms": total("bound_ms"),
+      "ms": total("ms", f32),
+      "plain_ms": total("plain_ms", f32),
+      "bound_ms": total("bound_ms", f32),
       "bound_by": "operations" if all(
           r["bound_by"] == "operations" for r in f32) else "bytes",
-      "library_ms": total("library_ms"),
+      "library_ms": total("library_ms", f32),
       "per_shape": rows,
+  }, {
+      "name": "int8_weight_only_gemm",
+      "route": "cuda",
+      "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/qmm.cu",
+      "replaces": "music_spectrogram_diffusion_tpu/ops/quantize.py:114",
+      "launches": int8_launches[1],
+      "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
+      "ms": total("ms", qmm_rows),
+      "plain_ms": total("plain_ms", qmm_rows),
+      "bound_ms": total("bound_ms", qmm_rows),
+      "bound_by": "operations" if all(
+          r["bound_by"] == "operations" for r in qmm_rows) else "bytes",
+      "library_ms": total("library_ms", qmm_rows),
+      "ms_per_segment": sum(r["ms"] * r["launches_per_segment"]
+                            for r in qmm_rows),
+      "per_shape": qmm_rows,
   }]}
   print(json.dumps(kernels))
   print(card)

@@ -29,6 +29,10 @@ class MelGan:
   max_value = 4.0
   pad_value = float(np.log(1e-5))
   frame_length = 640
+  # 16 extra frames: the tail frames of a pad_end STFT see zero-padding,
+  # so the reference encodes 16 frames past a segment's end and slices
+  # them off; the MIDI front end's segment split carries them.
+  additional_frames_for_encoding = 16
   fft_size = 1024
   lo_hz = 0.0
 

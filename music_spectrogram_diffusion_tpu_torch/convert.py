@@ -12,8 +12,11 @@ The tree is nested dicts of numpy arrays, as `flax.serialization` or an
 * the position tables, FiLM kernels and norm scales are parameters and are
   copied like any other leaf (the permuted tables are never recomputed).
 
-An int8 serving tree (leaves `kernel_scale`) is refused: int8 waits for
-the weight-only int8 GEMM kernel (ROADMAP).
+An int8 serving tree (the JAX package's `quantize_params` output) is taken
+too: an int8 `kernel` and its sibling float32 `kernel_scale` are copied
+exactly, as int8 and float32, and load into the DenseGeneral's int8 form
+(`infer.inference.load_serving_state_`). Float leaves of such a tree (bf16
+after the serving cast) are copied exactly in float32, like any other.
 """
 
 from __future__ import annotations
@@ -56,8 +59,10 @@ def flax_to_state_dict(params: Mapping[str, Any],
                        module: nn.Module) -> Dict[str, torch.Tensor]:
   """Map a Flax params tree onto `module`'s state_dict keys and shapes.
 
-  Raises if a leaf has no counterpart, a counterpart has no leaf, a size
-  differs, or the tree is an int8 serving tree.
+  `module` is the float model; an int8 kernel maps onto its float
+  kernel's name and shape, and its `kernel_scale` onto a new name beside
+  it. Raises if a leaf has no counterpart, a counterpart has no leaf, a
+  size differs, or an int8 kernel and its scale do not come in a pair.
   """
   if "params" in params and len(params) == 1:
     raise ValueError("pass the tree under 'params', not the variables dict")
@@ -66,18 +71,26 @@ def flax_to_state_dict(params: Mapping[str, Any],
   out: Dict[str, torch.Tensor] = {}
   for path, leaf in flat.items():
     arr = np.asarray(leaf)
-    if path.endswith("kernel_scale") or arr.dtype == np.int8:
-      raise NotImplementedError(
-          f"{path}: int8 serving trees are not ported yet (ROADMAP: int8 "
-          "serving with the weight-only int8 GEMM kernel)")
     name = torch_name(path)
+    if path.endswith("/kernel_scale"):
+      kernel_path = path[:-len("_scale")]
+      if np.asarray(flat.get(kernel_path)).dtype != np.int8:
+        raise ValueError(f"{path} without an int8 kernel beside it")
+      kernel = target.get(name[:-len("_scale")])
+      if kernel is None or arr.shape != (kernel.shape[1],):
+        raise ValueError(f"{path}: {arr.shape} does not fit the columns of "
+                         f"{name[:-len('_scale')]}")
+      out[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+      continue
+    if arr.dtype == np.int8 and f"{path}_scale" not in flat:
+      raise ValueError(f"int8 leaf {path} has no kernel_scale beside it")
     if name not in target:
       raise KeyError(f"Flax leaf {path} -> {name}: no such parameter")
     want = tuple(target[name].shape)
     if arr.size != int(np.prod(want)):
       raise ValueError(f"{path}: {arr.shape} does not fit {name} {want}")
-    out[name] = torch.from_numpy(
-        np.array(arr, dtype=np.float32).reshape(want))
+    dtype = np.int8 if arr.dtype == np.int8 else np.float32
+    out[name] = torch.from_numpy(np.array(arr, dtype=dtype).reshape(want))
   missing = sorted(set(target) - set(out))
   if missing:
     raise KeyError(f"parameters without a Flax leaf: {missing}")

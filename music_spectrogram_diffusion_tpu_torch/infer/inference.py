@@ -4,7 +4,9 @@ Port of music_spectrogram_diffusion_tpu/infer/inference.py. The weights
 come from a port `state_dict` (for a JAX checkpoint: `convert.py` on its
 params tree) or are drawn at random from a seed; the orbax restore stays
 in the JAX package. The port serves the context diffusion family in
-float32.
+float32, or with `compute_dtype` in bfloat16 (`cast_params_bf16`) or with
+weight-only int8 kernels on a bfloat16 network (`ops.quantize`), as the
+JAX package's InferenceModel does.
 """
 
 from __future__ import annotations
@@ -13,11 +15,16 @@ import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch import nn
 
 from music_spectrogram_diffusion_tpu_torch import config as cfg_lib
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
+from music_spectrogram_diffusion_tpu_torch.models import layers
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
     model as diffusion_model, network as diffusion_network)
+from music_spectrogram_diffusion_tpu_torch.ops import quantize
+
+COMPUTE_DTYPES = (None, "float32", "bfloat16", "int8")
 
 
 def resolve_device(device) -> torch.device:
@@ -31,26 +38,105 @@ def resolve_device(device) -> torch.device:
   return dev
 
 
+def cast_params_bf16(state: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+  """Cast float32 tensors to bfloat16 for serving.
+
+  As the JAX package's `cast_params_bf16`: every float32 tensor is cast,
+  position tables, norm scales, embeddings and FiLM kernels included,
+  except those under `spec_out_dense` (the output projection, computed in
+  float32). The scales of int8 kernels stay float32, as the kernel takes
+  them.
+  """
+  def keep(name: str, tensor: torch.Tensor) -> bool:
+    parts = name.split(".")
+    return (tensor.dtype != torch.float32 or "spec_out_dense" in parts
+            or parts[-1] == "kernel_scale")
+  return {name: t if keep(name, t) else t.to(torch.bfloat16)
+          for name, t in state.items()}
+
+
+def load_serving_state_(module: nn.Module,
+                        state: Mapping[str, torch.Tensor]) -> None:
+  """Load `state` into `module` keeping each tensor's dtype (strict).
+
+  Every DenseGeneral whose `kernel_scale` the state holds takes its int8
+  form first; every other parameter takes the state's dtype, so a
+  bfloat16 tensor is stored, not converted on each call. A float
+  DenseGeneral that computes in another dtype than its kernel's (FiLM
+  computes in float32 in a bfloat16 network) stores the kernel's values in
+  its compute dtype: bf16-rounded values held in float32, as the JAX
+  package's FiLM computes with them, and no per-call cast.
+  """
+  for prefix, sub in module.named_modules():
+    if (isinstance(sub, layers.DenseGeneral)
+        and f"{prefix}.kernel_scale" in state and not sub.is_int8):
+      layers.quantize_dense_(sub, state[f"{prefix}.kernel"],
+                             state[f"{prefix}.kernel_scale"])
+  module.load_state_dict(state, strict=True, assign=True)
+  for sub in module.modules():
+    if (isinstance(sub, layers.DenseGeneral) and not sub.is_int8
+        and sub.kernel.dtype != sub.dtype):
+      sub.kernel = nn.Parameter(sub.kernel.to(sub.dtype), requires_grad=False)
+
+
+def serving_experiment(experiment: cfg_lib.ExperimentConfig,
+                       compute_dtype: Optional[str]
+                       ) -> cfg_lib.ExperimentConfig:
+  """The experiment with the network dtype `compute_dtype` asks for: int8
+  computes the network in bfloat16; None keeps the experiment's own."""
+  if compute_dtype not in COMPUTE_DTYPES:
+    raise ValueError(f"compute_dtype {compute_dtype!r} not in "
+                     f"{COMPUTE_DTYPES}")
+  if compute_dtype is None:
+    return experiment
+  return dataclasses.replace(
+      experiment,
+      dtype="bfloat16" if compute_dtype == "int8" else compute_dtype)
+
+
 def build_model(experiment: cfg_lib.ExperimentConfig,
                 *,
                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                 seed: int = 0,
-                device="cuda") -> diffusion_model.ContextDiffusionModel:
+                device="cuda",
+                compute_dtype: Optional[str] = None
+                ) -> diffusion_model.ContextDiffusionModel:
   """The model an ExperimentConfig describes, on `device`.
 
-  Weights: `state_dict` if given, else random from `seed` (drawn on the
-  CPU, so a seed gives the same weights on every device).
+  Weights: `state_dict` if given (float, or an int8 serving state such as
+  `convert.py` makes of an int8 Flax tree), else random from `seed` (drawn
+  on the CPU in float32, so a seed gives the same weights on every
+  device). `compute_dtype` 'bfloat16' casts them with `cast_params_bf16`
+  and runs the network in bf16; 'int8' also quantizes every large kernel
+  from its bf16 values (`ops.quantize.quantize_params`, as the JAX
+  package's `quantize_params(cast_params_bf16(params))`).
   """
+  return _build_served(serving_experiment(experiment, compute_dtype),
+                       state_dict=state_dict, seed=seed, device=device,
+                       compute_dtype=compute_dtype)
+
+
+def _build_served(experiment: cfg_lib.ExperimentConfig, *, state_dict,
+                  seed: int, device, compute_dtype: Optional[str]
+                  ) -> diffusion_model.ContextDiffusionModel:
+  """`build_model` on an experiment `serving_experiment` has resolved."""
   if experiment.model_family != "diffusion" or not experiment.with_context:
     raise NotImplementedError(
         f"{experiment.model_family} (with_context={experiment.with_context})"
         " is not ported yet; the port serves the context diffusion family")
   dev = resolve_device(device)
   module = diffusion_network.ContextTransformer(experiment.network())
-  if state_dict is not None:
-    module.load_state_dict(state_dict, strict=True)
-  else:
+  if state_dict is None:
     module.init_weights(torch.Generator().manual_seed(seed))
+    state = module.state_dict()
+  else:
+    state = dict(state_dict)
+  if compute_dtype in ("bfloat16", "int8"):
+    state = cast_params_bf16(state)
+  if compute_dtype == "int8":
+    state = quantize.quantize_params(state)
+  load_serving_state_(module, state)
   module.to(dev).eval()
   return diffusion_model.ContextDiffusionModel(
       module, experiment.diffusion, codecs.get_codec(experiment.codec_name))
@@ -87,11 +173,18 @@ class InferenceModel:
                *,
                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                seed: int = 0,
-               device="cuda"):
-    """See `build_model`; `with_sampler` changes the sampler first."""
-    self.experiment = experiment
-    self.model = build_model(experiment, state_dict=state_dict, seed=seed,
-                             device=device)
+               device="cuda",
+               compute_dtype: Optional[str] = None):
+    """See `build_model`; `with_sampler` changes the sampler first.
+
+    compute_dtype: None or 'float32' (the default: the experiment's own
+    dtype), 'bfloat16' or 'int8'. The sampler's state and the output
+    projection stay float32 in every case.
+    """
+    self.experiment = serving_experiment(experiment, compute_dtype)
+    self.model = _build_served(self.experiment, state_dict=state_dict,
+                               seed=seed, device=device,
+                               compute_dtype=compute_dtype)
 
   @property
   def task_lengths(self) -> Dict[str, int]:

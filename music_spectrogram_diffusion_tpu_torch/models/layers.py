@@ -5,8 +5,9 @@ the Flax layout and names (2-D `kernel` [in, out], `scale`, `embedding`),
 so `convert.py` moves a Flax tree over leaf for leaf. Training is not
 ported yet: there is no dropout here.
 
-Every attention goes through `ops.attention.flash_attention`: the CUDA
-kernel on the card, its plain version on the CPU.
+Every attention goes through `ops.attention.flash_attention`, and every
+int8 `DenseGeneral` through `ops.quantize.quantized_matmul`: the CUDA
+kernels on the card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from music_spectrogram_diffusion_tpu_torch.ops import attention
+from music_spectrogram_diffusion_tpu_torch.ops import quantize
 
 _ACTIVATIONS = {
     "linear": lambda x: x,
@@ -72,6 +74,9 @@ class DenseGeneral(nn.Module):
   """Bias-free linear map over the last len(in_features) input axes.
 
   `kernel` is stored flat, [prod(in_shape), prod(features)], as in Flax.
+  In its int8 form (`quantize_dense_`), as in an int8 serving tree of the
+  JAX package, `kernel` is int8 and a float32 `kernel_scale` [N] sits
+  beside it; the product then goes through `quantized_matmul`.
   """
 
   def __init__(self, in_features: Sequence[int] | int,
@@ -89,12 +94,39 @@ class DenseGeneral(nn.Module):
     _normal_(self.kernel, scale / math.sqrt(self.kernel.shape[0]), generator,
              truncated)
 
+  @property
+  def is_int8(self) -> bool:
+    return self.kernel.dtype == torch.int8
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     n_in = len(self.in_features)
     lead = x.shape[:x.ndim - n_in]
-    y = x.to(self.dtype).reshape(-1, self.kernel.shape[0]) @ self.kernel.to(
-        self.dtype)
+    x2d = x.to(self.dtype).reshape(-1, self.kernel.shape[0])
+    if self.is_int8:
+      y = quantize.quantized_matmul(x2d.contiguous(), self.kernel,
+                                    self.kernel_scale, out_dtype=self.dtype)
+    else:
+      y = x2d @ self.kernel.to(self.dtype)
     return y.reshape(*lead, *self.features)
+
+
+def quantize_dense_(dense: DenseGeneral, q: torch.Tensor,
+                    scale: torch.Tensor):
+  """Turn a float DenseGeneral into its int8 form, in place: `kernel`
+  becomes q (int8, the float kernel's shape) and `kernel_scale` is scale
+  (float32 [N]), both moved to the module's device."""
+  if dense.is_int8:
+    raise ValueError("DenseGeneral is int8 already")
+  if q.dtype != torch.int8 or scale.dtype != torch.float32:
+    raise TypeError(f"int8 kernel and float32 scale wanted, got {q.dtype} "
+                    f"and {scale.dtype}")
+  if q.shape != dense.kernel.shape or scale.shape != q.shape[1:]:
+    raise ValueError(f"int8 kernel {tuple(q.shape)} / scale "
+                     f"{tuple(scale.shape)} do not fit the kernel "
+                     f"{tuple(dense.kernel.shape)}")
+  device = dense.kernel.device
+  dense.kernel = nn.Parameter(q.to(device), requires_grad=False)
+  dense.kernel_scale = nn.Parameter(scale.to(device), requires_grad=False)
 
 
 class MlpBlock(nn.Module):

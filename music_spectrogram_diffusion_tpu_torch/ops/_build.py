@@ -48,39 +48,54 @@ def library_path(name: str) -> Path:
   return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-  """Compile `csrc/<name>.cu` unless a build of this source exists.
+def build(*names: str) -> None:
+  """Compile each `csrc/<name>.cu` that has no build of its source yet.
 
-  The compiler's report (registers, shared memory, spills per kernel, from
-  `-Xptxas -v`) is kept beside the library as `<library>.log`.
+  The nvcc processes all start together and run in parallel. Each
+  compiler's report (registers, shared memory, spills per kernel, from
+  `-Xptxas -v`) is kept beside its library as `<library>.log`. Whatever
+  fails, no compiler is left running and no temporary file is left behind.
   """
-  out = library_path(name)
-  if out.exists():
-    return out
+  todo = [name for name in names if not library_path(name).exists()]
+  if not todo:
+    return
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-  os.close(fd)
+  temps, procs, failures = [], [], []
   try:
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-      raise RuntimeError(
-          f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-          f"{proc.stdout}\n{proc.stderr}")
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    for name in todo:
+      fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+      os.close(fd)
+      temps.append(tmp)
+      procs.append(subprocess.Popen(
+          [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for name, tmp, proc in zip(todo, temps, procs):
+      stdout, stderr = proc.communicate()
+      if proc.returncode != 0:
+        failures.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):"
+                        f"\n{stdout}\n{stderr}")
+        continue
+      out = library_path(name)
+      Path(str(out) + ".log").write_text(stdout + stderr)
+      os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
   finally:
-    if os.path.exists(tmp):
-      os.remove(tmp)
-  return out
+    for proc in procs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for tmp in temps:
+      if os.path.exists(tmp):
+        os.remove(tmp)
+  if failures:
+    raise RuntimeError("\n".join(failures))
 
 
 def load(name: str) -> ctypes.CDLL:
   """Build (if needed) and load `csrc/<name>.cu`; one handle per process."""
   with _lock:
     if name not in _libraries:
-      _libraries[name] = ctypes.CDLL(str(build(name)))
+      build(name)
+      _libraries[name] = ctypes.CDLL(str(library_path(name)))
     return _libraries[name]
 
 

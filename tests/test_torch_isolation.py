@@ -26,9 +26,15 @@ import torch
 assert not torch.cuda.is_available()
 from music_spectrogram_diffusion_tpu_torch import config
 from music_spectrogram_diffusion_tpu_torch.audio import vocoder
+from music_spectrogram_diffusion_tpu_torch.cli import synthesize_midi
 from music_spectrogram_diffusion_tpu_torch.infer import inference
 for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
              lambda: inference.build_model(config.preset("context_tiny")),
+             lambda: inference.InferenceModel(config.preset("context_tiny"),
+                                              compute_dtype="int8"),
+             lambda: synthesize_midi.build_model(synthesize_midi.parse_args(
+                 ["--midi", "song.mid", "--output", "song.wav",
+                  "--size", "tiny"])),
              lambda: vocoder.GriffinLimVocoder()):
   try:
     make()

@@ -131,11 +131,22 @@ def test_convert_refuses_int8_and_unknown_leaves():
           "wo": {"kernel": np.zeros((8, 4), np.float32)}}
   assert set(convert.flax_to_state_dict(good, mlp)) == {"wi.kernel",
                                                          "wo.kernel"}
-  int8 = {"wi": {"kernel": np.zeros((4, 8), np.int8),
-                 "kernel_scale": np.ones(8, np.float32)},
+  # An int8 kernel converts only beside its kernel_scale, exactly; an
+  # unpaired int8 kernel or scale is refused.
+  q = np.arange(-16, 16, dtype=np.int8).reshape(4, 8)
+  int8 = {"wi": {"kernel": q, "kernel_scale": np.full(8, 0.5, np.float32)},
           "wo": good["wo"]}
-  with pytest.raises(NotImplementedError, match="int8"):
-    convert.flax_to_state_dict(int8, mlp)
+  state = convert.flax_to_state_dict(int8, mlp)
+  assert state["wi.kernel"].dtype == torch.int8
+  np.testing.assert_array_equal(state["wi.kernel"].numpy(), q)
+  np.testing.assert_array_equal(state["wi.kernel_scale"].numpy(),
+                                np.full(8, 0.5, np.float32))
+  with pytest.raises(ValueError, match="int8"):
+    convert.flax_to_state_dict({"wi": {"kernel": q}, "wo": good["wo"]}, mlp)
+  with pytest.raises(ValueError, match="int8"):
+    convert.flax_to_state_dict(
+        {"wi": {**good["wi"], "kernel_scale": np.ones(8, np.float32)},
+         "wo": good["wo"]}, mlp)
   with pytest.raises(KeyError):
     convert.flax_to_state_dict({"wo": good["wo"]}, mlp)
   with pytest.raises(KeyError):
