@@ -4,9 +4,9 @@
 
 Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
-  2. build    nvcc builds both kernels from ops/csrc/ (flash_fwd.cu and
-              qmm.cu, two compilers started together) and reports ptxas's
-              registers and spills;
+  2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu,
+              qmm.cu and flash_bwd.cu, three compilers started together) and
+              reports ptxas's registers and spills;
   3. kernel   flash attention against its plain PyTorch version at the
               three attention shapes of the serving path, in float32 and
               bfloat16: error and tolerance, kernel / plain / SDPA
@@ -32,7 +32,23 @@ Phases, each printed on its own line with its seconds:
               the CPU;
   9. bf16     bf16 context_base (compute_dtype="bfloat16", same seed): every
               projection stores its kernel in the dtype it computes in, and
-              one CFG-pair decoder forward is timed eager and as a CUDA graph.
+              one CFG-pair decoder forward is timed eager and as a CUDA graph;
+ 10. kernel   the flash-attention backward against its plain version and
+              against autograd through the plain forward, at the four
+              attention shapes of training at its batch (float32, key masks
+              with an all-masked row): error and tolerance, finite, two
+              launches bitwise equal, kernel / plain / SDPA-backward
+              (yardstick only) times and the bound;
+ 11. main     float32 context_base at full width trains 5 steps through
+              cli/train.py --synthetic (tasks 2048/256/256, batch 8, dropout
+              0.1): loss and grad_norm of each step finite, seconds per step,
+              target frames/s, peak memory; both attention kernels' launch
+              counts must match the config's;
+ 12. check    one training step at full width (batch 1, injected draws, no
+              dropout) on the card against the same step on the CPU: the
+              loss and every parameter's gradient;
+ 13. check    2 steps, a checkpoint, a resumed trainer and 2 more steps
+              against 4 steps straight through.
 Then one JSON line of the kernels, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
@@ -42,8 +58,11 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -53,9 +72,12 @@ import torch
 import torch.nn.functional as F
 
 from music_spectrogram_diffusion_tpu_torch import config
+from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.audio import vocoder
 from music_spectrogram_diffusion_tpu_torch.audio import wav_io
 from music_spectrogram_diffusion_tpu_torch.cli import synthesize_midi
+from music_spectrogram_diffusion_tpu_torch.cli import train as train_cli
+from music_spectrogram_diffusion_tpu_torch.data import registry
 from music_spectrogram_diffusion_tpu_torch.infer import inference
 from music_spectrogram_diffusion_tpu_torch.midi import midi_io
 from music_spectrogram_diffusion_tpu_torch.midi import note_tokens
@@ -64,8 +86,11 @@ from music_spectrogram_diffusion_tpu_torch.midi import vocabularies
 from music_spectrogram_diffusion_tpu_torch.models import layers
 from music_spectrogram_diffusion_tpu_torch.ops import _build
 from music_spectrogram_diffusion_tpu_torch.ops import attention
+from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 from music_spectrogram_diffusion_tpu_torch.ops import quantize
 from music_spectrogram_diffusion_tpu_torch.ops import stft
+from music_spectrogram_diffusion_tpu_torch.train import loop as train_loop
+from music_spectrogram_diffusion_tpu_torch.train import trainer
 
 # H100 SXM, dense, at the 700 W limit (NVIDIA data sheet).
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -100,6 +125,30 @@ L2_BYTES = 50 * 2 ** 20
 # that its longest segment needs the task's full 2048 input tokens.
 MIDI_PROGRAMS = (0, 24, 32, 40, 48, 56, 65, 73)
 MIDI_NOTES_PER_SECOND = 36.0
+# The training path (phases 10-13): the batch, steps and synthetic songs of
+# the full-width run, and the batch of the resume check.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SONGS, RESUME_BATCH = 8, 5, 16, 2
+# The backward kernel against its plain version and autograd, max abs
+# error over max(1, the gradient's max): float32 products and sums in
+# another order (observed <= 5e-6 at these shapes).
+BWD_TOLERANCE = 1e-4
+# One training step, card vs CPU (phase 12). The timing embedding takes
+# sin/cos of arguments up to 2e4 rad (0.37 x 2e4 = 7400 in the check, where
+# one ulp is 4.9e-4 rad), so the card's and the CPU's float32 exp move it
+# by up to ~5e-4; that moves the prediction, and where it flips the sign of
+# an L1 residual it moves every gradient by ~2e-3 (measured: one flip of
+# 32768). So the step as configured holds its loss to STEP_LOSS_TOLERANCE
+# relative and reports its gradients' gap and flips, and the gradients are
+# held card vs CPU with the CPU's timing embedding on both sides.
+STEP_LOSS_TOLERANCE = 1e-4
+# Each gradient's relative RMS: card vs CPU with the same timing embedding
+# (measured <= 2.6e-6), and the kernels vs the plain attention on the card
+# (measured <= 2.5e-6). float32 on both sides, sums in other orders.
+STEP_GRAD_TOLERANCE = 1e-4
+# Resumed vs straight through, the relative RMS of each parameter's total
+# update over the 4 steps and the step losses relative: the same
+# arithmetic, but the embedding's backward on CUDA adds with atomics.
+RESUME_TOLERANCE = 1e-3
 
 
 def log(line: str) -> None:
@@ -116,6 +165,25 @@ def card_line() -> str:
       ["nvidia-smi", "--query-gpu=name,power.limit",
        "--format=csv,noheader"], capture_output=True, text=True,
       check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(name: str) -> list:
+  """Registers and spills of each compiled kernel of `csrc/<name>.cu`, from
+  its `-Xptxas -v` report, one line per entry function."""
+  lines, entry, stack = [], None, ""
+  for line in _build.compiler_report(name).splitlines():
+    m = re.search(r"Compiling entry function '(\w+)'", line)
+    if m:
+      # Drop the anonymous namespace and the Params argument.
+      entry = re.sub(r"ILi(\d+)E", r"<\1>", re.sub(
+          r"^_ZN\d+_GLOBAL__N_\w*?_cu_[0-9a-f]{8}\d+|EEvNS_\d+ParamsE$",
+          "", m.group(1)))
+    elif entry and "spill" in line:
+      stack = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
+    elif entry and "registers" in line:
+      lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; {stack}")
+      entry, stack = None, ""
+  return lines
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -690,6 +758,398 @@ def int8_tolerance(scale):
   return 5e-2 * scale, "5e-2 x max"
 
 
+def training_experiment():
+  """context_base as cli/train.py --preset context_base trains it."""
+  return config.preset("context_base")
+
+
+def bwd_bound_ms(batch, q_len, kv_len):
+  """max(10 b h q kv d FLOPs at the f32 peak, bytes at the HBM rate): q,
+  out, dO, dQ and k, v, dK, dV in f32, the statistics and the key mask."""
+  flops = 10.0 * batch * HEADS * q_len * kv_len * HEAD_DIM
+  nbytes = 4 * (4 * batch * q_len + 4 * batch * kv_len) * HEADS * HEAD_DIM
+  nbytes += 4 * 2 * batch * HEADS * q_len + batch * kv_len
+  t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S
+  return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
+def bwd_kernel_phase(gen, batch: int):
+  """The backward kernel at the four attention shapes of training."""
+  rows = []
+  for name, q_len, kv_len, masked, _ in SHAPES:
+    # Training attends over uncached K/V in [b, l, h, d].
+    q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked, False,
+                                     torch.float32, gen)
+    out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
+                                           return_stats=True)
+    dout = torch.randn(out.shape, device="cuda", generator=gen)
+
+    def kernel():
+      return attention.flash_attention_bwd(q, k, v, None, mask, out, stats,
+                                           dout)
+
+    def plain():
+      return attention.flash_attention_bwd_reference(q, k, v, None, mask,
+                                                     out, stats, dout)
+
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    qkv = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention.attention_reference(*qkv, kv_mask=mask).backward(dout)
+    errs = []
+    for what, g, w_plain, w_auto in zip("qkv", got, want, qkv):
+      check(bool(torch.isfinite(g).all()), f"{name} d{what} finite")
+      if mask is not None:
+        check(bool(torch.isfinite(g[-1]).all()),
+              f"{name} d{what} finite on the all-masked row")
+      for ref_name, ref in (("plain", w_plain), ("autograd", w_auto.grad)):
+        err = (g - ref).abs().max().item()
+        tol = BWD_TOLERANCE * max(1.0, ref.abs().max().item())
+        check(err <= tol, f"{name} d{what}: max |kernel - {ref_name}| {err} "
+              f"> {tol}")
+        errs.append(err)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two launches differ")
+    del want, qkv
+    # SDPA yardstick: the backward of one SDPA call with the boolean mask,
+    # [b, h, l, d] (its all-masked row gives NaN; it is timed, not used).
+    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    bool_mask = None if mask is None else mask[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bool_mask,
+                                             scale=1.0)
+    lib_dout = dout.transpose(1, 2).contiguous()
+
+    def library():
+      return torch.autograd.grad(lib_out, (sq, sk, sv), lib_dout,
+                                 retain_graph=True)
+
+    iters = 3 if q_len > 256 else 20
+    ms, plain_ms, lib_ms = (cuda_ms(kernel, iters), cuda_ms(plain, iters),
+                            cuda_ms(library, iters))
+    del lib_out
+    # The training forward at this batch: the forward kernel with the
+    # statistics output.
+    fwd_ms = cuda_ms(lambda: attention.flash_attention(
+        q, k, v, kv_mask=mask, return_stats=True), iters)
+    bound, bound_by = bwd_bound_ms(batch, q_len, kv_len)
+    log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} float32: max_abs_err "
+        f"{max(errs):.3g} (tol {BWD_TOLERANCE} x max(1, |grad| max)), "
+        f"finite{' with an all-masked row' if masked else ''}, bitwise "
+        f"reproducible; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"backward {lib_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}); the "
+        f"forward kernel with statistics {fwd_ms:.4f} ms")
+    rows.append(dict(shape=name, batch=batch, q_len=q_len, kv_len=kv_len,
+                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                     forward_ms=fwd_ms))
+  return rows
+
+
+def attention_calls_per_step(experiment) -> int:
+  """Attention calls (so backward launches) of one training step: each
+  encoder's self-attention, the decoder's self-attention and its
+  cross-attention modules, once per layer."""
+  net = experiment.network()
+  n_cross = 1 if net.cross_attend_style == "concat_encodings" else 2
+  return 2 * net.num_encoder_layers + (1 + n_cross) * net.num_decoder_layers
+
+
+def train_phase(seed: int, card: str, bwd_rows):
+  """cli/train.py --synthetic at full width on the card."""
+  experiment = training_experiment()
+  model_dir = os.path.join("out", "chip_smoke_train")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  argv = ["--synthetic", "--preset", "context_base", "--model_dir",
+          model_dir, "--steps", str(TRAIN_STEPS), "--batch",
+          str(TRAIN_BATCH), "--log_period", "1", "--seed", str(seed),
+          "--synthetic_examples", str(TRAIN_SONGS), "--device", "cuda"]
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  quantize.quantized_matmul.launches = 0
+  t0 = time.perf_counter()
+  state, t = train_cli.main(argv)
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+  check(quantize.quantized_matmul.launches == 0,
+        "the training path launched the int8 GEMM")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  expected = TRAIN_STEPS * attention_calls_per_step(experiment)
+  check(launches[0] == expected and launches[1] == expected,
+        f"training launched flash_fwd {launches[0]} and flash_bwd "
+        f"{launches[1]} times, expected {expected} each")
+  check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    lines = [json.loads(l) for l in f]
+  check([m["step"] for m in lines] == list(range(1, TRAIN_STEPS + 1)),
+        f"logged steps {[m['step'] for m in lines]}")
+  for m in lines:
+    check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+          f"step {m['step']}: loss {m['loss']}, grad_norm {m['grad_norm']}")
+  final = os.path.join(model_dir, f"step_{TRAIN_STEPS}")
+  check(os.path.exists(os.path.join(final, "METADATA")),
+        "no final checkpoint")
+  shutil.rmtree(final)  # 1.6 GB of weights; the metrics stay
+  steady = lines[1:]
+  s_per_step = float(np.mean([m["timing/seconds_per_step"] for m in steady]))
+  frames_per_s = float(np.mean([m["timing/target_frames_per_second"]
+                                for m in steady]))
+  log("  " + "; ".join(
+      f"step {m['step']} loss {m['loss']:.6g} grad_norm {m['grad_norm']:.6g}"
+      for m in lines))
+  log(f"  launches: flash_fwd {launches[0]}, flash_bwd {launches[1]} = "
+      f"expected {expected} ({TRAIN_STEPS} steps x "
+      f"{attention_calls_per_step(experiment)} attention calls)")
+  per_step_bwd = experiment.network().num_encoder_layers * sum(
+      r["ms"] for r in bwd_rows)
+  log(f"  [{card}] {s_per_step:.3f} s per step after the first (first "
+      f"{lines[0]['timing/seconds_per_step']:.3f} s), "
+      f"{frames_per_s:.1f} target frames/s, batch {TRAIN_BATCH}; backward "
+      f"kernel {per_step_bwd:.1f} ms a step from phase 10's call times; "
+      f"peak memory {peak:.2f} GiB; {wall:.2f} s in all (model, data, "
+      f"steps, checkpoint)")
+  summary = dict(seconds_per_step=s_per_step,
+                 target_frames_per_second=frames_per_s, peak_gib=peak,
+                 losses=[m["loss"] for m in lines],
+                 grad_norms=[m["grad_norm"] for m in lines],
+                 backward_kernel_ms_per_step=per_step_bwd)
+  summary["profile"] = profile_step(t, state, experiment, seed, card)
+  return t, launches, summary
+
+
+def profile_step(t, state, experiment, seed: int, card: str) -> dict:
+  """One more training step under torch.profiler: the card's busy time by
+  kernel, summed into groups, against the step's wall time."""
+  from torch.profiler import ProfilerActivity, profile
+  batch = training_batches(experiment, TRAIN_BATCH, 1, seed)[0]
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    _, metrics = t.train_step(state, batch, seed)
+    check(np.isfinite(metrics["loss"].item()), "profiled step's loss")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  groups = {"flash_bwd (kernel #2)": ("flash_bwd",),
+            "flash_fwd (kernel #1)": ("flash_fwd",),
+            "matmul (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
+            "other": ("",)}
+  busy = {g: 0.0 for g in groups}
+  # The kernels themselves (CPU-side operator events also carry their
+  # kernels' device time; counting them too would count it twice).
+  device_events = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+  for e in device_events:
+    key = e.key.lower()
+    group = next(g for g, words in groups.items()
+                 if any(w in key for w in words))
+    busy[group] += e.self_device_time_total / 1e3
+  total = sum(busy.values())
+  check(total > 0, "the profiler saw no device time")
+  top = sorted(device_events, key=lambda e: -e.self_device_time_total)[:6]
+  log(f"  [{card}] one profiled step: {1e3 * wall:.1f} ms wall, the card "
+      f"busy {total:.1f} ms, idle {100 * (1 - total / (1e3 * wall)):.1f}% "
+      f"of the step; busy by kernel group: " + ", ".join(
+          f"{g} {v:.1f} ms" for g, v in busy.items()))
+  log("  largest kernels: " + "; ".join(
+      f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x{e.count}"
+      for e in top))
+  return dict(wall_ms=1e3 * wall, busy_ms=total, by_group=busy)
+
+
+def training_batches(experiment, batch: int, count: int, seed: int):
+  tl = experiment.task_lengths
+  task = registry.synthetic_cached_task(
+      "train", audio_codec=codecs.get_codec(experiment.codec_name),
+      vocab_config=experiment.vocab_config(),
+      note_rep=experiment.note_rep(), with_context=True,
+      program_granularity=experiment.program_granularity,
+      num_examples=TRAIN_SONGS, seed=seed)
+  ds = task.model_dataset({"inputs": tl.inputs, "targets": tl.targets,
+                           "targets_context": tl.targets_context},
+                          seed=seed, num_threads=8)
+  return list(ds.repeat().batch(batch).take(count))
+
+
+def step_check_phase(t, seed: int):
+  """One full-width step (batch 1, injected draws, no dropout) from the
+  same weights: on the card with the kernels, on the card with the plain
+  attention in their place, and on the CPU; then again on the card and the
+  CPU with the CPU's timing embedding on both."""
+  experiment = training_experiment()
+  batch = training_batches(experiment, 1, 1, seed)[0]
+  gen = torch.Generator().manual_seed(seed)
+  target_shape = tuple(batch["decoder_target_tokens"].shape)
+  eps = torch.randn(target_shape, generator=gen)
+  time_ = torch.tensor([0.37])
+  include = torch.tensor([True])
+  cpu_model = copy.copy(t.model)
+  cpu_model.module = copy.deepcopy(t.model.module).cpu()
+  device_embedding = dops.timing_embedding
+
+  def cpu_embedding(position, *args, **kwargs):
+    return device_embedding(position.cpu(), *args, **kwargs).to(
+        position.device)
+
+  def step(m, plain=False, embedding=device_embedding):
+    """(loss, gradients, the network's output, backward launches)."""
+    dev = m.device
+    draws = lambda x0, cfg: (eps.to(dev), time_.to(dev), include.to(dev))
+    outputs = []
+    hook = m.module.register_forward_hook(
+        lambda module, args, out: outputs.append(out.detach().cpu()))
+    launches = attention.flash_attention_bwd.launches
+    kernel_fn = attention.flash_attention_diff
+    if plain:
+      attention.flash_attention_diff = attention.attention_reference
+    dops.timing_embedding = embedding
+    try:
+      metrics, grads = trainer.Trainer(m, experiment.train).loss_and_grads(
+          trainer.batch_to_device(batch, dev), draws, None)
+    finally:
+      attention.flash_attention_diff = kernel_fn
+      dops.timing_embedding = device_embedding
+      hook.remove()
+    used = attention.flash_attention_bwd.launches - launches
+    attention.flash_attention_bwd.launches = launches  # not the main path's
+    return (metrics["loss"].item(), {n: g.cpu() for n, g in grads.items()},
+            outputs[0], used)
+
+  def rel_rms(a, b):
+    denom = b.pow(2).mean().sqrt().item()
+    diff = (a - b).pow(2).mean().sqrt().item()
+    return diff / denom if denom > 0 else diff
+
+  def worst(a, b):
+    return max((rel_rms(a[n], b[n]), n) for n in b)
+
+  card_loss, card_g, card_out, used = step(t.model)
+  check(used == attention_calls_per_step(experiment),
+        f"the card step launched the backward kernel {used} times")
+  plain_loss, plain_g, _, used = step(t.model, plain=True)
+  check(used == 0, "the plain card step launched the kernel")
+  cpu_loss, cpu_g, cpu_out, _ = step(cpu_model)
+  same_loss, same_g, same_out, _ = step(t.model, embedding=cpu_embedding)
+  ref_loss, ref_g, ref_out, _ = step(cpu_model, embedding=cpu_embedding)
+  del cpu_model
+
+  position = time_ * experiment.network().max_decoder_noise_time
+  emb_args = (experiment.network().emb_dim,)
+  emb_kwargs = dict(max_timescale=experiment.network().max_decoder_noise_time)
+  emb_err = (device_embedding(position.to(t.model.device), *emb_args,
+                              **emb_kwargs).cpu()
+             - device_embedding(position, *emb_args, **emb_kwargs)
+             ).abs().max().item()
+  flips = int((torch.sign(card_out - eps) != torch.sign(cpu_out - eps)).sum())
+  same_flips = int((torch.sign(same_out - eps)
+                    != torch.sign(ref_out - eps)).sum())
+  loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+  same_loss_err = abs(same_loss - ref_loss) / abs(ref_loss)
+  check(np.isfinite(card_loss), "card loss finite")
+  check(loss_err <= STEP_LOSS_TOLERANCE,
+        f"card vs CPU loss {card_loss} vs {cpu_loss}")
+  check(same_loss_err <= STEP_LOSS_TOLERANCE,
+        f"card vs CPU loss, the same timing embedding: {same_loss} vs "
+        f"{ref_loss}")
+  for name, g in card_g.items():
+    check(bool(torch.isfinite(g).all()), f"{name} grad finite")
+  kernel_err, kernel_leaf = worst(card_g, plain_g)
+  check(kernel_err <= STEP_GRAD_TOLERANCE,
+        f"kernels vs plain attention on the card, gradient of {kernel_leaf}: "
+        f"relative RMS {kernel_err} above {STEP_GRAD_TOLERANCE}")
+  same_err, same_leaf = worst(same_g, ref_g)
+  check(same_err <= STEP_GRAD_TOLERANCE,
+        f"card vs CPU with the same timing embedding, gradient of "
+        f"{same_leaf}: relative RMS {same_err} above {STEP_GRAD_TOLERANCE}")
+  config_err, config_leaf = worst(card_g, cpu_g)
+  config_median = float(np.median([rel_rms(card_g[n], g)
+                                   for n, g in cpu_g.items()]))
+  log(f"  one step, card vs CPU (batch 1, {len(cpu_g)} parameters, loss "
+      f"{experiment.diffusion.loss_norm}): loss {card_loss:.7g} vs "
+      f"{cpu_loss:.7g} (relative {loss_err:.3g}, tol "
+      f"{STEP_LOSS_TOLERANCE}); plain attention on the card: loss "
+      f"{plain_loss:.7g}")
+  log(f"  gradient relative RMS, largest (tol {STEP_GRAD_TOLERANCE}): "
+      f"kernels vs plain attention on the card {kernel_err:.3g} "
+      f"({kernel_leaf}); card vs CPU with the CPU's timing embedding on "
+      f"both {same_err:.3g} ({same_leaf}; loss relative "
+      f"{same_loss_err:.3g}, L1 sign flips {same_flips})")
+  log(f"  as configured, each device's timing embedding (max abs apart "
+      f"{emb_err:.3g} at position {position.item():g}): prediction "
+      f"relative RMS {rel_rms(card_out, cpu_out):.3g}, L1 sign flips "
+      f"{flips} of {card_out.numel()}, gradient relative RMS largest "
+      f"{config_err:.3g} ({config_leaf}), median {config_median:.3g}")
+  return dict(loss_rel=loss_err, grad_rel_rms_same_embedding=same_err,
+              grad_rel_rms_kernel_vs_plain=kernel_err,
+              grad_rel_rms_as_configured=config_err,
+              l1_sign_flips=flips, timing_embedding_max_abs=emb_err)
+
+
+def resume_phase(t, seed: int):
+  """4 steps straight through against 2 steps, a checkpoint, a trainer
+  resumed from it and 2 more steps on the continuation of the stream."""
+  experiment = dataclasses.replace(
+      training_experiment(), train=dataclasses.replace(
+          training_experiment().train, batch_size=RESUME_BATCH,
+          train_steps=4, checkpoint_period=2))
+  batches = training_batches(experiment, RESUME_BATCH, 4, seed)
+  model_dir = os.path.join("out", "chip_smoke_resume")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  start = {n: p.detach().clone() for n, p in t.params.items()}
+
+  def run(subdir, state, stream, num_steps, init=True):
+    if init:
+      with torch.no_grad():
+        for n, p in t.params.items():
+          p.copy_(start[n])
+    trainer_ = trainer.Trainer(t.model, experiment.train)
+    runner = train_loop.TrainLoop(trainer=trainer_, experiment=experiment,
+                                  model_dir=os.path.join(model_dir, subdir),
+                                  log_period=1)
+    if state is None:
+      state = runner.maybe_resume(trainer_.create_state())
+    return runner.run(stream, state, num_steps=num_steps, seed=seed)
+
+  fresh = trainer.Trainer(t.model, experiment.train).create_state
+  state_a = run("straight", fresh(), iter(batches), 4)
+  straight = {n: p.detach().clone() for n, p in t.params.items()}
+  stream = iter(batches)
+  run("resumed", fresh(), stream, 2)
+  with torch.no_grad():  # the resumed trainer must restore the weights
+    for p in t.params.values():
+      p.zero_()
+  state_b = run("resumed", None, stream, 4, init=False)
+  check(state_a.step == state_b.step == 4, f"steps {state_b.step}")
+  worst = (0.0, "")
+  for n, p in t.params.items():
+    want = straight[n] - start[n]
+    denom = want.pow(2).mean().sqrt().item()
+    rel = ((p - start[n]) - want).pow(2).mean().sqrt().item() / max(
+        denom, 1e-30)
+    worst = max(worst, (rel, n))
+  losses = []
+  for sub in ("straight", "resumed"):
+    with open(os.path.join(model_dir, sub, "metrics.jsonl")) as f:
+      losses.append([json.loads(l)["loss"] for l in f])
+  check(len(losses[0]) == len(losses[1]) == 4, f"losses {losses}")
+  loss_rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+  check(worst[0] <= RESUME_TOLERANCE and loss_rel <= RESUME_TOLERANCE,
+        f"resumed vs straight: update relative RMS {worst[0]} ({worst[1]}), "
+        f"loss relative {loss_rel}")
+  log(f"  batch {RESUME_BATCH}: resumed vs straight through, largest "
+      f"relative RMS of a parameter's 4-step update {worst[0]:.3g} "
+      f"({worst[1]}), step losses relative {loss_rel:.3g} (tol "
+      f"{RESUME_TOLERANCE}); losses {losses[1]}")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  return dict(update_rel_rms=worst[0], loss_rel=loss_rel)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -712,15 +1172,14 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  _build.build("flash_fwd", "qmm")  # both nvcc processes run together
-  attention._library()
+  _build.build("flash_fwd", "qmm", "flash_bwd")  # 3 nvcc processes at once
+  attention._library("flash_fwd")
+  attention._library("flash_bwd")
   quantize._library()
-  log(f"phase 2 build: flash_fwd.cu and qmm.cu with nvcc "
+  log(f"phase 2 build: flash_fwd.cu, qmm.cu and flash_bwd.cu with nvcc "
       f"({time.perf_counter() - t0:.2f} s)")
-  for name in ("flash_fwd", "qmm"):
-    usage = sorted({l.strip() for l in _build.compiler_report(name)
-                    .splitlines() if "registers" in l or "spill" in l})
-    for line in usage:  # distinct lines over the kernel's instantiations
+  for name in ("flash_fwd", "qmm", "flash_bwd"):
+    for line in ptxas_usage(name):
       log(f"  ptxas {name}: {line}")
 
   t0 = time.perf_counter()
@@ -764,6 +1223,28 @@ def main() -> int:
   t0 = time.perf_counter()
   bf16_phase(args.seed, card, segments[0], capture)
   log(f"phase 9 bf16 decoder forward ({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH)
+  log(f"phase 10 attention backward kernel vs plain: {len(bwd_rows)} shapes "
+      f"passed ({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  t, train_launches, train_summary = train_phase(args.seed, card, bwd_rows)
+  log(f"phase 11 main path, training float32 from cli/train.py --synthetic "
+      f"({time.perf_counter() - t0:.2f} s)")
+
+  t0 = time.perf_counter()
+  step_check = step_check_phase(t, args.seed)
+  log(f"phase 12 reference check, one training step "
+      f"({time.perf_counter() - t0:.2f} s)")
+
+  t0 = time.perf_counter()
+  resume = resume_phase(t, args.seed)
+  log(f"phase 13 resume check ({time.perf_counter() - t0:.2f} s)")
+  del t
 
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
@@ -777,9 +1258,10 @@ def main() -> int:
       "route": "cuda",
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_fwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:441",
-      "launches": f32_launches + int8_launches[0],
+      "launches": f32_launches + int8_launches[0] + train_launches[0],
       "launches_by_path": {"float32": f32_launches,
-                           "int8": int8_launches[0]},
+                           "int8": int8_launches[0],
+                           "training": train_launches[0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -804,6 +1286,22 @@ def main() -> int:
       "ms_per_segment": sum(r["ms"] * r["launches_per_segment"]
                             for r in qmm_rows),
       "per_shape": qmm_rows,
+  }, {
+      "name": "flash_attention_bwd",
+      "route": "cuda",
+      "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_bwd.cu",
+      "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:708",
+      "launches": train_launches[1],
+      "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+      "ms": total("ms", bwd_rows),
+      "plain_ms": total("plain_ms", bwd_rows),
+      "bound_ms": total("bound_ms", bwd_rows),
+      "bound_by": "operations" if all(
+          r["bound_by"] == "operations" for r in bwd_rows) else "bytes",
+      "library_ms": total("library_ms", bwd_rows),
+      "per_shape": bwd_rows,
+      "training": dict(train_summary, step_check=step_check,
+                       resume=resume),
   }]}
   print(json.dumps(kernels))
   print(card)

@@ -1,6 +1,7 @@
 """Audio codecs: log-mel features and their scaling to the network's range.
 
-Port of music_spectrogram_diffusion_tpu/audio/codecs.py, MelGan codec only.
+Port of music_spectrogram_diffusion_tpu/audio/codecs.py, MelGan codec only:
+`encode` on tensors, `encode_np` in numpy for the host-side data pipeline.
 Decoding back to audio is the vocoder's job (audio/vocoder.py).
 """
 
@@ -40,6 +41,11 @@ class MelGan:
   def frame_rate(self) -> int:
     return int(self.sample_rate // self.hop_size)
 
+  @property
+  def context_codec(self) -> "MelGan":
+    """The codec of the previous segment's context features: this one."""
+    return self
+
   def scale_features(self, features: torch.Tensor,
                      output_range: Tuple[float, float] = (-1.0, 1.0),
                      clip: bool = False) -> torch.Tensor:
@@ -63,6 +69,18 @@ class MelGan:
   def encode(self, audio: torch.Tensor) -> torch.Tensor:
     """[batch, n_samples] -> [batch, ceil(n_samples / hop), 128] log-mel."""
     return stft.mel_spectrogram(
+        audio, sample_rate=self.sample_rate, n_fft=self.fft_size,
+        hop_length=self.hop_size, win_length=self.frame_length,
+        n_mel_channels=self.n_dims, mel_fmin=self.lo_hz,
+        mel_fmax=self.sample_rate // 2)
+
+  def encode_np(self, audio) -> np.ndarray:
+    """numpy `encode` for the host-side data pipeline (the JAX package's
+    `encode_np`, the same math as `encode`)."""
+    audio = np.asarray(audio, np.float32)
+    if audio.shape[0] == 0:
+      return np.zeros((0, self.n_dims), dtype=np.float32)
+    return stft.mel_spectrogram_np(
         audio, sample_rate=self.sample_rate, n_fft=self.fft_size,
         hop_length=self.hop_size, win_length=self.frame_length,
         n_mel_channels=self.n_dims, mel_fmin=self.lo_hz,

@@ -38,7 +38,7 @@ class TaskLengths:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-  """Training hyperparameters; carried for the JSON, training waits."""
+  """Training hyperparameters (train/trainer.py, train/loop.py)."""
   batch_size: int = 256
   learning_rate: float = 1e-3
   warmup_steps: int = 1000
@@ -94,8 +94,8 @@ def network_config(size: str = "base",
 class ExperimentConfig:
   """Fully-resolved experiment: model + diffusion + task + train.
 
-  Same fields as the JAX package's ExperimentConfig; the port serves the
-  context diffusion family.
+  Same fields as the JAX package's ExperimentConfig; the port serves and
+  trains the context diffusion family.
   """
   size: str = "base"
   with_context: bool = True
@@ -117,6 +117,11 @@ class ExperimentConfig:
   def vocab_config(self) -> vocabularies.VocabularyConfig:
     return vocabularies.VocabularyConfig(
         num_velocity_bins=self.num_velocity_bins)
+
+  def note_rep(self):
+    from music_spectrogram_diffusion_tpu_torch.data import tasks
+    return tasks.NoteRepresentationConfig(
+        onsets_only=self.onsets_only, include_ties=self.include_ties)
 
   def network(self) -> network.NetworkConfig:
     vocab_size = self.vocab_size

@@ -1,0 +1,133 @@
+"""The synthetic training task: tokenize -> split -> chunk -> RLE -> mel ->
+batch.
+
+The training half of music_spectrogram_diffusion_tpu/data/tasks.py, copied
+(`Task.tokenized`, `train_dataset`, `_finalize`, `model_dataset`) without
+the offline tokenization cache, the full-song eval split and the
+mixtures:
+
+  pre-split:  tokenize -> rekey (transcription->synthesis) -> split into
+              <=2000-frame chunks
+  post-split: random-chunk-with-context -> slice events + tie prefix ->
+              program map -> RLE shifts -> mel encode -> length guard ->
+              vocab encode + EOS
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Mapping
+
+from music_spectrogram_diffusion_tpu_torch.audio import codecs
+from music_spectrogram_diffusion_tpu_torch.data import core
+from music_spectrogram_diffusion_tpu_torch.data import feature_converters
+from music_spectrogram_diffusion_tpu_torch.data import preprocessors
+from music_spectrogram_diffusion_tpu_torch.midi import vocabularies
+
+MAX_NUM_CACHED_FRAMES = 2000  # reference tasks.py:38
+
+
+@dataclasses.dataclass(frozen=True)
+class NoteRepresentationConfig:
+  onsets_only: bool = False
+  include_ties: bool = True
+
+
+@dataclasses.dataclass
+class Task:
+  """A fully-wired training task of the context model."""
+  name: str
+  source_fn: Callable[[], core.Dataset]  # yields {'sequence','audio','id'}
+  audio_codec: codecs.MelGan
+  vocab_config: vocabularies.VocabularyConfig
+  note_rep: NoteRepresentationConfig
+  program_granularity: str = "full"
+
+  def __post_init__(self):
+    self.codec = vocabularies.build_codec(self.vocab_config)
+    self.vocabulary = vocabularies.vocabulary_from_codec(self.codec)
+
+  def tokenized(self) -> core.Dataset:
+    """tokenize -> rekey -> split into <= MAX_NUM_CACHED_FRAMES chunks."""
+    def tokenize(ex):
+      return preprocessors.tokenize_example(
+          ns=ex["sequence"], samples=ex["audio"],
+          audio_codec=self.audio_codec, codec=self.codec,
+          onsets_only=self.note_rep.onsets_only,
+          include_ties=self.note_rep.include_ties,
+          example_id=ex.get("id"))
+
+    return (self.source_fn().map(tokenize)
+            .map(preprocessors.rekey_transcription_to_synthesis)
+            .flat_map(lambda ex: preprocessors.split_cached_frames(
+                ex, MAX_NUM_CACHED_FRAMES)))
+
+  def train_dataset(self,
+                    task_feature_lengths: Mapping[str, int],
+                    seed: int = 0,
+                    shuffle_buffer_size: int = 256,
+                    num_threads: int = 1) -> core.Dataset:
+    """Random-chunk training examples with the previous frames as context.
+
+    Chunk starts are drawn fresh every epoch (epoch-mixed seeds) and the
+    chunk stream is reservoir-shuffled; shuffle_buffer_size=0 keeps the
+    order.
+    """
+    l_tgt = task_feature_lengths["targets"]
+    l_ctx = task_feature_lengths.get("targets_context", 0)
+
+    def chunk(ex, ex_seed):
+      return preprocessors.select_random_chunk_with_feature_context(
+          ex, seed=ex_seed, feature_key="targets",
+          feature_context_key="targets_context",
+          max_feature_length=l_tgt, max_context_length=l_ctx,
+          audio_codec=self.audio_codec,
+          additional_feature_keys=[
+              "event_start_indices", "event_end_indices",
+              "state_event_indices"],
+          passthrough_feature_keys=["inputs", "state_events"])
+
+    ds = self.tokenized().map_with_seed(chunk, base_seed=seed)
+    if shuffle_buffer_size:
+      ds = ds.shuffle(shuffle_buffer_size, seed=seed)
+    return self._finalize(ds, task_feature_lengths, num_threads=num_threads)
+
+  def _finalize(self, ds: core.Dataset,
+                task_feature_lengths: Mapping[str, int],
+                num_threads: int = 1) -> core.Dataset:
+    def transform(ex):
+      """The post-split per-example chain (one function, so it can run on
+      a thread pool: numpy's FFT releases the GIL)."""
+      ex = preprocessors.note_representation_chain(
+          ex, codec=self.codec,
+          include_ties=self.note_rep.include_ties,
+          granularity_type=self.program_granularity,
+          feature_key="inputs")
+      ex = preprocessors.encode_audio(
+          ex, audio_codec=self.audio_codec,
+          sequence_lengths=task_feature_lengths,
+          targets_keys=["targets"],
+          context_keys=[k for k in ("targets_context",) if k in ex],
+          keys_to_pad=["targets"])
+      ex = dict(preprocessors.handle_too_long(
+          ex, sequence_lengths=task_feature_lengths,
+          lengths_include_eos_keys=("inputs",)))
+      ex["inputs_pretokenized"] = ex["inputs"]
+      return preprocessors.tokenize_and_append_eos(
+          ex, self.vocabulary, keys=("inputs",))
+
+    if num_threads > 1:
+      return ds.parallel_map(transform, num_threads=num_threads)
+    return ds.map(transform)
+
+  def model_dataset(self, task_feature_lengths: Mapping[str, int],
+                    seed: int = 0,
+                    shuffle_buffer_size: int = 256,
+                    num_threads: int = 1) -> core.Dataset:
+    """Training batches' examples in the model's schema."""
+    ds = self.train_dataset(task_feature_lengths, seed=seed,
+                            shuffle_buffer_size=shuffle_buffer_size,
+                            num_threads=num_threads)
+    return feature_converters.convert_dataset(
+        ds, feature_converters.ContinuousContextFeatureConverter(),
+        task_feature_lengths)

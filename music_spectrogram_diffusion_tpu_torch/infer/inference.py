@@ -2,8 +2,8 @@
 
 Port of music_spectrogram_diffusion_tpu/infer/inference.py. The weights
 come from a port `state_dict` (for a JAX checkpoint: `convert.py` on its
-params tree) or are drawn at random from a seed; the orbax restore stays
-in the JAX package. The port serves the context diffusion family in
+params tree), from a port training checkpoint (`load_checkpoint`), or are
+drawn at random from a seed; the orbax restore stays in the JAX package. The port serves the context diffusion family in
 float32, or with `compute_dtype` in bfloat16 (`cast_params_bf16`) or with
 weight-only int8 kernels on a bfloat16 network (`ops.quantize`), as the
 JAX package's InferenceModel does.
@@ -137,7 +137,7 @@ def _build_served(experiment: cfg_lib.ExperimentConfig, *, state_dict,
   if compute_dtype == "int8":
     state = quantize.quantize_params(state)
   load_serving_state_(module, state)
-  module.to(dev).eval()
+  module.to(dev).eval().requires_grad_(False)  # serving never trains
   return diffusion_model.ContextDiffusionModel(
       module, experiment.diffusion, codecs.get_codec(experiment.codec_name))
 
@@ -200,3 +200,18 @@ class InferenceModel:
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize
     return synthesize.Synthesizer(self.model, self.task_lengths,
                                   vocoder=vocoder)
+
+
+def load_checkpoint(path: str, *, device="cuda",
+                    compute_dtype: Optional[str] = None) -> InferenceModel:
+  """An InferenceModel from a port training checkpoint: a step_<N>
+  directory of `train/checkpoints.py` (or the model directory holding
+  them, for the latest), its experiment from `config.json` and its weights
+  from the saved state."""
+  from music_spectrogram_diffusion_tpu_torch.train import checkpoints
+  restored = checkpoints.restore_checkpoint(path)
+  if "config_json" not in restored:
+    raise ValueError(f"{path} has no config.json")
+  return InferenceModel(cfg_lib.ExperimentConfig.from_json(
+      restored["config_json"]), state_dict=restored["params"],
+                        device=device, compute_dtype=compute_dtype)

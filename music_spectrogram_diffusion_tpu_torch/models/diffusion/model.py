@@ -1,21 +1,24 @@
-"""Context diffusion model: the sampler's predict path in PyTorch.
+"""Context diffusion model: the training loss and the sampler's predict
+path in PyTorch.
 
 Port of music_spectrogram_diffusion_tpu/models/diffusion/model.py
-(`ContextDiffusionModel.predict`; training waits). Per segment the encoders
-run once and the cross-attention K/V are projected once; every sampler
-step then runs the fused CFG pair as one 2B-row decoder forward whose
+(`ContextDiffusionModel`: `loss_fn` with the condition drop of
+`_apply_train`, and `predict`). In `predict` the encoders run once per
+segment and the cross-attention K/V are projected once; every sampler step
+then runs the fused CFG pair as one 2B-row decoder forward whose
 unconditional rows skip cross-attention.
 
 Batch schema:
   encoder_input_tokens      int   [B, L_in]
   encoder_continuous_inputs f32   [B, L_ctx, n_dims]
   encoder_continuous_mask   bool  [B, L_ctx]
-  decoder_target_tokens     f32   [B, L_tgt, n_dims]  (shape only)
+  decoder_target_tokens     f32   [B, L_tgt, n_dims]  (shape only in predict)
+  decoder_target_mask       bool  [B, L_tgt]          (loss_fn only)
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -37,6 +40,57 @@ class ContextDiffusionModel:
   @property
   def device(self) -> torch.device:
     return self.module.decoder.spec_out_dense.kernel.device
+
+  def init(self, seed: int) -> "ContextDiffusionModel":
+    """Random weights from `seed`, drawn on the CPU in float32 (so a seed
+    gives the same weights on every device), then moved to the module's
+    device."""
+    device = self.device
+    cpu = type(self.module)(self.module.config).init_weights(
+        torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+      for name, t in self.module.state_dict().items():
+        t.copy_(cpu.state_dict()[name].to(device))
+    return self
+
+  def loss_fn(self, batch: Mapping[str, torch.Tensor], draws: dops.DrawsFn,
+              dropout_generator: Optional[torch.Generator] = None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked, summed diffusion loss and scalar metrics.
+
+    `draws` gives the step's eps, time and condition drop (JAX draws them
+    from its key); rows whose condition is dropped see no tokens and no
+    context. Dropout runs when `dropout_generator` is given (JAX: a
+    dropout key), and not without one (JAX's eval pass).
+    """
+    targets = self.audio_codec.scale_features(
+        batch["decoder_target_tokens"], output_range=(-1.0, 1.0), clip=True)
+    z_t, eps, time, include = dops.training_input(draws, targets,
+                                                  self.diffusion_config)
+    tokens = batch["encoder_input_tokens"]
+    tokens = tokens * dops.bcast_left(include, tokens.shape).to(tokens.dtype)
+    ctx_mask = batch["encoder_continuous_mask"]
+    ctx_mask = ctx_mask * dops.bcast_left(include, ctx_mask.shape).to(
+        ctx_mask.dtype)
+    context = self.audio_codec.scale_features(
+        batch["encoder_continuous_inputs"], output_range=(-1.0, 1.0),
+        clip=True)
+    model_output = self.module(tokens, context, ctx_mask, z_t, time,
+                               generator=dropout_generator)
+    loss = dops.training_loss(targets, eps, z_t, time, model_output,
+                              self.diffusion_config)
+    mask = batch["decoder_target_mask"]
+    loss = torch.sum(loss * mask[..., None].to(loss.dtype))
+    n_frames = mask.sum().float()
+    metrics = {
+        "loss": loss,
+        "loss_per_frame": loss / torch.clamp(n_frames, min=1.0),
+        "n_frames": n_frames,
+        "n_seqs": torch.tensor(float(targets.shape[0]), device=loss.device),
+        "context_frames": batch["encoder_continuous_mask"].sum(
+            dim=-1).float().mean(),
+    }
+    return loss, metrics
 
   def encode(self, batch: Mapping[str, torch.Tensor]):
     context = self.audio_codec.scale_features(

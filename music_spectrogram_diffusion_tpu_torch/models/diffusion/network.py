@@ -8,8 +8,14 @@ whole segment at once.
 As in the JAX module, `precompute_cross_kv` projects the cross-attention
 K/V once per segment, and `decode(..., cond_rows=B)` runs the fused CFG
 pair as one 2B-row forward whose unconditional rows skip cross-attention
-(their output is exactly zero). Module and parameter names follow the Flax
-tree (`layers_<i>` become `layers.<i>`, see convert.py).
+(their output is exactly zero); both are for serving. Module and parameter
+names follow the Flax tree (`layers_<i>` become `layers.<i>`, see
+convert.py).
+
+Training: every forward takes an optional `generator`; with one, dropout
+runs at the JAX module's sites (rate `dropout_rate`), with the same
+broadcast over the length axis where JAX has it. Without one the forward
+is deterministic. `remat` is not ported.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ class NetworkConfig:
   head_dim: int = 64
   mlp_dim: int = 2048
   mlp_activations: Sequence[str] = ("relu",)
-  # Training is not ported yet; inference applies no dropout.
+  # Applied only when a forward is given a generator (training).
   dropout_rate: float = 0.1
   max_decoder_noise_time: float = 2e4
   cross_attend_style: str = "sum_cross_attends"  # | 'concat_encodings'
@@ -77,7 +83,7 @@ class PositionEncoder(layers.Embed):
   """Position table, a parameter ('fixed' or 'fixed_permuted_offset')."""
 
   def __init__(self, cfg: NetworkConfig, max_length: int):
-    super().__init__(max_length, cfg.emb_dim, dtype=cfg.dtype)
+    super().__init__(max_length, cfg.emb_dim, dtype=cfg.dtype, fixed=True)
     self.position_encoding = cfg.position_encoding
     if cfg.position_encoding not in ("fixed", "fixed_permuted_offset"):
       raise ValueError(
@@ -88,6 +94,13 @@ class PositionEncoder(layers.Embed):
     with torch.no_grad():
       self.embedding.copy_(layers.sinusoidal_table(
           *self.embedding.shape, generator=generator if permuted else None))
+
+
+def _dropout(x, rate, generator, broadcast: bool = True):
+  """The JAX module's nn.Dropout, one draw along the length axis unless
+  `broadcast` is False."""
+  return layers.dropout(x, rate, generator,
+                        broadcast_dims=(-2,) if broadcast else ())
 
 
 def _init_children(module: nn.Module, generator: torch.Generator):
@@ -103,23 +116,28 @@ class EncoderLayer(nn.Module):
 
   def __init__(self, cfg: NetworkConfig):
     super().__init__()
-    d = cfg.dtype
+    d, rate = cfg.dtype, cfg.dropout_rate
+    self.dropout_rate = rate
     self.pre_attention_norm = layers.RMSNorm(cfg.emb_dim, dtype=d)
     self.attention = layers.MultiHeadAttention(
-        cfg.emb_dim, cfg.num_heads, cfg.head_dim, cfg.emb_dim, dtype=d)
+        cfg.emb_dim, cfg.num_heads, cfg.head_dim, cfg.emb_dim, dtype=d,
+        dropout_rate=rate)
     self.pre_mlp_norm = layers.RMSNorm(cfg.emb_dim, dtype=d)
     self.mlp = layers.MlpBlock(cfg.emb_dim, cfg.mlp_dim, cfg.mlp_activations,
-                               dtype=d)
+                               dtype=d, dropout_rate=rate)
 
   def init_weights(self, generator):
     _init_children(self, generator)
 
-  def forward(self, inputs: torch.Tensor, mask: torch.Tensor):
+  def forward(self, inputs: torch.Tensor, mask: torch.Tensor,
+              generator: Optional[torch.Generator] = None):
     # The padding mask rides as a [b, len] key mask: padded query rows
     # attend the valid keys, and every consumer masks them anyway.
     x = self.pre_attention_norm(inputs)
-    x = self.attention(x, x, kv_mask=mask) + inputs
-    return self.mlp(self.pre_mlp_norm(x)) + x
+    x = self.attention(x, x, kv_mask=mask, generator=generator)
+    x = _dropout(x, self.dropout_rate, generator) + inputs
+    y = self.mlp(self.pre_mlp_norm(x), generator)
+    return _dropout(y, self.dropout_rate, generator) + x
 
 
 class _Encoder(nn.Module):
@@ -134,11 +152,13 @@ class _Encoder(nn.Module):
   def init_weights(self, generator):
     _init_children(self, generator)
 
-  def _run(self, x, mask):
-    x = x.to(self.cfg.dtype)
+  def _run(self, x, mask, generator):
+    rate = self.cfg.dropout_rate
+    x = _dropout(x, rate, generator).to(self.cfg.dtype)
     for layer in self.layers:
-      x = layer(x, mask)
-    return self.encoder_norm(x), mask
+      x = layer(x, mask, generator)
+    return _dropout(self.encoder_norm(x), rate, generator,
+                    broadcast=False), mask
 
 
 class TokenEncoder(_Encoder):
@@ -154,14 +174,15 @@ class TokenEncoder(_Encoder):
       self.token_embedder.embedding.normal_(generator=generator)
     super().init_weights(generator)
 
-  def forward(self, token_ids: torch.Tensor, mask: torch.Tensor):
+  def forward(self, token_ids: torch.Tensor, mask: torch.Tensor,
+              generator: Optional[torch.Generator] = None):
     seq_length = token_ids.shape[1]
     if seq_length > self.cfg.max_input_length:
       raise ValueError(f"{seq_length} > max_input_length "
                        f"{self.cfg.max_input_length}")
     positions = torch.arange(seq_length, device=token_ids.device)[None, :]
     x = self.token_embedder(token_ids) + self.position_encoder(positions)
-    return self._run(x, mask)
+    return self._run(x, mask, generator)
 
 
 class ContinuousEncoder(_Encoder):
@@ -172,7 +193,8 @@ class ContinuousEncoder(_Encoder):
     self.input_proj = layers.DenseGeneral(cfg.output_dim, cfg.emb_dim,
                                           dtype=cfg.dtype)
 
-  def forward(self, continuous_inputs: torch.Tensor, mask: torch.Tensor):
+  def forward(self, continuous_inputs: torch.Tensor, mask: torch.Tensor,
+              generator: Optional[torch.Generator] = None):
     batch, max_positions = continuous_inputs.shape[:2]
     if max_positions > self.cfg.max_context_length:
       raise ValueError(f"{max_positions} > max_context_length "
@@ -186,7 +208,7 @@ class ContinuousEncoder(_Encoder):
     elif self.cfg.context_positions != "regular":
       raise ValueError(
           f"Unknown context_positions: {self.cfg.context_positions}")
-    return self._run(x + self.position_encoder(positions), mask)
+    return self._run(x + self.position_encoder(positions), mask, generator)
 
 
 class DecoderLayer(nn.Module):
@@ -196,7 +218,7 @@ class DecoderLayer(nn.Module):
   def __init__(self, cfg: NetworkConfig):
     super().__init__()
     self.cfg = cfg
-    d, e = cfg.dtype, cfg.emb_dim
+    d, e, rate = cfg.dtype, cfg.emb_dim, cfg.dropout_rate
     if cfg.cross_attend_style == "concat_encodings":
       n_cross = 1
     elif cfg.cross_attend_style == "sum_cross_attends":
@@ -207,14 +229,16 @@ class DecoderLayer(nn.Module):
     self.pre_self_attention_norm = layers.RMSNorm(e, dtype=d)
     self.self_attention_film = layers.FiLM(4 * e, e)
     self.self_attention = layers.MultiHeadAttention(
-        e, cfg.num_heads, cfg.head_dim, e, dtype=d)
+        e, cfg.num_heads, cfg.head_dim, e, dtype=d, dropout_rate=rate)
     self.pre_cross_attention_norm = layers.RMSNorm(e, dtype=d)
     self.cross_attentions = nn.ModuleList(
-        layers.MultiHeadAttention(e, cfg.num_heads, cfg.head_dim, e, dtype=d)
+        layers.MultiHeadAttention(e, cfg.num_heads, cfg.head_dim, e, dtype=d,
+                                  dropout_rate=rate)
         for _ in range(n_cross))
     self.pre_mlp_norm = layers.RMSNorm(e, dtype=d)
     self.mlp_film = layers.FiLM(4 * e, e)
-    self.mlp = layers.MlpBlock(e, cfg.mlp_dim, cfg.mlp_activations, dtype=d)
+    self.mlp = layers.MlpBlock(e, cfg.mlp_dim, cfg.mlp_activations, dtype=d,
+                               dropout_rate=rate)
 
   def init_weights(self, generator):
     _init_children(self, generator)
@@ -232,10 +256,13 @@ class DecoderLayer(nn.Module):
               encodings_and_masks: EncodingsAndMasks,
               conditioning: torch.Tensor,
               cross_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]],
-              cond_rows: Optional[int] = None) -> torch.Tensor:
+              cond_rows: Optional[int] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    rate = self.cfg.dropout_rate
     x = self.self_attention_film(self.pre_self_attention_norm(inputs),
                                  conditioning)
-    x = self.self_attention(x, x) + inputs
+    x = self.self_attention(x, x, generator=generator)
+    x = _dropout(x, rate, generator) + inputs
 
     y = self.pre_cross_attention_norm(x)
     # CFG fast path: rows >= cond_rows are the unconditional half, whose
@@ -254,16 +281,19 @@ class DecoderLayer(nn.Module):
     for idx, (encoded, mask) in enumerate(pairs):
       attn = self.cross_attentions[idx]
       if cross_kv is not None:
-        y_n = attn(y, cached_kv=cross_kv[idx], kv_mask=mask)
+        y_n = attn(y, cached_kv=cross_kv[idx], kv_mask=mask,
+                   generator=generator)
       else:
-        y_n = attn(y, encoded, kv_mask=mask)
-      out = out + layers.zero_if_all_masked(y_n, mask)
+        y_n = attn(y, encoded, kv_mask=mask, generator=generator)
+      # JAX drops each sum term, or the one concatenated term.
+      out = out + _dropout(layers.zero_if_all_masked(y_n, mask), rate,
+                           generator)
     if tail:
       out = torch.cat([out, out.new_zeros((tail,) + out.shape[1:])], dim=0)
     y = out + x
 
     z = self.mlp_film(self.pre_mlp_norm(y), conditioning)
-    return self.mlp(z) + y
+    return _dropout(self.mlp(z, generator), rate, generator) + y
 
 
 class Decoder(nn.Module):
@@ -306,7 +336,8 @@ class Decoder(nn.Module):
               decoder_input_tokens: torch.Tensor,
               decoder_noise_time: torch.Tensor,
               cross_kv: Optional[CrossKVCache] = None,
-              cond_rows: Optional[int] = None) -> torch.Tensor:
+              cond_rows: Optional[int] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     cfg = self.cfg
     batch, seq_length, n_out = decoder_input_tokens.shape
     if seq_length > cfg.max_target_length or n_out != cfg.output_dim:
@@ -320,11 +351,14 @@ class Decoder(nn.Module):
     conditioning = self._conditioning(decoder_noise_time)
     positions = torch.arange(seq_length, device=decoder_input_tokens.device)
     y = (self.continuous_inputs_projection(decoder_input_tokens) +
-         self.position_encoder(positions)[None]).to(cfg.dtype)
+         self.position_encoder(positions)[None])
+    y = _dropout(y, cfg.dropout_rate, generator).to(cfg.dtype)
     for i, lyr in enumerate(self.layers):
       y = lyr(y, encodings_and_masks, conditioning,
-              cross_kv[i] if cross_kv is not None else None, cond_rows)
-    return self.spec_out_dense(self.decoder_norm(y))
+              cross_kv[i] if cross_kv is not None else None, cond_rows,
+              generator)
+    y = _dropout(self.decoder_norm(y), cfg.dropout_rate, generator)
+    return self.spec_out_dense(y)
 
 
 class ContextTransformer(nn.Module):
@@ -345,11 +379,14 @@ class ContextTransformer(nn.Module):
 
   def encode(self, input_tokens: torch.Tensor,
              continuous_inputs: torch.Tensor,
-             continuous_mask: torch.Tensor) -> EncodingsAndMasks:
+             continuous_mask: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> EncodingsAndMasks:
     tokens_mask = input_tokens > 0
     continuous_mask = continuous_mask > 0
-    return [self.token_encoder(input_tokens, tokens_mask),
-            self.continuous_encoder(continuous_inputs, continuous_mask)]
+    return [self.token_encoder(input_tokens, tokens_mask, generator),
+            self.continuous_encoder(continuous_inputs, continuous_mask,
+                                    generator)]
 
   def precompute_cross_kv(self, encodings_and_masks) -> CrossKVCache:
     return self.decoder.precompute_cross_kv(encodings_and_masks)
@@ -357,14 +394,19 @@ class ContextTransformer(nn.Module):
   def decode(self, encodings_and_masks: EncodingsAndMasks,
              input_tokens: torch.Tensor, noise_time: torch.Tensor,
              cross_kv: Optional[CrossKVCache] = None,
-             cond_rows: Optional[int] = None) -> torch.Tensor:
+             cond_rows: Optional[int] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     return self.decoder(encodings_and_masks, input_tokens, noise_time,
-                        cross_kv=cross_kv,
-                        cond_rows=cond_rows).to(self.config.dtype)
+                        cross_kv=cross_kv, cond_rows=cond_rows,
+                        generator=generator).to(self.config.dtype)
 
   def forward(self, encoder_input_tokens, encoder_continuous_inputs,
               encoder_continuous_mask, decoder_input_tokens,
-              decoder_noise_time) -> torch.Tensor:
+              decoder_noise_time,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The training forward (JAX `__call__`): dropout when `generator` is
+    given (JAX's enable_dropout), none without."""
     encodings = self.encode(encoder_input_tokens, encoder_continuous_inputs,
-                            encoder_continuous_mask)
-    return self.decode(encodings, decoder_input_tokens, decoder_noise_time)
+                            encoder_continuous_mask, generator)
+    return self.decode(encodings, decoder_input_tokens, decoder_noise_time,
+                       generator=generator)

@@ -1,13 +1,21 @@
-"""T5.1.1-style layers in PyTorch, inference only.
+"""T5.1.1-style layers in PyTorch.
 
 Port of music_spectrogram_diffusion_tpu/models/layers.py. Parameters keep
 the Flax layout and names (2-D `kernel` [in, out], `scale`, `embedding`),
-so `convert.py` moves a Flax tree over leaf for leaf. Training is not
-ported yet: there is no dropout here.
+so `convert.py` moves a Flax tree over leaf for leaf. Parameters are
+trainable, except the fixed position tables (JAX stops their gradient) and
+an int8 `DenseGeneral`, which serves only.
 
-Every attention goes through `ops.attention.flash_attention`, and every
-int8 `DenseGeneral` through `ops.quantize.quantized_matmul`: the CUDA
-kernels on the card, their plain versions on the CPU.
+Every attention goes through `ops.attention`: `flash_attention_diff` when
+grad mode is on and its query, key or value needs a gradient (training),
+else `flash_attention` (serving, whose modules are frozen); every int8 `DenseGeneral` goes through
+`ops.quantize.quantized_matmul`. Those are the CUDA kernels on the card and
+their plain versions on the CPU.
+
+Dropout draws from an explicit `torch.Generator` passed to `forward`; with
+none (or rate 0) it is off. It cannot reproduce `jax.random`'s bits, only
+their distribution: a unit is kept with probability 1 - rate and scaled by
+1 / (1 - rate), with the same broadcast axes as the JAX layers.
 """
 
 from __future__ import annotations
@@ -58,6 +66,22 @@ def sinusoidal_table(max_len: int, features: int,
   return pe
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+  """Flax's nn.Dropout: keep with probability 1 - rate, scale by
+  1 / (1 - rate); one draw shared along `broadcast_dims`. Off without a
+  generator or at rate 0."""
+  if generator is None or rate == 0.0:
+    return x
+  shape = list(x.shape)
+  for dim in broadcast_dims:
+    shape[dim] = 1
+  keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+  return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 def _normal_(t: torch.Tensor, std: float, generator: torch.Generator,
              truncated: bool):
   """Flax variance-scaling init: a normal, or one truncated at 2 std."""
@@ -86,8 +110,7 @@ class DenseGeneral(nn.Module):
     self.features = tuple(np.atleast_1d(features).tolist())
     self.dtype = dtype
     self.kernel = nn.Parameter(torch.empty(
-        int(np.prod(self.in_features)), int(np.prod(self.features))),
-        requires_grad=False)
+        int(np.prod(self.in_features)), int(np.prod(self.features))))
 
   def init_weights(self, generator: torch.Generator, *, scale: float = 1.0,
                    truncated: bool = True):
@@ -130,11 +153,14 @@ def quantize_dense_(dense: DenseGeneral, q: torch.Tensor,
 
 
 class MlpBlock(nn.Module):
-  """Feed-forward block with gated activations (e.g. gelu * linear)."""
+  """Feed-forward block with gated activations (e.g. gelu * linear); the
+  intermediate dropout shares one draw along the length axis."""
 
   def __init__(self, emb_dim: int, intermediate_dim: int,
-               activations: Sequence[str], *, dtype=torch.float32):
+               activations: Sequence[str], *, dtype=torch.float32,
+               dropout_rate: float = 0.0):
     super().__init__()
+    self.dropout_rate = dropout_rate
     self.activations = tuple(activations)
     names = (["wi"] if len(self.activations) == 1 else
              [f"wi_{i}" for i in range(len(self.activations))])
@@ -149,11 +175,13 @@ class MlpBlock(nn.Module):
       getattr(self, name).init_weights(generator)
     self.wo.init_weights(generator)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def forward(self, x: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     h = None
     for name, act in zip(self.wi_names, self.activations):
       branch = _ACTIVATIONS[act](getattr(self, name)(x))
       h = branch if h is None else h * branch
+    h = dropout(h, self.dropout_rate, generator, broadcast_dims=(-2,))
     return self.wo(h)
 
 
@@ -166,13 +194,18 @@ class MultiHeadAttention(nn.Module):
       cross-attention over a fixed memory (cached K/V are [b, h, l, d]).
 
   T5-style: no 1/sqrt(d) on the scores (it is in the query init), and a
-  dropped key adds -1e10 to its score.
+  dropped key adds -1e10 to its score. Attention dropout keeps or drops a
+  key for every query of a head at once (keep mask [b, h, kv], as the JAX
+  layer draws it), so it is applied as a scale on the value rows, which
+  equals dropping the normalized weights.
   """
 
   def __init__(self, emb_dim: int, num_heads: int, head_dim: int,
-               out_features: int, *, dtype=torch.float32):
+               out_features: int, *, dtype=torch.float32,
+               dropout_rate: float = 0.0):
     super().__init__()
     self.num_heads, self.head_dim = num_heads, head_dim
+    self.dropout_rate = dropout_rate
     proj = (num_heads, head_dim)
     self.query = DenseGeneral(emb_dim, proj, dtype=dtype)
     self.key = DenseGeneral(emb_dim, proj, dtype=dtype)
@@ -193,28 +226,41 @@ class MultiHeadAttention(nn.Module):
   def forward(self, inputs_q: torch.Tensor,
               inputs_kv: Optional[torch.Tensor] = None, *,
               cached_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """kv_mask: optional bool [b, kv_len] keep-mask, constant over queries."""
+              kv_mask: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """kv_mask: optional bool [b, kv_len] keep-mask, constant over queries.
+    generator: attention dropout's draws (None: no dropout)."""
     query = self.query(inputs_q)
     if cached_kv is not None:
-      key, value = cached_kv
-      x = attention.flash_attention(query, key, value, kv_mask=kv_mask,
-                                    kv_transposed=True)
+      key, value = cached_kv  # [b, h, l, d]
     else:
-      x = attention.flash_attention(query, self.key(inputs_kv),
-                                    self.value(inputs_kv), kv_mask=kv_mask)
+      key, value = self.key(inputs_kv), self.value(inputs_kv)
+    transposed = cached_kv is not None
+    if generator is not None and self.dropout_rate > 0.0:
+      batch, kv_len = value.shape[0], value.shape[2 if transposed else 1]
+      keep = torch.rand(batch, self.num_heads, kv_len, generator=generator,
+                        device=value.device) < 1.0 - self.dropout_rate
+      scale = keep.to(value.dtype) / (1.0 - self.dropout_rate)
+      value = value * (scale[..., None] if transposed
+                       else scale.transpose(1, 2)[..., None])
+    differentiate = torch.is_grad_enabled() and (
+        query.requires_grad or key.requires_grad or value.requires_grad)
+    attend = (attention.flash_attention_diff if differentiate
+              else attention.flash_attention)
+    x = attend(query, key, value, kv_mask=kv_mask, kv_transposed=transposed)
     return self.out(x)
 
 
 class Embed(nn.Module):
-  """Integer-id embedding table [num_embeddings, features]."""
+  """Integer-id embedding table [num_embeddings, features]; a `fixed` table
+  is never trained (JAX stops its gradient)."""
 
   def __init__(self, num_embeddings: int, features: int, *,
-               dtype=torch.float32):
+               dtype=torch.float32, fixed: bool = False):
     super().__init__()
     self.dtype = dtype
     self.embedding = nn.Parameter(torch.empty(num_embeddings, features),
-                                  requires_grad=False)
+                                  requires_grad=not fixed)
 
   def forward(self, ids: torch.Tensor) -> torch.Tensor:
     if ids.dtype.is_floating_point:
@@ -227,7 +273,7 @@ class FixedEmbed(Embed):
 
   def __init__(self, features: int, max_length: int = 2048, *,
                dtype=torch.float32):
-    super().__init__(max_length, features, dtype=dtype)
+    super().__init__(max_length, features, dtype=dtype, fixed=True)
     with torch.no_grad():
       self.embedding.copy_(sinusoidal_table(max_length, features))
 
@@ -239,7 +285,7 @@ class RMSNorm(nn.Module):
                dtype=torch.float32):
     super().__init__()
     self.epsilon, self.dtype = epsilon, dtype
-    self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+    self.scale = nn.Parameter(torch.ones(features))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()

@@ -1,4 +1,5 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels and
+their plain versions.
 
 `flash_attention` computes softmax(q k^T + bias + (keep - 1) * 1e10) v,
 T5-style with no 1/sqrt(d) scaling, as the TPU kernel
@@ -7,6 +8,14 @@ CUDA tensors it launches `csrc/flash_fwd.cu` (built by nvcc on first use,
 see `_build.py`); on CPU tensors it runs `attention_reference`, the plain
 PyTorch version. There is no fallback between the two: a CUDA call that
 cannot launch raises.
+
+`flash_attention_diff` is the differentiable form (the training path), as
+the JAX package's `flash_attention_diff`: its forward is the forward kernel,
+which also writes each row's softmax max and sum, and its backward
+`flash_attention_bwd` launches `csrc/flash_bwd.cu` (TPU kernel
+`_flash_bwd_pallas`). On CPU tensors it is autograd through
+`attention_reference`, and `flash_attention_bwd` runs
+`flash_attention_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -30,6 +39,26 @@ def transpose_kv(key: torch.Tensor,
           value.transpose(1, 2).contiguous())
 
 
+def _scores(query, key, bias, kv_mask, kv_transposed):
+  """f32 scores [b, h, q, kv]: q k^T + bias + (keep - 1) * 1e10."""
+  k_sub = "bhkd" if kv_transposed else "bkhd"
+  scores = torch.einsum(f"bqhd,{k_sub}->bhqk", query.float(), key.float())
+  if bias is not None:
+    scores = scores + bias.float()
+  if kv_mask is not None:
+    scores = scores + ((kv_mask.float() - 1.0) * 1e10)[:, None, None, :]
+  return scores
+
+
+def softmax_stats_reference(query, key, bias=None, kv_mask=None, *,
+                            kv_transposed: bool = False) -> torch.Tensor:
+  """The plain version of the forward kernel's statistics: f32
+  [2, b, h, q], each row's max m and its sum l of exp(s - m)."""
+  scores = _scores(query, key, bias, kv_mask, kv_transposed)
+  m = scores.amax(dim=-1)
+  return torch.stack([m, torch.exp(scores - m[..., None]).sum(dim=-1)])
+
+
 def attention_reference(query: torch.Tensor,
                         key: torch.Tensor,
                         value: torch.Tensor,
@@ -43,13 +72,8 @@ def attention_reference(query: torch.Tensor,
   query's dtype.
   """
   k_sub = "bhkd" if kv_transposed else "bkhd"
-  weights = torch.einsum(f"bqhd,{k_sub}->bhqk", query.float(), key.float())
-  if bias is not None:
-    weights = weights + bias.float()
-  if kv_mask is not None:
-    keep = kv_mask.float()
-    weights = weights + ((keep - 1.0) * 1e10)[:, None, None, :]
-  weights = torch.softmax(weights, dim=-1)
+  weights = torch.softmax(
+      _scores(query, key, bias, kv_mask, kv_transposed), dim=-1)
   return torch.einsum(f"bhqk,{k_sub}->bqhd", weights,
                       value.float()).to(query.dtype)
 
@@ -110,7 +134,8 @@ def flash_attention(query: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     kv_mask: Optional[torch.Tensor] = None,
                     *,
-                    kv_transposed: bool = False) -> torch.Tensor:
+                    kv_transposed: bool = False,
+                    return_stats: bool = False):
   """softmax(q k^T + bias + (keep - 1) * 1e10) v, no 1/sqrt(d).
 
   Args:
@@ -122,45 +147,199 @@ def flash_attention(query: torch.Tensor,
       query row. A row whose keys are all dropped averages them evenly.
 
   All tensors contiguous and on one device; head_dim <= 128. Returns
-  [batch, q_len, heads, head_dim] in the query's dtype. On CUDA tensors the
-  kernel runs (counted in `flash_attention.launches`); on CPU tensors the
-  plain version does.
+  [batch, q_len, heads, head_dim] in the query's dtype, and with
+  `return_stats` also the softmax statistics, f32 [2, b, h, q] (each row's
+  max, then its sum of exp(s - max)). On CUDA tensors the kernel runs
+  (counted in `flash_attention.launches`); on CPU tensors the plain
+  versions do.
   """
   kv_len = _check(query, key, value, bias, kv_mask, kv_transposed)
   if query.device.type == "cpu":
-    return attention_reference(query, key, value, bias, kv_mask,
-                               kv_transposed=kv_transposed)
-  if query.device.type != "cuda":
-    raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                     f"{query.device}")
-  lib = _library()
+    out = attention_reference(query, key, value, bias, kv_mask,
+                              kv_transposed=kv_transposed)
+    if not return_stats:
+      return out
+    return out, softmax_stats_reference(query, key, bias, kv_mask,
+                                        kv_transposed=kv_transposed)
+  _check_cuda(query, "flash_attention")
+  lib = _library("flash_fwd")
   batch, q_len, heads, head_dim = query.shape
   out = torch.empty_like(query)
-  stream = torch.cuda.current_stream(query.device).cuda_stream
+  stats = (torch.empty(2, batch, heads, q_len, dtype=torch.float32,
+                       device=query.device) if return_stats else None)
   err = lib.msd_flash_fwd(
       query.data_ptr(), key.data_ptr(), value.data_ptr(),
       bias.data_ptr() if bias is not None else None,
       kv_mask.data_ptr() if kv_mask is not None else None,
-      out.data_ptr(), batch, heads, q_len, kv_len, head_dim,
+      out.data_ptr(), stats.data_ptr() if stats is not None else None,
+      batch, heads, q_len, kv_len, head_dim,
       int(kv_transposed), bias.shape[1] if bias is not None else 1,
-      _DTYPE_CODES[query.dtype], stream)
-  if err != 0:
-    raise RuntimeError(
-        f"flash_fwd launch failed: CUDA error {err} "
-        f"({lib.msd_cuda_error_string(err).decode()})")
+      _DTYPE_CODES[query.dtype], _stream(query))
+  _raise_on(lib, err, "flash_fwd")
   flash_attention.launches += 1
-  return out
+  return (out, stats) if return_stats else out
 
 
 flash_attention.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-  lib = _build.load("flash_fwd")
+def flash_attention_bwd_reference(query, key, value, bias, kv_mask, out,
+                                  stats, dout, *,
+                                  kv_transposed: bool = False):
+  """The plain version of `flash_attention_bwd`, with the kernel's
+  arithmetic: p = exp(s - m) / l from the forward's statistics,
+  delta = rowsum(dO out), dS = p (dP - delta); dV = p^T dO, dK = dS^T q,
+  dQ = dS k. Returns (dq, dk, dv) in f32, in the layouts of q and k/v."""
+  k_sub = "bhkd" if kv_transposed else "bkhd"
+  m, l = stats[0], stats[1]
+  p = torch.exp(_scores(query, key, bias, kv_mask, kv_transposed)
+                - m[..., None]) / l[..., None]
+  do = dout.float()
+  delta = torch.einsum("bqhd,bqhd->bhq", do, out.float())
+  dp = torch.einsum(f"bqhd,{k_sub}->bhqk", do, value.float())
+  ds = p * (dp - delta[..., None])
+  dv = torch.einsum(f"bhqk,bqhd->{k_sub}", p, do)
+  dk = torch.einsum(f"bhqk,bqhd->{k_sub}", ds, query.float())
+  dq = torch.einsum(f"bhqk,{k_sub}->bqhd", ds, key.float())
+  return dq, dk, dv
+
+
+def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
+                        *, kv_transposed: bool = False):
+  """dQ, dK, dV of `flash_attention` from its output and statistics.
+
+  Args as `flash_attention` (float32 only), plus `out` (its output),
+  `stats` (f32 [2, b, h, q] from `return_stats`) and `dout` (the output's
+  gradient). Bias and mask get no gradient. On CUDA tensors it launches
+  `csrc/flash_bwd.cu` (counted in `flash_attention_bwd.launches`); on CPU
+  tensors it runs `flash_attention_bwd_reference`. Returns f32 (dq, dk, dv)
+  in the layouts of q and k/v.
+  """
+  kv_len = _check(query, key, value, bias, kv_mask, kv_transposed)
+  batch, q_len, heads, head_dim = query.shape
+  for name, t in (("query", query), ("out", out), ("dout", dout)):
+    if t.dtype != torch.float32:
+      raise TypeError(f"flash_attention_bwd takes float32, {name} is "
+                      f"{t.dtype}")
+  for name, t, shape in (("out", out, query.shape),
+                         ("dout", dout, query.shape),
+                         ("stats", stats, (2, batch, heads, q_len))):
+    if tuple(t.shape) != tuple(shape) or t.device != query.device:
+      raise ValueError(f"{name} {tuple(t.shape)} on {t.device} is not "
+                       f"{tuple(shape)} on {query.device}")
+    if query.device.type == "cuda" and not t.is_contiguous():
+      raise ValueError(f"{name} must be contiguous")
+  if stats.dtype != torch.float32:
+    raise TypeError(f"stats must be float32, got {stats.dtype}")
+  if query.device.type == "cpu":
+    return flash_attention_bwd_reference(query, key, value, bias, kv_mask,
+                                         out, stats, dout,
+                                         kv_transposed=kv_transposed)
+  _check_cuda(query, "flash_attention_bwd")
+  lib = _library("flash_bwd")
+  # delta = rowsum(dO out), [b, h, q]: computed outside the kernel, as the
+  # JAX package does.
+  delta = torch.einsum("bqhd,bqhd->bhq", dout, out).contiguous()
+  dq = torch.empty_like(query)
+  dk = torch.empty_like(key)
+  dv = torch.empty_like(value)
+  err = lib.msd_flash_bwd(
+      query.data_ptr(), key.data_ptr(), value.data_ptr(),
+      bias.data_ptr() if bias is not None else None,
+      kv_mask.data_ptr() if kv_mask is not None else None,
+      stats.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+      dk.data_ptr(), dv.data_ptr(), batch, heads, q_len, kv_len, head_dim,
+      int(kv_transposed), bias.shape[1] if bias is not None else 1,
+      _stream(query))
+  _raise_on(lib, err, "flash_bwd")
+  flash_attention_bwd.launches += 1
+  return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+  """Forward kernel with statistics; backward kernel. Bias and mask are
+  not differentiated."""
+
+  @staticmethod
+  def forward(ctx, query, key, value, bias, kv_mask, kv_transposed):
+    out, stats = flash_attention(query, key, value, bias, kv_mask,
+                                 kv_transposed=kv_transposed,
+                                 return_stats=True)
+    ctx.save_for_backward(query, key, value, bias, kv_mask, out, stats)
+    ctx.kv_transposed = kv_transposed
+    return out
+
+  @staticmethod
+  def backward(ctx, dout):
+    query, key, value, bias, kv_mask, out, stats = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(
+        query, key, value, bias, kv_mask, out, stats, dout.contiguous(),
+        kv_transposed=ctx.kv_transposed)
+    return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(query: torch.Tensor,
+                         key: torch.Tensor,
+                         value: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         kv_mask: Optional[torch.Tensor] = None,
+                         *,
+                         kv_transposed: bool = False) -> torch.Tensor:
+  """Differentiable `flash_attention` (the training path), in q, k and v.
+
+  `bias` must be a constant (a mask's): it gets no gradient, as in the JAX
+  package. Attention dropout that broadcasts along the queries (the T5
+  pattern) composes from outside: scale the value rows by keep / (1 - rate)
+  before the call, which equals dropping the normalized weights.
+
+  On CUDA tensors (float32) the forward and backward kernels run; on CPU
+  tensors it is autograd through `attention_reference`.
+  """
+  _check(query, key, value, bias, kv_mask, kv_transposed)
+  if query.device.type == "cpu":
+    return attention_reference(query, key, value, bias, kv_mask,
+                               kv_transposed=kv_transposed)
+  _check_cuda(query, "flash_attention_diff")
+  if query.dtype != torch.float32:
+    raise TypeError(f"flash_attention_diff on cuda takes float32 (the "
+                    f"backward kernel's type), got {query.dtype}")
+  return _FlashAttentionFn.apply(query, key, value, bias, kv_mask,
+                                 kv_transposed)
+
+
+def _check_cuda(query: torch.Tensor, what: str) -> None:
+  if query.device.type != "cuda":
+    raise ValueError(f"{what} runs on cuda or cpu, not {query.device}")
+
+
+def _stream(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
+  if err != 0:
+    raise RuntimeError(
+        f"{name} launch failed: CUDA error {err} "
+        f"({lib.msd_cuda_error_string(err).decode()})")
+
+
+# Pointer arguments, then int arguments, of each kernel's C entry (the
+# stream is the last pointer).
+_SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 7, 8),
+               "flash_bwd": ("msd_flash_bwd", 11, 7)}
+
+
+def _library(name: str) -> ctypes.CDLL:
+  lib = _build.load(name)
   if not getattr(lib, "_msd_typed", False):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.msd_flash_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-    lib.msd_flash_fwd.restype = i32
+    fn_name, n_ptr, n_int = _SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+    fn.restype = i32
     lib.msd_cuda_error_string.argtypes = [i32]
     lib.msd_cuda_error_string.restype = ctypes.c_char_p
     lib._msd_typed = True

@@ -31,6 +31,14 @@
 // FMAs, and rows are padded so the two threads of a query row and the eight
 // rows of a quarter-warp hit distinct banks. wgmma on bf16 tiles with TMA
 // loads is the next step and a later change.
+//
+// Softmax statistics (training): given a `stats` pointer (null when
+// serving), the kernel also writes each row's final running max m and sum
+// l, f32 [2, b, h, q] (m first). The backward kernel (flash_bwd.cu)
+// rebuilds p = exp(s - m) / l from them. Keeping m and l apart, rather than
+// lse = m + log l, keeps an all-masked row exact: its scores all round to
+// -1e10 in f32, so lse = -1e10 + log(kv_len) rounds back to -1e10 and
+// exp(s - lse) would give 1 where the forward used 1 / kv_len.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +70,8 @@ struct Params {
   const float* bias;
   const uint8_t* mask;
   void* out;
-  int q_len, kv_len, head_dim;
+  float* stats;  // optional [2, b, h, q]: row max, then row sum
+  int q_len, kv_len, head_dim, heads;
   long long q_sb, q_sl, q_sh;     // q and out strides (elements)
   long long kv_sb, kv_sl, kv_sh;  // k and v strides
   long long bias_sb, bias_sh;     // bias_sh == 0 broadcasts one bias over heads
@@ -210,6 +219,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 
   if (!row_valid) return;
+  if (p.stats != nullptr && half == 0) {
+    const long long at = ((long long)b * p.heads + h) * p.q_len + q0 + row;
+    const long long plane = (long long)gridDim.z * p.heads * p.q_len;
+    p.stats[at] = m_run;
+    p.stats[plane + at] = l_run;
+  }
   const float denom = fmaxf(l_run, 1e-37f);
   T* out = static_cast<T*>(p.out) + b * p.q_sb + h * p.q_sh + (long long)(q0 + row) * p.q_sl;
 #pragma unroll
@@ -246,12 +261,14 @@ int dispatch(const Params& p, int batch, int heads, cudaStream_t stream) {
 extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers; bias and mask may be null.
+// success). Pointers are device pointers; bias, mask and stats may be null
+// (stats: f32 [2, b, h, q], written only when given).
 // dtype: 0 = float32, 1 = bfloat16. bias_heads: 1 or `heads` (ignored
 // without a bias). Tensors are contiguous in the layouts named above.
 int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
-                  const void* mask, void* out, int batch, int heads, int q_len, int kv_len,
-                  int head_dim, int kv_transposed, int bias_heads, int dtype, void* stream) {
+                  const void* mask, void* out, void* stats, int batch, int heads, int q_len,
+                  int kv_len, int head_dim, int kv_transposed, int bias_heads, int dtype,
+                  void* stream) {
   if (batch < 1 || heads < 1 || q_len < 1 || kv_len < 1 || head_dim < 1 || head_dim > 128 ||
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -263,6 +280,8 @@ int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   p.bias = static_cast<const float*>(bias);
   p.mask = static_cast<const uint8_t*>(mask);
   p.out = out;
+  p.stats = static_cast<float*>(stats);
+  p.heads = heads;
   p.q_len = q_len;
   p.kv_len = kv_len;
   p.head_dim = head_dim;

@@ -1,9 +1,9 @@
 """Diffusion process math and samplers in PyTorch.
 
-Port of music_spectrogram_diffusion_tpu/ops/diffusion.py (serving half: the
-schedules, the parameterisation conversions, the DDPM, DDIM and
-DPM-Solver++(2M) updates, classifier-free guidance with its interval, and
-`sample`). The configs are the same frozen dataclasses, so an
+Port of music_spectrogram_diffusion_tpu/ops/diffusion.py: the schedules,
+the parameterisation conversions, the training input and loss, the DDPM,
+DDIM and DPM-Solver++(2M) updates, classifier-free guidance with its
+interval, and `sample`. The configs are the same frozen dataclasses, so an
 ExperimentConfig JSON written by either package reads in both.
 
 Differences from the JAX module, none of which changes the arithmetic:
@@ -16,6 +16,9 @@ Differences from the JAX module, none of which changes the arithmetic:
 * Noise comes from a provider `noise(i, shape)`: i is None for the initial
   draw and the step index for a step's draw. `generator_noise` draws from
   one `torch.Generator` per batch row; tests hand in JAX's draws instead.
+* Likewise `training_input` takes eps, time and include_conditioning from a
+  provider `draws(x0, config)`; `generator_draws` draws them from a
+  `torch.Generator`.
 * Sampler state stays float32.
 """
 
@@ -67,7 +70,7 @@ MULTISTEP_SAMPLERS = ("dpm++", "sde-dpm++")
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionConfig:
-  """Top-level diffusion hyperparameters (training fields kept for JSON)."""
+  """Top-level diffusion hyperparameters."""
   time_sampling: str = "continuous"
   train_schedule: Schedule = Schedule(name="cosine")
   loss_norm: str = "l1"
@@ -79,6 +82,10 @@ class DiffusionConfig:
 
 # (i, shape) -> standard normal float32 tensor; i is None for the initial z.
 NoiseFn = Callable[[Optional[int], Tuple[int, ...]], torch.Tensor]
+# (x0, config) -> (eps like x0, time [b] in [0, 1), include_conditioning
+# bool [b]): the random inputs of one training step.
+DrawsFn = Callable[[torch.Tensor, "DiffusionConfig"],
+                   Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 # (z_t, time) -> model output of one network forward.
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # (z_t, time) -> (cond output, uncond output) of one fused two-row forward.
@@ -97,6 +104,29 @@ def generator_noise(generators: Sequence[torch.Generator],
     return torch.stack([
         torch.randn(tuple(shape[1:]), generator=g, device=device,
                     dtype=torch.float32) for g in generators])
+  return draw
+
+
+def generator_draws(generator: torch.Generator) -> DrawsFn:
+  """A training step's draws from one generator, as the JAX package draws
+  them from its key (eps, then time, then the condition drop): eps
+  standard normal, time uniform in [0, 1) (or k / n for 'discrete'), and
+  each row conditioned with probability 1 - drop_condition_prob."""
+  def draw(x0, config):
+    batch, dev = x0.shape[0], x0.device
+    eps = torch.randn(x0.shape, generator=generator, device=dev,
+                      dtype=torch.float32)
+    if config.time_sampling == "continuous":
+      time = torch.rand(batch, generator=generator, device=dev)
+    elif config.time_sampling == "discrete":
+      n = config.train_schedule.num_steps
+      time = torch.randint(0, n, (batch,), generator=generator,
+                           device=dev).float() / float(n)
+    else:
+      raise ValueError(f"Invalid time_sampling: {config.time_sampling}")
+    keep = 1.0 - config.guidance.drop_condition_prob
+    include = torch.rand(batch, generator=generator, device=dev) < keep
+    return eps, time, include
   return draw
 
 
@@ -221,6 +251,46 @@ def x0_eps_from_model_output(z, time, model_output,
     x0_out = x0_from_v(z, model_output, logsnr)
     return {"x0": x0_out, "eps": eps_from_x0(z, x0_out, logsnr)}
   raise ValueError(f"Unknown model_output: {config.model_output}")
+
+
+# ---------------------------------------------------------------------------
+# Training.
+# ---------------------------------------------------------------------------
+
+
+def training_input(draws: DrawsFn, x0: torch.Tensor, config: DiffusionConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+  """(z_t, eps, time, include_conditioning) for a training step; eps, time
+  and include_conditioning come from `draws`, z_t = alpha x0 + sigma eps."""
+  eps, time, include_conditioning = draws(x0, config)
+  logsnr = logsnr_at(time, config.train_schedule)
+  dist = forward_process(x0, bcast_left(logsnr, x0.shape))
+  z_t = dist["mean"] + dist["std"] * eps
+  return z_t, eps, time, include_conditioning
+
+
+def training_loss(x0, eps, z, time, model_output,
+                  config: DiffusionConfig) -> torch.Tensor:
+  """Per-element diffusion loss (unreduced)."""
+  outputs = x0_eps_from_model_output(z, time, model_output, config)
+
+  def norm(a, b):
+    if config.loss_norm == "l1":
+      return torch.abs(a - b)
+    if config.loss_norm == "l2":
+      return torch.square(a - b)
+    raise ValueError(f"Unknown loss_norm: {config.loss_norm}")
+
+  if config.loss_type == "x0":
+    return norm(outputs["x0"], x0)
+  if config.loss_type == "eps":
+    return norm(outputs["eps"], eps)
+  if config.loss_type == "max_x0_eps":
+    return torch.maximum(norm(outputs["x0"], x0), norm(outputs["eps"], eps))
+  if config.loss_type == "x0_and_eps":
+    return norm(outputs["eps"], eps) + norm(outputs["x0"], x0)
+  raise ValueError(f"Unknown loss_type: {config.loss_type}")
 
 
 # ---------------------------------------------------------------------------

@@ -240,3 +240,45 @@ def mel_spectrogram(audio: torch.Tensor, *, sample_rate: int, n_fft: int,
       sample_rate=sample_rate, lower_edge_hertz=mel_fmin,
       upper_edge_hertz=mel_fmax), device=audio.device)
   return torch.log(torch.clamp(mag @ basis, 1e-5, 1e8))
+
+
+def mel_spectrogram_np(audio: np.ndarray,
+                       *,
+                       sample_rate: int = 16000,
+                       n_fft: int = 1024,
+                       hop_length: int = 160,
+                       win_length: int = 400,
+                       n_mel_channels: Optional[int] = 64,
+                       drop_dc: bool = True,
+                       mel_fmin: float = 60.0,
+                       mel_fmax: Optional[float] = 7800.0,
+                       clip_value_min: float = 1e-5,
+                       clip_value_max: float = 1e8,
+                       log_amplitude: bool = True) -> np.ndarray:
+  """Pure-numpy mel_spectrogram for the host-side data pipeline: a copy of
+  the JAX package's `mel_spectrogram_np` (same math, same constants), so
+  the port's training features equal the JAX package's bit for bit."""
+  if mel_fmax is None:
+    mel_fmax = sample_rate // 2
+  audio = np.asarray(audio, np.float32)
+  n = audio.shape[-1]
+  n_frames = -(-n // hop_length)  # ceil (tf.signal pad_end)
+  pad = max(0, (n_frames - 1) * hop_length + win_length - n)
+  audio = np.pad(audio, [(0, 0)] * (audio.ndim - 1) + [(0, pad)])
+  idx = (np.arange(win_length)[None, :] +
+         hop_length * np.arange(n_frames)[:, None])
+  frames = audio[..., idx] * hann_window(win_length)
+  mag = np.abs(np.fft.rfft(frames, n=n_fft, axis=-1))
+  if n_mel_channels is not None:
+    basis = linear_to_mel_matrix(
+        num_mel_bins=n_mel_channels,
+        num_spectrogram_bins=n_fft // 2 + 1,
+        sample_rate=sample_rate,
+        lower_edge_hertz=mel_fmin,
+        upper_edge_hertz=mel_fmax)
+    out = mag @ basis
+  else:
+    out = mag[..., 1:] if drop_dc else mag
+  if log_amplitude:
+    out = np.log(np.clip(out, clip_value_min, clip_value_max))
+  return out.astype(np.float32)

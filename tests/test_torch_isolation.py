@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it (and chip_smoke.py)
 pulls in neither JAX nor the JAX package, and a request for the card on a
-machine without one raises instead of running on the CPU."""
+machine without one raises instead of running on the CPU: serving, the
+MIDI CLI, the vocoder, and training (the trainer and cli/train.py)."""
 
 import os
 import subprocess
@@ -27,7 +28,11 @@ assert not torch.cuda.is_available()
 from music_spectrogram_diffusion_tpu_torch import config
 from music_spectrogram_diffusion_tpu_torch.audio import vocoder
 from music_spectrogram_diffusion_tpu_torch.cli import synthesize_midi
+from music_spectrogram_diffusion_tpu_torch.cli import train as train_cli
 from music_spectrogram_diffusion_tpu_torch.infer import inference
+from music_spectrogram_diffusion_tpu_torch.train import trainer
+import tempfile
+never_written = tempfile.mkdtemp()
 for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
              lambda: inference.build_model(config.preset("context_tiny")),
              lambda: inference.InferenceModel(config.preset("context_tiny"),
@@ -35,13 +40,20 @@ for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
              lambda: synthesize_midi.build_model(synthesize_midi.parse_args(
                  ["--midi", "song.mid", "--output", "song.wav",
                   "--size", "tiny"])),
-             lambda: vocoder.GriffinLimVocoder()):
+             lambda: vocoder.GriffinLimVocoder(),
+             lambda: trainer.build_model(config.preset("context_tiny")),
+             lambda: train_cli.main(["--synthetic", "--preset",
+                                     "context_tiny", "--model_dir",
+                                     never_written])):
   try:
     make()
   except RuntimeError as e:
     assert "cuda" in str(e), e
   else:
     raise AssertionError("a cuda request ran without a card")
+import os
+assert not os.listdir(never_written)
+os.rmdir(never_written)
 print("isolated", len(names))
 """
 
