@@ -6,11 +6,17 @@ Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
   2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu,
               qmm.cu and flash_bwd.cu, three compilers started together) and
-              reports ptxas's registers and spills;
+              reports ptxas's registers and spills of every instantiation;
+              the attention kernels must not spill;
   3. kernel   flash attention against its plain PyTorch version at the
-              three attention shapes of the serving path, in float32 and
-              bfloat16: error and tolerance, kernel / plain / SDPA
-              (yardstick only) times, and the least time the card could take;
+              four attention shapes of the serving path, at b=2 and b=1, in
+              float32 and bfloat16: error and tolerance, in float32 the
+              softmax statistics against theirs, two launches bitwise
+              equal, the split-KV count, kernel / plain / SDPA (yardstick
+              only) times on the card (CUDA graphs), the kernel's eager
+              time a call, and the least time the card could take; then
+              the kernels' TF32 rounding against cvt.rna.tf32.f32, and a
+              NaN in q, v or dO giving NaN where the plain versions do;
   4. kernel   the weight-only int8 GEMM against its plain version at every
               (M, K, N, dtype) of the int8 path: error and tolerance,
               kernel / plain / bf16-matmul (yardstick only) times from CUDA
@@ -92,8 +98,14 @@ from music_spectrogram_diffusion_tpu_torch.ops import stft
 from music_spectrogram_diffusion_tpu_torch.train import loop as train_loop
 from music_spectrogram_diffusion_tpu_torch.train import trainer
 
-# H100 SXM, dense, at the 700 W limit (NVIDIA data sheet).
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM, dense, at the 700 W limit (NVIDIA data sheet): the bf16 and
+# TF32 tensor cores.
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12}
+# The peak of each attention kernel's route: bf16 products on the bf16
+# tensor cores; f32 products as three TF32 products each (3xTF32, the
+# route that keeps f32's 1e-4 limits), so a third of the TF32 peak.
+ROUTE_FLOPS = {torch.float32: PEAK_FLOPS["tf32"] / 3,
+               torch.bfloat16: PEAK_FLOPS[torch.bfloat16]}
 HBM_BYTES_PER_S = 3.35e12
 SEGMENTS = 3
 # (name, q_len, kv_len, key mask, kv_transposed): the serving path's
@@ -110,10 +122,18 @@ SHAPES = (
 RUNS = ((2, torch.float32), (2, torch.bfloat16), (1, torch.float32),
         (1, torch.bfloat16))
 HEADS, HEAD_DIM = 12, 64
-# f32: the kernel sums in another order than cuBLAS (observed <= 6e-6).
-# bf16: p is rounded to bf16 before p.v and the output is stored in bf16,
-# whose step at |x| in [2, 4) is 2^-6.
-TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# The forward against its plain version, max |kernel - plain| (see
+# fwd_tolerance). f32: 1e-4 absolute; the kernel's 3xTF32 products and
+# sums run in another order than cuBLAS's (observed <= 7.5e-6 at these
+# inputs, PERF.md §6). bf16: 2^-6 x max |plain|, between 2 and 4 bf16
+# steps at the output's largest magnitude. p is rounded to bf16 before p.v
+# and both outputs are rounded to bf16, so a sound kernel stays within a
+# step or so (observed 9.8e-4 to 3.9e-3, one step, at most 0.34 of the
+# limit); keys 64-127 left out move the output by 0.104 to 0.789, 30x the
+# limit or more, and the last split left out of the combine 54x or more
+# (tools/torch_attention_variants.py fault_skip_tile, fault_drop_split;
+# PERF.md §6).
+TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # The int8 GEMM against its plain version, relative to the output's max:
 # f32 out, the same exact products summed in another order; bf16 out, one
 # rounding step of the output, which that order can flip.
@@ -130,7 +150,7 @@ MIDI_NOTES_PER_SECOND = 36.0
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SONGS, RESUME_BATCH = 8, 5, 16, 2
 # The backward kernel against its plain version and autograd, max abs
 # error over max(1, the gradient's max): float32 products and sums in
-# another order (observed <= 5e-6 at these shapes).
+# another order (observed <= 5.2e-6 at these shapes).
 BWD_TOLERANCE = 1e-4
 # One training step, card vs CPU (phase 12). The timing embedding takes
 # sin/cos of arguments up to 2e4 rad (0.37 x 2e4 = 7400 in the check, where
@@ -142,15 +162,18 @@ BWD_TOLERANCE = 1e-4
 # held card vs CPU with the CPU's timing embedding on both sides.
 STEP_LOSS_TOLERANCE = 1e-4
 # Each gradient's relative RMS: card vs CPU with the same timing embedding
-# (measured <= 2.6e-6), and the kernels vs the plain attention on the card
-# (measured <= 2.5e-6). float32 on both sides, sums in other orders.
+# (measured <= 1.43e-5), and the kernels vs the plain attention on the card
+# (measured <= 1.45e-5). float32 on both sides, sums in other orders, the
+# kernels' products as 3xTF32 (PERF.md §7).
 STEP_GRAD_TOLERANCE = 1e-4
 # Resumed vs straight through, the relative RMS of each parameter's total
 # update over the 4 steps and the step losses relative: the same
 # arithmetic, but the embedding's backward on CUDA adds with atomics.
 RESUME_TOLERANCE = 1e-3
-
-
+# The softmax statistics of the f32 forward against softmax_stats_reference:
+# the row max m to 1e-4 x max(1, |m|), the row sum l to 1e-4 relative
+# (3xTF32 scores against f32 ones; -1e10 on an all-masked row is exact).
+STATS_TOLERANCE = 1e-4
 def log(line: str) -> None:
   print(line, flush=True)
 
@@ -174,10 +197,15 @@ def ptxas_usage(name: str) -> list:
   for line in _build.compiler_report(name).splitlines():
     m = re.search(r"Compiling entry function '(\w+)'", line)
     if m:
-      # Drop the anonymous namespace and the Params argument.
+      # Drop the anonymous namespace and the Params argument; name the
+      # template arguments.
       entry = re.sub(r"ILi(\d+)E", r"<\1>", re.sub(
           r"^_ZN\d+_GLOBAL__N_\w*?_cu_[0-9a-f]{8}\d+|EEvNS_\d+ParamsE$",
           "", m.group(1)))
+      entry = re.sub(r"(>|I)(f|13__nv_bfloat16)$", lambda t: (
+          ", " if t.group(1) == ">" else "<") + (
+              "f32" if t.group(2) == "f" else "bf16") + ">", entry)
+      entry = re.sub(r"^(\w+_kernel)E\w*$", r"\1", entry)  # no template
     elif entry and "spill" in line:
       stack = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
     elif entry and "registers" in line:
@@ -217,39 +245,70 @@ def attention_inputs(batch, q_len, kv_len, masked, transposed, dtype, gen):
 
 
 def bound_ms(batch, q_len, kv_len, masked, dtype):
-  """max(operations / peak, bytes / HBM rate) for one call."""
+  """max(operations / the route's peak, bytes / HBM rate) for one call, and
+  the same at the bf16 peak."""
   flops = 4.0 * batch * HEADS * q_len * kv_len * HEAD_DIM
   elt = torch.finfo(dtype).bits // 8
   nbytes = (2 * batch * q_len + 2 * batch * kv_len) * HEADS * HEAD_DIM * elt
   nbytes += batch * kv_len if masked else 0
-  t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+  t_ops, t_bytes = flops / ROUTE_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
   bf16_ops = flops / PEAK_FLOPS[torch.bfloat16]
   return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
           else "bytes", 1e3 * max(bf16_ops, t_bytes))
 
 
-def kernel_phase(gen):
+def fwd_tolerance(dtype, plain) -> float:
+  """The forward's limit on max |kernel - plain| (TOLERANCE): absolute in
+  f32, relative to max |plain| in bf16."""
+  scale = 1.0 if dtype == torch.float32 else plain.float().abs().max().item()
+  return TOLERANCE[dtype] * scale
+
+
+def kernel_phase(gen, stream):
   rows = []
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
   for name, q_len, kv_len, masked, transposed in SHAPES:
     for batch, dtype in RUNS:
       q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked,
                                        transposed, dtype, gen)
 
-      def kernel():
+      def kernel(_=0):
         return attention.flash_attention(q, k, v, kv_mask=mask,
                                          kv_transposed=transposed)
 
-      def plain():
+      def plain(_=0):
         return attention.attention_reference(q, k, v, kv_mask=mask,
                                              kv_transposed=transposed)
 
-      got = kernel()
+      got, stats = attention.flash_attention(q, k, v, kv_mask=mask,
+                                             kv_transposed=transposed,
+                                             return_stats=True)
+      again = kernel()
       torch.cuda.synchronize()
-      err = (got.float() - plain().float()).abs().max().item()
+      want = plain()
+      diff = got.float() - want.float()
+      err = diff.abs().max().item()
+      rms = (diff.pow(2).mean() / want.float().pow(2).mean()).sqrt().item()
+      tol = fwd_tolerance(dtype, want)
       check(bool(torch.isfinite(got).all()), f"{name} {dtype} finite")
-      check(err <= TOLERANCE[dtype],
-            f"{name} {dtype}: max |kernel - plain| {err} > "
-            f"{TOLERANCE[dtype]}")
+      check(err <= tol, f"{name} {dtype}: max |kernel - plain| {err} > {tol}")
+      check(torch.equal(got, again), f"{name} b={batch} {dtype}: two "
+            "launches differ")
+      stats_note = ""
+      if dtype == torch.float32:
+        want_stats = attention.softmax_stats_reference(
+            q, k, kv_mask=mask, kv_transposed=transposed)
+        m_err = ((stats[0] - want_stats[0]).abs()
+                 / want_stats[0].abs().clamp(min=1.0)).max().item()
+        l_err = ((stats[1] - want_stats[1]).abs()
+                 / want_stats[1]).max().item()
+        check(m_err <= STATS_TOLERANCE and l_err <= STATS_TOLERANCE,
+              f"{name} b={batch}: statistics off by {m_err} (max), "
+              f"{l_err} (sum) > {STATS_TOLERANCE}")
+        stats_note = (f"; statistics max {m_err:.3g}, sum {l_err:.3g} "
+                      f"(tol {STATS_TOLERANCE})")
+      splits, _ = attention.kv_split(batch, HEADS, q_len, kv_len, sms,
+                                     *attention.fwd_tile(dtype))
       # SDPA yardstick on the same inputs: [b, h, l, d], additive mask.
       qs = q.transpose(1, 2).contiguous()
       ks, vs = ((k, v) if transposed else
@@ -259,25 +318,129 @@ def kernel_phase(gen):
       if mask is not None:
         bias = ((mask.float() - 1.0) * 1e10)[:, None, None, :].to(dtype)
 
-      def library():
+      def library(_=0):
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias,
                                               scale=1.0)
 
+      # The card's time: calls captured in a CUDA graph and replayed, so
+      # that a short call is not timed by the host's launch overhead; and
+      # the kernel's time a call as the eager main path launches it.
       iters = 20 if q_len > 256 else 100
-      ms, plain_ms, lib_ms = (cuda_ms(kernel, iters),
-                              cuda_ms(plain, iters), cuda_ms(library, iters))
+      ms, plain_ms, lib_ms = (graph_ms(kernel, iters, stream),
+                              graph_ms(plain, iters, stream),
+                              graph_ms(library, iters, stream))
+      eager_ms = cuda_ms(kernel, iters)
       bound, bound_by, bound_bf16 = bound_ms(batch, q_len, kv_len, masked,
                                              dtype)
       dt = str(dtype).replace("torch.", "")
+      route = "3xTF32" if dtype == torch.float32 else "bf16"
       log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} {dt}: max_abs_err "
-          f"{err:.3g} (tol {TOLERANCE[dtype]}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; bound {bound:.4f} ms "
-          f"({bound_by}, {dt} peak), {bound_bf16:.4f} ms at the bf16 peak")
+          f"{err:.3g} (tol {tol:.3g}), relative RMS {rms:.3g}{stats_note}; "
+          f"bitwise reproducible; "
+          f"{splits} split(s); on the card (CUDA graph): kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; kernel eager "
+          f"{eager_ms:.4f} ms a call; bound {bound:.4f} ms ({bound_by}, "
+          f"{route} peak), {bound_bf16:.4f} ms at the bf16 peak")
       rows.append(dict(shape=name, dtype=dt, batch=batch, q_len=q_len,
-                       kv_len=kv_len, max_abs_err=err, ms=ms,
+                       kv_len=kv_len, splits=splits, max_abs_err=err,
+                       tolerance=tol, rel_rms=rms, ms=ms, eager_ms=eager_ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                       bound_by=bound_by))
+                       bound_by=bound_by, bound_bf16_ms=bound_bf16))
   return rows
+
+
+# f32 bit patterns for the TF32 rounding check: zeros, the smallest
+# subnormal, a tie and its neighbours, the largest finite value and those
+# that round up to inf, inf, and NaNs with payloads low and high (the card's
+# canonical 0x7fffffff among them), of both signs.
+TF32_SPECIAL_BITS = (
+    0x00000000, 0x00000001, 0x00000FFF, 0x00001000, 0x3F801000, 0x3F800FFF,
+    0x3F801001, 0x7F7FEFFF, 0x7F7FF000, 0x7F7FFFFF, 0x7F800000, 0x7F800001,
+    0x7FC00000, 0x7FFFEFFF, 0x7FFFF000, 0x7FFFFFFF)
+
+
+def tf32_rounding_check(gen) -> str:
+  """The kernels' TF32 rounding against cvt.rna.tf32.f32 on the card: the
+  same bits for every finite and infinite input; and the split's small
+  term NaN for every NaN input (where neither rounding keeps NaN)."""
+  special = torch.tensor(TF32_SPECIAL_BITS, dtype=torch.int64)
+  special = torch.cat([special, special | 0x80000000])
+  special = torch.where(special >= 2 ** 31, special - 2 ** 32, special)
+  bits = torch.cat([special.to(torch.int32).cuda(), torch.randint(
+      -2 ** 31, 2 ** 31, (1 << 22,), device="cuda", generator=gen,
+      dtype=torch.int64).to(torch.int32)])
+  ours, cvt, small = attention.tf32_round_probe(bits)
+
+  def hex_(t, i):
+    return f"{t[i].item() & 0xFFFFFFFF:#010x}"
+
+  nan = torch.isnan(bits.view(torch.float32))
+  bad = ((ours != cvt) & ~nan).nonzero().flatten()[:8].tolist()
+  check(not bad, "round_tf32 differs from cvt.rna.tf32.f32 at " + ", ".join(
+      f"{hex_(bits, i)} -> {hex_(ours, i)} (cvt {hex_(cvt, i)})"
+      for i in bad))
+  lost = (nan & ~torch.isnan(small.view(torch.float32))).nonzero()
+  check(not len(lost), "split_tf32 loses the NaN " + ", ".join(
+      f"{hex_(bits, i)} (small {hex_(small, i)})"
+      for i in lost.flatten()[:8].tolist()))
+
+  def not_nan(t):
+    return int((nan & ~torch.isnan(t.view(torch.float32))).sum())
+
+  return (f"{bits.numel()} f32 patterns ({len(special)} special, "
+          f"{int(nan.sum())} NaN): round_tf32 gives cvt.rna.tf32.f32's bits "
+          f"for every finite and infinite one (0x7f7fffff -> "
+          f"{hex_(cvt, TF32_SPECIAL_BITS.index(0x7F7FFFFF))}); of the NaNs, "
+          f"cvt.rna turns {not_nan(cvt)} and round_tf32 {not_nan(ours)} into "
+          f"numbers, split_tf32's small term none")
+
+
+def nan_check(gen) -> str:
+  """A NaN (0x7fffffff or 0xffffffff, the card's own) planted in q, in v
+  and, for the backward, in dO comes out NaN where the plain versions'
+  does, and nowhere else, in the split-KV and one-split forwards and in the
+  backward."""
+  notes = []
+  for name, q_len, kv_len, masked, transposed in (SHAPES[2], SHAPES[3]):
+    for batch, dtype in ((1, torch.float32), (1, torch.bfloat16),
+                         (8, torch.float32)):
+      for where in ("query", "value"):
+        q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked,
+                                         transposed, dtype, gen)
+        t = q if where == "query" else v
+        word = t.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+        nan_bits = (0x7FFF, -1) if dtype == torch.bfloat16 else (
+            0x7FFFFFFF, -1)
+        word.view(-1)[7] = nan_bits[0]
+        word.view(-1)[t.numel() // 2 + 3] = nan_bits[1]
+        got = attention.flash_attention(q, k, v, kv_mask=mask,
+                                        kv_transposed=transposed)
+        want = attention.attention_reference(q, k, v, kv_mask=mask,
+                                             kv_transposed=transposed)
+        check(torch.equal(torch.isnan(got), torch.isnan(want))
+              and bool(torch.isnan(want).any()),
+              f"{name} b={batch} {dtype}: NaN in {where} gives NaN at "
+              f"{int(torch.isnan(got).sum())} outputs, plain at "
+              f"{int(torch.isnan(want).sum())}")
+        notes.append(f"{name} b={batch} {str(dtype)[6:]} {where} "
+                     f"{int(torch.isnan(got).sum())}")
+    q, k, v, mask = attention_inputs(TRAIN_BATCH, q_len, kv_len, masked,
+                                     False, torch.float32, gen)
+    out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
+                                           return_stats=True)
+    dout = torch.randn(out.shape, device="cuda", generator=gen)
+    dout.view(torch.int32).view(-1)[11] = 0x7FFFFFFF
+    got = attention.flash_attention_bwd(q, k, v, None, mask, out, stats, dout)
+    want = attention.flash_attention_bwd_reference(q, k, v, None, mask, out,
+                                                   stats, dout)
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+      check(torch.equal(torch.isnan(g), torch.isnan(w))
+            and bool(torch.isnan(w).any()),
+            f"{name} backward: NaN in dO gives NaN at "
+            f"{int(torch.isnan(g).sum())} of {what}, plain at "
+            f"{int(torch.isnan(w).sum())}")
+    notes.append(f"{name} backward dO {sum(int(torch.isnan(g).sum()) for g in got)}")
+  return "; ".join(notes)
 
 
 def graph_ms(fn, iters: int, stream: torch.cuda.Stream) -> float:
@@ -764,14 +927,16 @@ def training_experiment():
 
 
 def bwd_bound_ms(batch, q_len, kv_len):
-  """max(10 b h q kv d FLOPs at the f32 peak, bytes at the HBM rate): q,
-  out, dO, dQ and k, v, dK, dV in f32, the statistics and the key mask."""
+  """max(10 b h q kv d FLOPs at the 3xTF32 route's peak, bytes at the HBM
+  rate): q, out, dO, dQ and k, v, dK, dV in f32, the statistics and the
+  key mask; and the operations at the bf16 peak."""
   flops = 10.0 * batch * HEADS * q_len * kv_len * HEAD_DIM
   nbytes = 4 * (4 * batch * q_len + 4 * batch * kv_len) * HEADS * HEAD_DIM
   nbytes += 4 * 2 * batch * HEADS * q_len + batch * kv_len
-  t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S
+  t_ops, t_bytes = flops / ROUTE_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S
+  t_bf16 = max(flops / PEAK_FLOPS[torch.bfloat16], t_bytes)
   return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                     else "bytes")
+                                     else "bytes"), 1e3 * t_bf16
 
 
 def bwd_kernel_phase(gen, batch: int):
@@ -799,7 +964,7 @@ def bwd_kernel_phase(gen, batch: int):
     want = plain()
     qkv = [x.clone().requires_grad_() for x in (q, k, v)]
     attention.attention_reference(*qkv, kv_mask=mask).backward(dout)
-    errs = []
+    errs, worst = [], 0.0  # worst: the largest error over its tolerance
     for what, g, w_plain, w_auto in zip("qkv", got, want, qkv):
       check(bool(torch.isfinite(g).all()), f"{name} d{what} finite")
       if mask is not None:
@@ -811,6 +976,7 @@ def bwd_kernel_phase(gen, batch: int):
         check(err <= tol, f"{name} d{what}: max |kernel - {ref_name}| {err} "
               f"> {tol}")
         errs.append(err)
+        worst = max(worst, err / tol)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two launches differ")
     del want, qkv
@@ -835,16 +1001,19 @@ def bwd_kernel_phase(gen, batch: int):
     # statistics output.
     fwd_ms = cuda_ms(lambda: attention.flash_attention(
         q, k, v, kv_mask=mask, return_stats=True), iters)
-    bound, bound_by = bwd_bound_ms(batch, q_len, kv_len)
+    bound, bound_by, bound_bf16 = bwd_bound_ms(batch, q_len, kv_len)
     log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} float32: max_abs_err "
-        f"{max(errs):.3g} (tol {BWD_TOLERANCE} x max(1, |grad| max)), "
+        f"{max(errs):.3g} (tol {BWD_TOLERANCE} x max(1, |grad| max); at "
+        f"worst {worst:.3g} of it), "
         f"finite{' with an all-masked row' if masked else ''}, bitwise "
-        f"reproducible; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"backward {lib_ms:.4f} ms; bound {bound:.4f} ms ({bound_by}); the "
-        f"forward kernel with statistics {fwd_ms:.4f} ms")
+        f"reproducible; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({bound_by}, 3xTF32 peak), {bound_bf16:.4f} ms at "
+        f"the bf16 peak; the forward kernel with statistics {fwd_ms:.4f} ms")
     rows.append(dict(shape=name, batch=batch, q_len=q_len, kv_len=kv_len,
-                     max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                     max_abs_err=max(errs), ms=ms,
+                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                     bound_by=bound_by, bound_bf16_ms=bound_bf16,
                      forward_ms=fwd_ms))
   return rows
 
@@ -1179,11 +1348,21 @@ def main() -> int:
   log(f"phase 2 build: flash_fwd.cu, qmm.cu and flash_bwd.cu with nvcc "
       f"({time.perf_counter() - t0:.2f} s)")
   for name in ("flash_fwd", "qmm", "flash_bwd"):
-    for line in ptxas_usage(name):
+    usage = ptxas_usage(name)
+    check(bool(usage), f"no ptxas report for {name}.cu")
+    for line in usage:
       log(f"  ptxas {name}: {line}")
+      if name != "qmm":
+        check(" 0 bytes spill stores" in line, f"{name}.cu spills: {line}")
 
   t0 = time.perf_counter()
-  rows = kernel_phase(gen)
+  rows = kernel_phase(gen, capture)
+  # The checks draw from a generator of their own, so that the phases
+  # after them see the inputs they saw without them.
+  check_gen = torch.Generator("cuda").manual_seed(args.seed + 1)
+  log(f"  TF32 rounding: {tf32_rounding_check(check_gen)}")
+  log(f"  NaN in, NaN out where the plain version's is (NaN outputs): "
+      f"{nan_check(check_gen)}")
   log(f"phase 3 attention kernel vs plain: {len(rows)} checks passed "
       f"({time.perf_counter() - t0:.2f} s)")
 
@@ -1251,7 +1430,8 @@ def main() -> int:
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
 
   def total(key, rows_):
-    return sum(r[key] for r in rows_)
+    values = [r[key] for r in rows_]
+    return None if None in values else sum(values)
 
   kernels = {"kernels": [{
       "name": "flash_attention_fwd",

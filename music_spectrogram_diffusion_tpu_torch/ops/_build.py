@@ -3,8 +3,9 @@
 Each `.cu` source under `ops/csrc/` exposes a plain C interface, so it is
 compiled by `nvcc` alone into a shared library: no PyTorch headers, no
 CUTLASS, no ninja. The library is built on first use into `ops/csrc/build/`
-(git-ignored), under a name keyed by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+(git-ignored), under a name keyed by a hash of the source, of every header
+in `csrc/` (`*.cuh`, which the sources share) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -42,10 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-  """Where `csrc/<name>.cu` is built: keyed by the source and the flags."""
-  source = (CSRC / f"{name}.cu").read_bytes()
-  digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-  return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+  """Where `csrc/<name>.cu` is built: keyed by the source, the headers in
+  `csrc/` and the flags."""
+  digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC.glob("*.cuh")):
+    digest.update(header.name.encode() + b"\0" + header.read_bytes())
+  digest.update(" ".join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> None:

@@ -9,6 +9,13 @@ see `_build.py`); on CPU tensors it runs `attention_reference`, the plain
 PyTorch version. There is no fallback between the two: a CUDA call that
 cannot launch raises.
 
+Both kernels compute on the tensor cores: bf16 products as bf16 mma, f32
+products as three TF32 products each (`split_tf32`, `einsum_3xtf32`, the
+plain versions of that arithmetic, which the tests use). Where a call's
+blocks cannot fill the card, the forward splits each query tile's keys into
+ranges and combines them (`kv_split`; `attention_split_kv_reference` is its
+plain version).
+
 `flash_attention_diff` is the differentiable form (the training path), as
 the JAX package's `flash_attention_diff`: its forward is the forward kernel,
 which also writes each row's softmax max and sum, and its backward
@@ -21,6 +28,7 @@ which also writes each row's softmax max and sum, and its backward
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,10 +47,43 @@ def transpose_kv(key: torch.Tensor,
           value.transpose(1, 2).contiguous())
 
 
-def _scores(query, key, bias, kv_mask, kv_transposed):
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The plain version of the kernels' operand split (csrc/attention_mma.cuh
+  `split_tf32`): f32 x as big + small, each rounded to TF32 (10 mantissa
+  bits) as `cvt.rna.tf32.f32` rounds, to nearest with ties away from zero.
+  big + small equals x within 2^-21 relative. Where x is NaN or inf, small
+  is NaN, so every product it enters is NaN."""
+
+  def rna(bits):  # the kernels' integer add-and-mask on the f32 bits
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+
+  x = x.float().contiguous()
+  big = rna(x.view(torch.int32).to(torch.int64))
+  rest = x - big
+  # The card's float add gives the NaN 0x7fffffff, which the kernels clamp
+  # to 0x7fffefff, so that it rounds to a NaN and not into the sign bit.
+  return big, rna(torch.where(torch.isnan(rest), 0x7FFFEFFF,
+                              rest.view(torch.int32).to(torch.int64)))
+
+
+def einsum_3xtf32(equation: str, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+  """The plain version of an f32 product as the kernels take it on the
+  tensor cores (3xTF32): small(a) big(b) + big(a) small(b) + big(a) big(b),
+  each term exact in f32, the small x small term dropped."""
+  a_big, a_small = split_tf32(a)
+  b_big, b_small = split_tf32(b)
+  return (torch.einsum(equation, a_small, b_big)
+          + torch.einsum(equation, a_big, b_small)
+          + torch.einsum(equation, a_big, b_big))
+
+
+def _scores(query, key, bias, kv_mask, kv_transposed, einsum=torch.einsum):
   """f32 scores [b, h, q, kv]: q k^T + bias + (keep - 1) * 1e10."""
   k_sub = "bhkd" if kv_transposed else "bkhd"
-  scores = torch.einsum(f"bqhd,{k_sub}->bhqk", query.float(), key.float())
+  scores = einsum(f"bqhd,{k_sub}->bhqk", query.float(), key.float())
   if bias is not None:
     scores = scores + bias.float()
   if kv_mask is not None:
@@ -51,10 +92,12 @@ def _scores(query, key, bias, kv_mask, kv_transposed):
 
 
 def softmax_stats_reference(query, key, bias=None, kv_mask=None, *,
-                            kv_transposed: bool = False) -> torch.Tensor:
+                            kv_transposed: bool = False,
+                            einsum=torch.einsum) -> torch.Tensor:
   """The plain version of the forward kernel's statistics: f32
-  [2, b, h, q], each row's max m and its sum l of exp(s - m)."""
-  scores = _scores(query, key, bias, kv_mask, kv_transposed)
+  [2, b, h, q], each row's max m and its sum l of exp(s - m). `einsum`
+  takes the products (`einsum_3xtf32`: as the kernel's f32 path does)."""
+  scores = _scores(query, key, bias, kv_mask, kv_transposed, einsum)
   m = scores.amax(dim=-1)
   return torch.stack([m, torch.exp(scores - m[..., None]).sum(dim=-1)])
 
@@ -65,17 +108,91 @@ def attention_reference(query: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         kv_mask: Optional[torch.Tensor] = None,
                         *,
-                        kv_transposed: bool = False) -> torch.Tensor:
+                        kv_transposed: bool = False,
+                        einsum=torch.einsum) -> torch.Tensor:
   """The plain version: materialized f32 scores, then softmax, then p v.
 
   Same arguments and result as `flash_attention`; the output has the
-  query's dtype.
+  query's dtype. `einsum` takes the two products (`einsum_3xtf32`: as the
+  kernel's f32 path does).
   """
   k_sub = "bhkd" if kv_transposed else "bkhd"
   weights = torch.softmax(
-      _scores(query, key, bias, kv_mask, kv_transposed), dim=-1)
-  return torch.einsum(f"bhqk,{k_sub}->bqhd", weights,
-                      value.float()).to(query.dtype)
+      _scores(query, key, bias, kv_mask, kv_transposed, einsum), dim=-1)
+  return einsum(f"bhqk,{k_sub}->bqhd", weights,
+                value.float()).to(query.dtype)
+
+
+def kv_split(batch: int, heads: int, q_len: int, kv_len: int, sm_count: int,
+             rows: int, keys: int) -> Tuple[int, int]:
+  """(splits, keys_per_split) of the forward kernel's split-KV path.
+
+  A call whose b h ceil(q / rows) blocks (`rows` query rows a block, `keys`
+  keys a K/V tile: the kernel's block shape, `fwd_tile`) cannot fill the
+  card's `sm_count` SMs cuts each query tile's keys into ranges of whole
+  K/V tiles, aiming at about two blocks an SM, and combines them; a call
+  that fills the card takes 1 split (keys_per_split = kv_len). Every range
+  starts below kv_len, so it holds a key that is scored.
+  """
+  blocks = batch * heads * -(-q_len // rows)
+  tiles = -(-kv_len // keys)
+  if blocks >= sm_count or tiles == 1:
+    return 1, kv_len
+  per = -(-tiles // min(tiles, -(-2 * sm_count // blocks)))  # tiles a split
+  return -(-tiles // per), per * keys
+
+
+def fwd_tile(dtype: torch.dtype) -> Tuple[int, int]:
+  """(query rows a block, keys a K/V tile) of the forward kernel for
+  `dtype`, as `csrc/flash_fwd.cu` is built (loads it; needs the card)."""
+  return _library("flash_fwd").msd_fwd_tile[dtype]
+
+
+def tf32_round_probe(bits: torch.Tensor):
+  """Each f32 bit pattern of `bits` (int32, on the card) rounded to TF32 by
+  the kernels' `round_tf32` and by `cvt.rna.tf32.f32`, the instruction it
+  stands in for, and the small term of the kernels' `split_tf32`: (ours,
+  cvt, small), int32 bit patterns."""
+  if bits.device.type != "cuda" or bits.dtype != torch.int32:
+    raise ValueError(f"tf32_round_probe takes int32 on cuda, got "
+                     f"{bits.dtype} on {bits.device}")
+  lib = _library("flash_fwd")
+  bits = bits.contiguous()
+  ours, cvt, small = (torch.empty_like(bits) for _ in range(3))
+  err = lib.msd_tf32_round_probe(bits.data_ptr(), ours.data_ptr(),
+                                 cvt.data_ptr(), small.data_ptr(),
+                                 bits.numel(), _stream(bits))
+  _raise_on(lib, err, "tf32_round_probe")
+  return ours, cvt, small
+
+
+def attention_split_kv_reference(query, key, value, bias=None, kv_mask=None,
+                                 *, kv_transposed: bool = False,
+                                 keys_per_split: int):
+  """The plain version of the forward kernel's split-KV path: each range of
+  `keys_per_split` keys gives its row max m_s, its sum l_s of exp(s - m_s)
+  and its unnormalised exp(s - m_s) v; the combine takes, over the ranges
+  in ascending order, m = max m_s, l = sum exp(m_s - m) l_s and out =
+  sum exp(m_s - m) acc_s / l. Returns (out in the query's dtype, f32
+  statistics [2, b, h, q]) as `flash_attention(return_stats=True)`."""
+  scores = _scores(query, key, bias, kv_mask, kv_transposed)
+  v = value.float() if kv_transposed else value.float().transpose(1, 2)
+  parts = []
+  for start in range(0, scores.shape[-1], keys_per_split):
+    s = scores[..., start:start + keys_per_split]
+    m_s = s.amax(dim=-1)
+    e = torch.exp(s - m_s[..., None])
+    parts.append((m_s, e.sum(dim=-1), torch.einsum(
+        "bhqk,bhkd->bhqd", e, v[:, :, start:start + keys_per_split])))
+  m = torch.stack([m_s for m_s, _, _ in parts]).amax(dim=0)
+  l = torch.zeros_like(m)
+  acc = torch.zeros_like(parts[0][2])
+  for m_s, l_s, acc_s in parts:
+    w = torch.exp(m_s - m)
+    l = l + w * l_s
+    acc = acc + w[..., None] * acc_s
+  out = (acc / l[..., None]).transpose(1, 2).to(query.dtype)
+  return out, torch.stack([m, l])
 
 
 def _check(query, key, value, bias, kv_mask, kv_transposed):
@@ -164,43 +281,55 @@ def flash_attention(query: torch.Tensor,
   _check_cuda(query, "flash_attention")
   lib = _library("flash_fwd")
   batch, q_len, heads, head_dim = query.shape
+  f32 = dict(dtype=torch.float32, device=query.device)
   out = torch.empty_like(query)
-  stats = (torch.empty(2, batch, heads, q_len, dtype=torch.float32,
-                       device=query.device) if return_stats else None)
+  stats = (torch.empty(2, batch, heads, q_len, **f32) if return_stats
+           else None)
+  splits, keys_per_split = kv_split(batch, heads, q_len, kv_len,
+                                    _sm_count(query.device.index),
+                                    *lib.msd_fwd_tile[query.dtype])
+  part_acc = part_ml = None
+  if splits > 1:  # the split-KV scratch, combined by a second kernel
+    part_acc = torch.empty(splits, batch, heads, q_len, head_dim, **f32)
+    part_ml = torch.empty(2, splits, batch, heads, q_len, **f32)
   err = lib.msd_flash_fwd(
       query.data_ptr(), key.data_ptr(), value.data_ptr(),
       bias.data_ptr() if bias is not None else None,
       kv_mask.data_ptr() if kv_mask is not None else None,
       out.data_ptr(), stats.data_ptr() if stats is not None else None,
+      part_acc.data_ptr() if part_acc is not None else None,
+      part_ml.data_ptr() if part_ml is not None else None,
       batch, heads, q_len, kv_len, head_dim,
       int(kv_transposed), bias.shape[1] if bias is not None else 1,
-      _DTYPE_CODES[query.dtype], _stream(query))
+      _DTYPE_CODES[query.dtype], splits, keys_per_split, _stream(query))
   _raise_on(lib, err, "flash_fwd")
   flash_attention.launches += 1
   return (out, stats) if return_stats else out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0  # one per call, the split-KV combine included
 
 
 def flash_attention_bwd_reference(query, key, value, bias, kv_mask, out,
                                   stats, dout, *,
-                                  kv_transposed: bool = False):
+                                  kv_transposed: bool = False,
+                                  einsum=torch.einsum):
   """The plain version of `flash_attention_bwd`, with the kernel's
   arithmetic: p = exp(s - m) / l from the forward's statistics,
   delta = rowsum(dO out), dS = p (dP - delta); dV = p^T dO, dK = dS^T q,
-  dQ = dS k. Returns (dq, dk, dv) in f32, in the layouts of q and k/v."""
+  dQ = dS k. `einsum` takes the five products (`einsum_3xtf32`: as the
+  kernel does). Returns (dq, dk, dv) in f32, in the layouts of q and k/v."""
   k_sub = "bhkd" if kv_transposed else "bkhd"
   m, l = stats[0], stats[1]
-  p = torch.exp(_scores(query, key, bias, kv_mask, kv_transposed)
+  p = torch.exp(_scores(query, key, bias, kv_mask, kv_transposed, einsum)
                 - m[..., None]) / l[..., None]
   do = dout.float()
   delta = torch.einsum("bqhd,bqhd->bhq", do, out.float())
-  dp = torch.einsum(f"bqhd,{k_sub}->bhqk", do, value.float())
+  dp = einsum(f"bqhd,{k_sub}->bhqk", do, value.float())
   ds = p * (dp - delta[..., None])
-  dv = torch.einsum(f"bhqk,bqhd->{k_sub}", p, do)
-  dk = torch.einsum(f"bhqk,bqhd->{k_sub}", ds, query.float())
-  dq = torch.einsum(f"bhqk,{k_sub}->bqhd", ds, key.float())
+  dv = einsum(f"bhqk,bqhd->{k_sub}", p, do)
+  dk = einsum(f"bhqk,bqhd->{k_sub}", ds, query.float())
+  dq = einsum(f"bhqk,{k_sub}->bqhd", ds, key.float())
   return dq, dk, dv
 
 
@@ -319,6 +448,11 @@ def _stream(t: torch.Tensor) -> int:
   return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+  return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
   if err != 0:
     raise RuntimeError(
@@ -328,7 +462,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 # Pointer arguments, then int arguments, of each kernel's C entry (the
 # stream is the last pointer).
-_SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 7, 8),
+_SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 9, 10),
                "flash_bwd": ("msd_flash_bwd", 11, 7)}
 
 
@@ -342,5 +476,16 @@ def _library(name: str) -> ctypes.CDLL:
     fn.restype = i32
     lib.msd_cuda_error_string.argtypes = [i32]
     lib.msd_cuda_error_string.restype = ctypes.c_char_p
+    if name == "flash_fwd":
+      lib.msd_flash_fwd_rows.argtypes = [i32]
+      lib.msd_flash_fwd_rows.restype = i32
+      lib.msd_flash_fwd_keys.argtypes = []
+      lib.msd_flash_fwd_keys.restype = i32
+      lib.msd_tf32_round_probe.argtypes = [ptr, ptr, ptr, ptr, i32, ptr]
+      lib.msd_tf32_round_probe.restype = i32
+      # The block shape, asked once: kv_split plans every call by it.
+      lib.msd_fwd_tile = {
+          dtype: (lib.msd_flash_fwd_rows(code), lib.msd_flash_fwd_keys())
+          for dtype, code in _DTYPE_CODES.items()}
     lib._msd_typed = True
   return lib

@@ -1,5 +1,6 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a), float32, with a plain
-// C entry point loaded through ctypes (no PyTorch headers, no CUTLASS).
+// Flash-attention backward for NVIDIA Hopper (sm_90a), float32, on the
+// tensor cores, with a plain C entry point loaded through ctypes (no PyTorch
+// headers, no CUTLASS).
 //
 // Replaces the TPU kernel in music_spectrogram_diffusion_tpu/ops/attention.py:
 // `_flash_bwd_pallas` (the pallas_call) and `_flash_bwd_kernel`, reached
@@ -25,41 +26,58 @@
 // [b, 1|h, q, kv]; the key mask an optional uint8 [b, kv]; m, l, delta f32
 // [b, h, q]. Everything is f32 (the training path's type).
 //
-// The design. The TPU kernel holds the whole query (<= ~2k rows) in VMEM and
-// adds each key block's dQ into an output block it revisits along a
-// sequential grid. Blocks on the card run in parallel and in no order, so
-// this is two passes, neither with atomics, so every gradient is
-// deterministic:
-//   dkdv: one block per (64-key tile, head, batch) walks the query tiles and
-//         keeps its keys' dK and dV in registers;
-//   dq:   one block per (64-query tile, head, batch) walks the key tiles in
-//         order and keeps its rows' dQ in registers.
-// The dq pass recomputes s and dP, so the two passes do 8 products of
-// q·kv·d where 5 are needed. What bounds it on the card: 10·q·kv·d FLOPs for
-// about 7·(q + kv)·d floats moved, so arithmetic, not the 3.35 TB/s of HBM.
-// This first version does that arithmetic with scalar f32 FMAs (67 TFLOP/s
-// peak), off the tensor cores: scores and probabilities stay in registers
-// and shared memory; each thread owns a register tile of 4 own rows by 8
-// streamed rows (and 4 rows by head_dim / 8 output columns), so each
-// 16-byte shared-memory read feeds 8-16 FMAs; rows are padded against bank
-// conflicts. Every output is summed in a fixed order (d, then the streamed
-// rows, ascending). The tensor cores (mma.sync, then wgmma with TMA loads)
-// are later work.
+// What bounds it on the card: 10·q·kv·d operations for about 7·(q + kv)·d
+// floats moved, so arithmetic: f32-accurate products on the tensor cores at
+// 495 / 3 = 165 TFLOP/s (3xTF32, attention_mma.cuh; plain TF32 fails the
+// training path's 1e-4 limits). The design. Blocks on the card run in
+// parallel and in no order, where the TPU kernel adds each key block's dQ
+// into an output block it revisits along a sequential grid; so this is two
+// passes, neither with atomics, and every gradient is deterministic:
+//   dkdv: a block per (64-key tile, head, batch), a warp per 16 keys, walks
+//         the query tiles and keeps its keys' dK and dV in mma accumulators
+//         (4 products: S^T = k q^T, dP^T = v dO^T, dV += p^T dO,
+//         dK += dS^T q);
+//   dq:   a block per (64-query tile, head, batch), a warp per 16 queries,
+//         walks the key tiles in order and keeps its rows' dQ in mma
+//         accumulators (3 products: S, dP, dQ += dS k).
+// That is 7 products of q·kv·d where one pass would do 5; the other design,
+// one pass writing per-key-tile dQ partials to scratch that a second kernel
+// sums in order, moves 1.6 GB at the 2048x2048, b=8 training shape. Every
+// tensor-core product is 3xTF32 mma.sync m16n8k8; p and dS go from the
+// accumulators straight into the A fragments of the products that follow,
+// and each tile's dQ, dK, dV are summed apart and added in f32
+// (`kTileSums`).
+// The streamed tiles (q and dO, or k and v) arrive by 16-byte cp.async into a
+// two-stage ring, so the next tile loads while this one multiplies; the
+// block's own rows are staged once. Every output is summed in a fixed order.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // the block's own rows (keys in dkdv, queries in dq)
-constexpr int kTile = 64;      // rows of each streamed tile
-constexpr int kThreads = 128;
-constexpr int kPad = 4;        // floats of row padding: keeps float4 alignment, spreads banks
-// Each thread owns a register tile of kTR own rows (rg + 16 i) by kTC
-// streamed rows (cg + 8 j), with rg = tid / 8 and cg = tid % 8, and of its
-// own rows the output columns 32 g + 4 cg + e.
-constexpr int kTR = 4;
-constexpr int kTC = 8;
+using msd::FragA;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // the block's own rows (keys in dkdv, queries in dq)
+constexpr int kStages = 2;
+
+// The tensor cores' f32 sums lose low bits over a long sum (2048 keys or
+// queries): summed straight, dQ, dK and dV were 1.7e-5 relative RMS from
+// the plain version at 2048x2048, 3e-6 at 256x256. So each streamed tile's
+// products are summed on the tensor cores into a fresh accumulator and
+// added to the running sum in f32: 1.75e-6 at 2048x2048, for 3.4% of the
+// time there (PERF.md §6). dkdv at d = 128 has no registers for the tile's
+// dK and dV beside the running ones, and sums straight.
+template <int D>
+constexpr bool kTileSums = D <= 64;
+// Rows of each streamed tile, so that the accumulators (dkdv: S^T, dP^T,
+// dK, dV and the tile's dK, dV; dq: S, dP, dQ and the tile's dQ) stay in
+// registers without spills.
+template <int D>
+constexpr int kDkdvRows = D <= 64 ? 32 : 16;
+template <int D>
+constexpr int kDqRows = D <= 32 ? 64 : (D <= 64 ? 32 : 16);
 
 struct Params {
   const float* q;
@@ -75,302 +93,319 @@ struct Params {
   float* dk;           // like k
   float* dv;           // like v
   int q_len, kv_len, head_dim, heads;
+  bool vec;                       // 16-byte cp.async loads (see msd::load_tile)
   long long q_sb, q_sl, q_sh;     // q, dO and dQ strides (elements)
   long long kv_sb, kv_sl, kv_sh;  // k, v, dK and dV strides
   long long bias_sb, bias_sh;     // bias_sh == 0 broadcasts one bias over heads
 };
 
-// Stages rows [r0, r0 + kTile) of a [len, head_dim] matrix (row stride
-// `sl`) into shared memory with row stride LD; rows past len and columns
-// past head_dim are zero.
-template <int D, int LD>
-__device__ __forceinline__ void stage(float* dst, const float* src, int r0, int len,
-                                      int head_dim, long long sl) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    float x = 0.f;
-    if (r0 + r < len && c < head_dim) x = src[(long long)(r0 + r) * sl + c];
-    dst[r * LD + c] = x;
-  }
-}
-
-__device__ __forceinline__ float dot4(float acc, const float4& x, const float4& y) {
-  acc = fmaf(x.x, y.x, acc);
-  acc = fmaf(x.y, y.y, acc);
-  acc = fmaf(x.z, y.z, acc);
-  return fmaf(x.w, y.w, acc);
-}
-
-// The thread's tiles of two products: a[i][j] = X[rg + 16 i] . Y[cg + 8 j]
-// and b[i][j] = X2[rg + 16 i] . Y2[cg + 8 j], summed over d in order.
-template <int D, int LD>
-__device__ __forceinline__ void score_tiles(const float* xs, const float* x2s, const float* ys,
-                                            const float* y2s, int rg, int cg,
-                                            float (&a)[kTR][kTC], float (&b)[kTR][kTC]) {
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) a[i][j] = b[i][j] = 0.f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 x[kTR], x2[kTR];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      x[i] = *reinterpret_cast<const float4*>(xs + (rg + 16 * i) * LD + d);
-      x2[i] = *reinterpret_cast<const float4*>(x2s + (rg + 16 * i) * LD + d);
-    }
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) {
-      const float4 y = *reinterpret_cast<const float4*>(ys + (cg + 8 * j) * LD + d);
-      const float4 y2 = *reinterpret_cast<const float4*>(y2s + (cg + 8 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) {
-        a[i][j] = dot4(a[i][j], x[i], y);
-        b[i][j] = dot4(b[i][j], x2[i], y2);
-      }
-    }
-  }
-}
-
-// acc[i][4 g + e] += sum over the tile's rows j, in order, of
-// M[rg + 16 i][j] * Z[j][32 g + 4 cg + e]; M is [kRows][LDP] in shared
-// memory, Z [kTile][LD].
-template <int D, int LD, int LDP>
-__device__ __forceinline__ void accumulate(const float* ms, const float* zs, int rg, int cg,
-                                           float (&acc)[kTR][D / 8]) {
-  constexpr int kG = D / 32;
-#pragma unroll 2
-  for (int j0 = 0; j0 < kTile; j0 += 4) {
-    float mv[kTR][4];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      const float4 m4 = *reinterpret_cast<const float4*>(ms + (rg + 16 * i) * LDP + j0);
-      mv[i][0] = m4.x;
-      mv[i][1] = m4.y;
-      mv[i][2] = m4.z;
-      mv[i][3] = m4.w;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const float* zrow = zs + (j0 + jj) * LD + 4 * cg;
-#pragma unroll
-      for (int g = 0; g < kG; ++g) {
-        const float4 z = *reinterpret_cast<const float4*>(zrow + 32 * g);
-#pragma unroll
-        for (int i = 0; i < kTR; ++i) {
-          acc[i][4 * g + 0] = fmaf(mv[i][jj], z.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(mv[i][jj], z.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(mv[i][jj], z.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(mv[i][jj], z.w, acc[i][4 * g + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Stores the thread's rows of an accumulated [rows][head_dim] output.
-template <int D>
-__device__ __forceinline__ void store_rows(float* out, long long sl, int r0, int len, int head_dim,
-                                           int rg, int cg, const float (&acc)[kTR][D / 8]) {
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int r = r0 + rg + 16 * i;
-    if (r >= len) continue;
-    float* row = out + (long long)r * sl;
-#pragma unroll
-    for (int g = 0; g < D / 32; ++g) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 32 * g + 4 * cg + e;
-        if (col < head_dim) row[col] = acc[i][4 * g + e];
-      }
-    }
-  }
-}
-
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * kRows * (D + kPad) + 2 * kTile * (D + kPad) + 2 * kRows * (kTile + kPad) +
-                  3 * kTile);
+  // Own K and V, [kStages] q and dO tiles, [kStages][3] statistics rows.
+  return sizeof(float) * (size_t)(2 * kRows * (D + 4) + 2 * kStages * kDkdvRows<D> * (D + 4) +
+                                  3 * kStages * kDkdvRows<D>);
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) *
-         (size_t)(2 * kRows * (D + kPad) + 2 * kTile * (D + kPad) + kRows * (kTile + kPad));
+  // Own q and dO, [kStages] K and V tiles, [kStages] key terms.
+  return sizeof(float) * (size_t)(2 * kRows * (D + 4) + 2 * kStages * kDqRows<D> * (D + 4) +
+                                  kStages * kDqRows<D>);
+}
+
+// Stores a warp's 16 x D accumulator rows (rows row0 and row0 + 8 of the
+// thread) into a [len, head_dim] output with row stride sl.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, long long sl, int row0, int len,
+                                           int head_dim, int t, const float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= len) continue;
+    float* o = out + (long long)row * sl;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < head_dim) o[col] = acc[n][2 * r];
+      if (col + 1 < head_dim) o[col + 1] = acc[n][2 * r + 1];
+    }
+  }
 }
 
 // dK and dV of one 64-key tile, walking the query tiles.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Params p) {
+  constexpr int LD = D + 4, kTQ = kDkdvRows<D>, kNT = kTQ / 8, kDT = D / 8;
   extern __shared__ float4 smem4[];
-  constexpr int LD = D + kPad;
-  constexpr int LDP = kTile + kPad;
-  float* ks = reinterpret_cast<float*>(smem4);  // [kRows][LD] this block's keys
+  float* ks = reinterpret_cast<float*>(smem4);  // [kRows][LD] the block's keys
   float* vs = ks + kRows * LD;                  // [kRows][LD]
-  float* qs = vs + kRows * LD;                  // [kTile][LD]
-  float* dos = qs + kTile * LD;                 // [kTile][LD]
-  float* ps = dos + kTile * LD;                 // [kRows][LDP] p^T (key, query)
-  float* dss = ps + kRows * LDP;                // [kRows][LDP] dS^T
-  float* tm = dss + kRows * LDP;                // [kTile] m of the query tile
-  float* til = tm + kTile;                      // [kTile] 1 / l
-  float* tdelta = til + kTile;                  // [kTile] delta
+  float* qs = vs + kRows * LD;                  // [kStages][kTQ][LD]
+  float* dos = qs + kStages * kTQ * LD;         // [kStages][kTQ][LD]
+  float* stat = dos + kStages * kTQ * LD;       // [kStages][3][kTQ]: m, 1 / l, delta
 
-  const int tid = threadIdx.x;
-  const int rg = tid / kTC;
-  const int cg = tid % kTC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int k0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int key0 = k0 + 16 * warp + g;  // the thread's keys: key0 and key0 + 8
 
   const long long q_off = b * p.q_sb + h * p.q_sh;
   const long long kv_off = b * p.kv_sb + h * p.kv_sh;
   const long long stat_off = ((long long)b * p.heads + h) * p.q_len;
   const float* bias = p.bias != nullptr ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-  // The thread's keys' mask terms.
-  float mask_term[kTR];
+  float kterm[2];
+  bool kvalid[2];
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int key = k0 + rg + 16 * i;
-    mask_term[i] = 0.f;
-    if (p.mask != nullptr && key < p.kv_len)
-      mask_term[i] = p.mask[(long long)b * p.kv_len + key] ? 0.f : -1e10f;
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    kvalid[r] = key < p.kv_len;
+    kterm[r] = (p.mask != nullptr && kvalid[r] && !p.mask[(long long)b * p.kv_len + key])
+                   ? -1e10f
+                   : 0.f;
   }
 
-  stage<D, LD>(ks, p.k + kv_off, k0, p.kv_len, p.head_dim, p.kv_sl);
-  stage<D, LD>(vs, p.v + kv_off, k0, p.kv_len, p.head_dim, p.kv_sl);
-
-  float dk[kTR][D / 8], dv[kTR][D / 8];
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < p.q_len; q0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and K/V are staged)
-    stage<D, LD>(qs, p.q + q_off, q0, p.q_len, p.head_dim, p.q_sl);
-    stage<D, LD>(dos, p.dout + q_off, q0, p.q_len, p.head_dim, p.q_sl);
-    if (tid < kTile) {
-      const bool valid = q0 + tid < p.q_len;
-      tm[tid] = valid ? p.m[stat_off + q0 + tid] : 0.f;
-      til[tid] = valid ? 1.f / p.l[stat_off + q0 + tid] : 0.f;
-      tdelta[tid] = valid ? p.delta[stat_off + q0 + tid] : 0.f;
+  auto load_q = [&](int tile, int stage) {
+    const int q0 = tile * kTQ;
+    msd::load_tile<kTQ, D, LD, kThreads>(qs + stage * kTQ * LD, p.q + q_off, q0, p.q_len,
+                                         p.head_dim, p.q_sl, p.vec);
+    msd::load_tile<kTQ, D, LD, kThreads>(dos + stage * kTQ * LD, p.dout + q_off, q0, p.q_len,
+                                         p.head_dim, p.q_sl, p.vec);
+    float* st = stat + stage * 3 * kTQ;
+    for (int i = threadIdx.x; i < kTQ; i += kThreads) {
+      const int qi = q0 + i;
+      const bool valid = qi < p.q_len;
+      st[i] = valid ? p.m[stat_off + qi] : 0.f;
+      st[kTQ + i] = valid ? 1.f / p.l[stat_off + qi] : 0.f;
+      st[2 * kTQ + i] = valid ? p.delta[stat_off + qi] : 0.f;
     }
-    __syncthreads();
+  };
 
-    // s = k . q and dP = v . dO, then p and dS, into shared memory.
-    float s[kTR][kTC], dp[kTR][kTC];
-    score_tiles<D, LD>(ks, vs, qs, dos, rg, cg, s, dp);
+  msd::load_tile<kRows, D, LD, kThreads>(ks, p.k + kv_off, k0, p.kv_len, p.head_dim, p.kv_sl,
+                                         p.vec);
+  msd::load_tile<kRows, D, LD, kThreads>(vs, p.v + kv_off, k0, p.kv_len, p.head_dim, p.kv_sl,
+                                         p.vec);
+  const int n_tiles = (p.q_len + kTQ - 1) / kTQ;
+  load_q(0, 0);
+  msd::cp_async_commit();
+
+  float dk[kDT][4], dv[kDT][4];
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      const int key = k0 + rg + 16 * i;
+  for (int n = 0; n < kDT; ++n) {
 #pragma unroll
-      for (int j = 0; j < kTC; ++j) {
-        const int c = cg + 8 * j;
-        float pj = 0.f, dsj = 0.f;
-        if (key < p.kv_len && q0 + c < p.q_len) {
-          float x = s[i][j];
-          if (bias != nullptr) x += bias[(long long)(q0 + c) * p.kv_len + key];
-          x += mask_term[i];
-          pj = expf(x - tm[c]) * til[c];
-          dsj = pj * (dp[i][j] - tdelta[c]);
-        }
-        ps[(rg + 16 * i) * LDP + c] = pj;
-        dss[(rg + 16 * i) * LDP + c] = dsj;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    msd::cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed, and every warp is done with tile it - 1
+    if (it + 1 < n_tiles) load_q(it + 1, (it + 1) % kStages);
+    msd::cp_async_commit();
+
+    const int stage = it % kStages;
+    const float* qt = qs + stage * kTQ * LD;
+    const float* dot = dos + stage * kTQ * LD;
+    const float* st = stat + stage * 3 * kTQ;
+    const int q0 = it * kTQ;
+
+    // S^T = k q^T and dP^T = v dO^T for the warp's 16 keys by kTQ queries.
+    float s[kNT][4], dp[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDT; ++kk) {
+      const float* kr = ks + (16 * warp + g) * LD + 8 * kk + t;
+      const float* vr = vs + (16 * warp + g) * LD + 8 * kk + t;
+      const FragA ak = msd::split_a(kr[0], kr[8 * LD], kr[4], kr[8 * LD + 4]);
+      const FragA av = msd::split_a(vr[0], vr[8 * LD], vr[4], vr[8 * LD + 4]);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* qr = qt + (8 * j + g) * LD + 8 * kk + t;
+        const float* dr = dot + (8 * j + g) * LD + 8 * kk + t;
+        msd::mma_3xtf32(s[j], ak, qr[0], qr[4]);
+        msd::mma_3xtf32(dp[j], av, dr[0], dr[4]);
       }
     }
-    __syncthreads();  // every thread's p and dS are written
 
-    // dV += p^T dO and dK += dS^T q over this query tile, queries in order.
-    accumulate<D, LD, LDP>(ps, dos, rg, cg, dv);
-    accumulate<D, LD, LDP>(dss, qs, rg, cg, dk);
+    // p^T and dS^T in place of S^T and dP^T. Element e of tile j is key
+    // key0 + 8 (e / 2), query q0 + 8 j + 2 t + e % 2; keys past kv_len and
+    // queries past q_len weigh 0.
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = 8 * j + 2 * t + (e & 1);
+        float pv = 0.f, dsv = 0.f;
+        if (kvalid[r] && q0 + c < p.q_len) {
+          float x = s[j][e];
+          if (bias != nullptr) x += bias[(long long)(q0 + c) * p.kv_len + key0 + 8 * r];
+          x += kterm[r];
+          pv = msd::exp_diff(x - st[c]) * st[kTQ + c];
+          dsv = pv * (dp[j][e] - st[2 * kTQ + c]);
+        }
+        s[j][e] = pv;
+        dp[j][e] = dsv;
+      }
+    }
+
+    // dV += p^T dO and dK += dS^T q over the tile's queries (kTileSums: into
+    // the tile's own accumulators, then added in f32).
+    auto products = [&](float (&dv_acc)[kDT][4], float (&dk_acc)[kDT][4]) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const FragA ap = msd::tf32_p_fragment(s[j]);
+        const FragA ads = msd::tf32_p_fragment(dp[j]);
+        const float* dr = dot + (8 * j + 2 * t) * LD + g;
+        const float* qr = qt + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          msd::mma_3xtf32(dv_acc[n], ap, dr[8 * n], dr[LD + 8 * n]);
+          msd::mma_3xtf32(dk_acc[n], ads, qr[8 * n], qr[LD + 8 * n]);
+        }
+      }
+    };
+    if constexpr (kTileSums<D>) {
+      float dv_t[kDT][4] = {}, dk_t[kDT][4] = {};
+      products(dv_t, dk_t);
+      msd::add_to(dv, dv_t);
+      msd::add_to(dk, dk_t);
+    } else {
+      products(dv, dk);
+    }
   }
 
-  store_rows<D>(p.dk + kv_off, p.kv_sl, k0, p.kv_len, p.head_dim, rg, cg, dk);
-  store_rows<D>(p.dv + kv_off, p.kv_sl, k0, p.kv_len, p.head_dim, rg, cg, dv);
+  store_rows<D>(p.dk + kv_off, p.kv_sl, key0, p.kv_len, p.head_dim, t, dk);
+  store_rows<D>(p.dv + kv_off, p.kv_sl, key0, p.kv_len, p.head_dim, t, dv);
 }
 
 // dQ of one 64-query tile, walking the key tiles in order.
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Params p) {
+  constexpr int LD = D + 4, kTK = kDqRows<D>, kNT = kTK / 8, kDT = D / 8;
   extern __shared__ float4 smem4[];
-  constexpr int LD = D + kPad;
-  constexpr int LDP = kTile + kPad;
-  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][LD] this block's queries
+  float* qs = reinterpret_cast<float*>(smem4);  // [kRows][LD] the block's queries
   float* dos = qs + kRows * LD;                 // [kRows][LD]
-  float* ks = dos + kRows * LD;                 // [kTile][LD]
-  float* vs = ks + kTile * LD;                  // [kTile][LD]
-  float* dss = vs + kTile * LD;                 // [kRows][LDP] dS (query, key)
+  float* ks = dos + kRows * LD;                 // [kStages][kTK][LD]
+  float* vs = ks + kStages * kTK * LD;          // [kStages][kTK][LD]
+  float* kterm = vs + kStages * kTK * LD;       // [kStages][kTK]
 
-  const int tid = threadIdx.x;
-  const int rg = tid / kTC;
-  const int cg = tid % kTC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = q0 + 16 * warp + g;  // the thread's rows: row0 and row0 + 8
 
   const long long q_off = b * p.q_sb + h * p.q_sh;
   const long long kv_off = b * p.kv_sb + h * p.kv_sh;
   const long long stat_off = ((long long)b * p.heads + h) * p.q_len;
   const float* bias = p.bias != nullptr ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const uint8_t* mask = p.mask != nullptr ? p.mask + (long long)b * p.kv_len : nullptr;
-  // The thread's rows' statistics.
-  float m[kTR], il[kTR], delta[kTR];
+  float m[2], il[2], delta[2];
+  bool valid[2];
 #pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int qi = q0 + rg + 16 * i;
-    const bool valid = qi < p.q_len;
-    m[i] = valid ? p.m[stat_off + qi] : 0.f;
-    il[i] = valid ? 1.f / p.l[stat_off + qi] : 0.f;
-    delta[i] = valid ? p.delta[stat_off + qi] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    valid[r] = qi < p.q_len;
+    m[r] = valid[r] ? p.m[stat_off + qi] : 0.f;
+    il[r] = valid[r] ? 1.f / p.l[stat_off + qi] : 0.f;
+    delta[r] = valid[r] ? p.delta[stat_off + qi] : 0.f;
   }
 
-  stage<D, LD>(qs, p.q + q_off, q0, p.q_len, p.head_dim, p.q_sl);
-  stage<D, LD>(dos, p.dout + q_off, q0, p.q_len, p.head_dim, p.q_sl);
+  // K/V tile `tile` into ring stage `stage`, with each key's term: -inf at or
+  // past kv_len (never scored), the mask's -1e10, else 0.
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * kTK;
+    msd::load_tile<kTK, D, LD, kThreads>(ks + stage * kTK * LD, p.k + kv_off, k0, p.kv_len,
+                                         p.head_dim, p.kv_sl, p.vec);
+    msd::load_tile<kTK, D, LD, kThreads>(vs + stage * kTK * LD, p.v + kv_off, k0, p.kv_len,
+                                         p.head_dim, p.kv_sl, p.vec);
+    for (int i = threadIdx.x; i < kTK; i += kThreads) {
+      const int c = k0 + i;
+      kterm[stage * kTK + i] =
+          c >= p.kv_len ? -INFINITY : (mask != nullptr && !mask[c] ? -1e10f : 0.f);
+    }
+  };
 
-  float acc[kTR][D / 8];
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
-  }
+  msd::load_tile<kRows, D, LD, kThreads>(qs, p.q + q_off, q0, p.q_len, p.head_dim, p.q_sl, p.vec);
+  msd::load_tile<kRows, D, LD, kThreads>(dos, p.dout + q_off, q0, p.q_len, p.head_dim, p.q_sl,
+                                         p.vec);
+  const int n_tiles = (p.kv_len + kTK - 1) / kTK;
+  load_kv(0, 0);
+  msd::cp_async_commit();
 
-  for (int k0 = 0; k0 < p.kv_len; k0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and q/dO are staged)
-    stage<D, LD>(ks, p.k + kv_off, k0, p.kv_len, p.head_dim, p.kv_sl);
-    stage<D, LD>(vs, p.v + kv_off, k0, p.kv_len, p.head_dim, p.kv_sl);
-    __syncthreads();
+  float dq[kDT][4];
+#pragma unroll
+  for (int n = 0; n < kDT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-    // s = q . k and dP = dO . v, then dS, into shared memory.
-    float s[kTR][kTC], dp[kTR][kTC];
-    score_tiles<D, LD>(qs, dos, ks, vs, rg, cg, s, dp);
+  for (int it = 0; it < n_tiles; ++it) {
+    msd::cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed, and every warp is done with tile it - 1
+    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) % kStages);
+    msd::cp_async_commit();
+
+    const int stage = it % kStages;
+    const float* kt = ks + stage * kTK * LD;
+    const float* vt = vs + stage * kTK * LD;
+    const float* kterm_t = kterm + stage * kTK;
+    const int k0 = it * kTK;
+
+    // S = q k^T and dP = dO v^T for the warp's 16 queries by kTK keys.
+    float s[kNT][4], dp[kNT][4];
 #pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      const int qi = q0 + rg + 16 * i;
+    for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-      for (int j = 0; j < kTC; ++j) {
-        const int key = k0 + cg + 8 * j;
-        float dsj = 0.f;
-        if (qi < p.q_len && key < p.kv_len) {
-          float x = s[i][j];
-          if (bias != nullptr) x += bias[(long long)qi * p.kv_len + key];
-          if (mask != nullptr) x += mask[key] ? 0.f : -1e10f;
-          const float pj = expf(x - m[i]) * il[i];
-          dsj = pj * (dp[i][j] - delta[i]);
-        }
-        dss[(rg + 16 * i) * LDP + cg + 8 * j] = dsj;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDT; ++kk) {
+      const float* qr = qs + (16 * warp + g) * LD + 8 * kk + t;
+      const float* dr = dos + (16 * warp + g) * LD + 8 * kk + t;
+      const FragA aq = msd::split_a(qr[0], qr[8 * LD], qr[4], qr[8 * LD + 4]);
+      const FragA ado = msd::split_a(dr[0], dr[8 * LD], dr[4], dr[8 * LD + 4]);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* kr = kt + (8 * j + g) * LD + 8 * kk + t;
+        const float* vr = vt + (8 * j + g) * LD + 8 * kk + t;
+        msd::mma_3xtf32(s[j], aq, kr[0], kr[4]);
+        msd::mma_3xtf32(dp[j], ado, vr[0], vr[4]);
       }
     }
-    __syncthreads();  // every thread's dS is written
 
-    // dQ += dS k over this key tile, keys in order.
-    accumulate<D, LD, LDP>(dss, ks, rg, cg, acc);
+    // dS in place of S. Element e of tile j is row row0 + 8 (e / 2), key
+    // k0 + 8 j + 2 t + e % 2.
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = 8 * j + 2 * t + (e & 1);
+        float dsv = 0.f;
+        if (valid[r]) {
+          float x = s[j][e];
+          if (bias != nullptr && k0 + c < p.kv_len) {
+            x += bias[(long long)(row0 + 8 * r) * p.kv_len + k0 + c];
+          }
+          x += kterm_t[c];
+          const float pv = msd::exp_diff(x - m[r]) * il[r];
+          dsv = pv * (dp[j][e] - delta[r]);
+        }
+        s[j][e] = dsv;
+      }
+    }
+
+    // dQ += dS k over the tile's keys, into the tile's own accumulator, then
+    // added in f32 (as kTileSums, at every d).
+    float dq_t[kDT][4] = {};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const FragA a = msd::tf32_p_fragment(s[j]);
+      const float* kr = kt + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) msd::mma_3xtf32(dq_t[n], a, kr[8 * n], kr[LD + 8 * n]);
+    }
+    msd::add_to(dq, dq_t);
   }
 
-  store_rows<D>(p.dq + q_off, p.q_sl, q0, p.q_len, p.head_dim, rg, cg, acc);
+  store_rows<D>(p.dq + q_off, p.q_sl, row0, p.q_len, p.head_dim, t, dq);
 }
 
 template <int D>
@@ -425,6 +460,8 @@ int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
   p.kv_len = kv_len;
   p.head_dim = head_dim;
   p.heads = heads;
+  p.vec = head_dim % 4 == 0 && msd::aligned16(q) && msd::aligned16(k) && msd::aligned16(v) &&
+          msd::aligned16(dout);
   p.q_sh = head_dim;
   p.q_sl = (long long)heads * head_dim;
   p.q_sb = (long long)q_len * heads * head_dim;

@@ -4,7 +4,8 @@ The real compiler is `nvcc`, which only the card's machine has; these tests
 give `build` a shell script in its place and check what `build` does around
 the compilers it starts: a failed source is reported while the others are
 kept, a built source is not compiled again, and a failure part-way through
-leaves no compiler running and no temporary file behind.
+leaves no compiler running and no temporary file behind; an edited shared
+header (`csrc/*.cuh`) starts a new build.
 """
 
 import subprocess
@@ -87,3 +88,20 @@ def test_build_stops_started_compilers_when_a_launch_fails(tree, tmp_path,
   assert len(started) == 1
   assert started[0].poll() is not None  # stopped, not left running
   assert list(tree.iterdir()) == []  # no temporary library left
+
+
+def test_editing_a_shared_header_rebuilds(tree):
+  """The sources include `csrc/*.cuh`: an edited header names a new
+  library, so the next build compiles again instead of loading a stale one."""
+  header = _build.CSRC / "shared.cuh"
+  header.write_text("// v1\n")
+  _build.build("good")
+  first = _build.library_path("good")
+  assert first.exists()
+  header.write_text("// v2\n")
+  second = _build.library_path("good")
+  assert second != first and not second.exists()
+  _build.build("good")
+  assert second.read_text() == "built\n"
+  # An unchanged tree keeps its path.
+  assert _build.library_path("good") == second
