@@ -7,7 +7,7 @@ Phases, each printed on its own line with its seconds:
   2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu,
               qmm.cu and flash_bwd.cu, three compilers started together) and
               reports ptxas's registers and spills of every instantiation;
-              the attention kernels must not spill;
+              no kernel may spill;
   3. kernel   flash attention against its plain PyTorch version at the
               four attention shapes of the serving path, at b=2 and b=1, in
               float32 and bfloat16: error and tolerance, in float32 the
@@ -18,9 +18,11 @@ Phases, each printed on its own line with its seconds:
               the kernels' TF32 rounding against cvt.rna.tf32.f32, and a
               NaN in q, v or dO giving NaN where the plain versions do;
   4. kernel   the weight-only int8 GEMM against its plain version at every
-              (M, K, N, dtype) of the int8 path: error and tolerance,
+              (M, K, N, dtype) of the int8 path: the plan's route and K
+              splits, error and tolerance, two launches bitwise equal,
               kernel / plain / bf16-matmul (yardstick only) times from CUDA
-              graphs over weights that do not fit the L2, and the bound;
+              graphs over weights that do not fit the L2, the kernel's
+              eager time a call (host clock), and the bound;
   5. main     float32 context_base at full width (random weights from
               --seed) renders one song of 3 chained segments of event
               tokens with the serving sampler (100-step sde-dpm++, CFG 5 in
@@ -136,7 +138,11 @@ HEADS, HEAD_DIM = 12, 64
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # The int8 GEMM against its plain version, relative to the output's max:
 # f32 out, the same exact products summed in another order; bf16 out, one
-# rounding step of the output, which that order can flip.
+# rounding step of the output, which that order can flip (observed at most
+# 0.4 of the limit at these inputs). Planted faults land far past it at
+# every shape they touch: 64 K rows left out 17x (bf16) and 13700x (f32)
+# the limit or more, the last split left out of the split-K sum 33x and
+# 37700x (tools/torch_qmm_times.py --faults, PERF.md §6).
 QMM_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # Distinct weights cycled through in a timed run: more bytes than the 50 MB
 # L2, so each call reads its weight from HBM, as the main path does.
@@ -545,8 +551,22 @@ def qmm_bound_ms(m, k, n, dtype):
                                      else "bytes")
 
 
+def eager_ms(fn, iters: int) -> float:
+  """Mean host-clock ms of fn(i) over back-to-back calls, synchronized: a
+  call as the main path makes it, the wrapper's host time included."""
+  for i in range(3):
+    fn(i)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for i in range(iters):
+    fn(i)
+  torch.cuda.synchronize()
+  return 1e3 * (time.perf_counter() - t0) / iters
+
+
 def qmm_phase(shapes, gen, stream):
   rows = []
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
   for m, k, n, dtype, per_segment, what in shapes:
     copies = int(np.ceil(L2_BYTES / (k * n))) + 1
     q, s = quantize.quantize_kernel(
@@ -555,6 +575,7 @@ def qmm_phase(shapes, gen, stream):
     ss = [s] + [s.clone() for _ in range(copies - 1)]
     x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
     got = quantize.quantized_matmul(x, q, s)
+    again = quantize.quantized_matmul(x, q, s)
     torch.cuda.synchronize()
     want = quantize.qmm_reference(x, q, s)
     check(bool(torch.isfinite(got).all()), f"qmm {m}x{k}x{n} finite")
@@ -562,25 +583,35 @@ def qmm_phase(shapes, gen, stream):
     tol = QMM_TOLERANCE[dtype] * want.float().abs().max().item()
     check(err <= tol, f"qmm M={m} K={k} N={n} {dtype}: max |kernel - "
           f"plain| {err} > {tol}")
+    check(torch.equal(got, again), f"qmm M={m} K={k} N={n} {dtype}: two "
+          "launches differ")
+    plan = quantize.plan(m, k, n, sms)
+    route = ("gemv" if plan.route == quantize.GEMV else "wgmma") + (
+        f" {plan.rows}x{plan.cols}")
     wb = [quantize.dequantize_kernel(qi, si, torch.bfloat16)
           for qi, si in zip(qs, ss)]
     xb = x.to(torch.bfloat16)
     iters = max(2 * copies, 50)
     ms = graph_ms(lambda i: quantize.quantized_matmul(
         x, qs[i % copies], ss[i % copies]), iters, stream)
+    eager = eager_ms(lambda i: quantize.quantized_matmul(
+        x, qs[i % copies], ss[i % copies]), iters)
     plain_ms = graph_ms(lambda i: quantize.qmm_reference(
         x, qs[i % copies], ss[i % copies]), iters, stream)
     lib_ms = graph_ms(lambda i: xb @ wb[i % copies], iters, stream)
     bound, bound_by = qmm_bound_ms(m, k, n, dtype)
     dt = str(dtype).replace("torch.", "")
     log(f"  M={m} K={k} N={n} {dt} ({what}; {per_segment} per segment): "
-        f"max_abs_err {err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms; bound "
-        f"{bound:.5f} ms ({bound_by})")
+        f"{route}, {plan.splits} split(s); max_abs_err {err:.3g} (tol "
+        f"{tol:.3g}), two launches bitwise equal; kernel {ms:.4f} ms, eager "
+        f"{eager:.4f} ms a call, plain {plain_ms:.4f} ms, bf16 matmul "
+        f"{lib_ms:.4f} ms; bound {bound:.5f} ms ({bound_by})")
     rows.append(dict(m=m, k=k, n=n, dtype=dt, what=what,
-                     launches_per_segment=per_segment, max_abs_err=err,
-                     tolerance=tol, ms=ms, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+                     launches_per_segment=per_segment, route=route,
+                     splits=plan.splits, max_abs_err=err, tolerance=tol,
+                     bitwise_repeat=True, ms=ms, eager_ms=eager,
+                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                     bound_by=bound_by))
     del qs, ss, wb
   return rows
 
@@ -1352,8 +1383,7 @@ def main() -> int:
     check(bool(usage), f"no ptxas report for {name}.cu")
     for line in usage:
       log(f"  ptxas {name}: {line}")
-      if name != "qmm":
-        check(" 0 bytes spill stores" in line, f"{name}.cu spills: {line}")
+      check(" 0 bytes spill stores" in line, f"{name}.cu spills: {line}")
 
   t0 = time.perf_counter()
   rows = kernel_phase(gen, capture)

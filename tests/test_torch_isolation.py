@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of it (and chip_smoke.py)
-pulls in neither JAX nor the JAX package, and a request for the card on a
+"""The port stands alone: importing every module of it (and chip_smoke.py
+and the port's card tools, tools/torch_*.py) pulls in neither JAX nor the
+JAX package, and a request for the card on a
 machine without one raises instead of running on the CPU: serving, the
 MIDI CLI, the vocoder, and training (the trainer and cli/train.py)."""
 
@@ -17,6 +18,10 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__,
 for name in names:
   importlib.import_module(name)
 importlib.import_module("chip_smoke")
+import glob, importlib.util
+for path in sorted(glob.glob("tools/torch_*.py")):
+  spec = importlib.util.spec_from_file_location(path[6:-3], path)
+  spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "music_spectrogram_diffusion_tpu"))

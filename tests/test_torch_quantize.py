@@ -246,20 +246,27 @@ def test_quantized_matmul_mixed_dtypes_and_errors():
 
 
 @pytest.mark.parametrize("m,k,n,want", [
-    (2, 3072, 1536, 16),   # FiLM: 24 tiles, split to the cap
-    (1, 3072, 3072, 8),    # 48 tiles
-    (512, 768, 768, 4),    # 96 tiles; 24 K steps: 4 divides them
-    (256, 2048, 768, 8),
-    (512, 768, 2048, 1),   # 256 tiles: a tile for every SM
-    (2304, 768, 768, 1),
+    (2, 3072, 1536, (quantize.GEMV, 8)),   # FiLM: 12 column blocks
+    (1, 3072, 3072, (quantize.GEMV, 2)),   # 96 blocks of 32 columns
+    (512, 768, 768, (quantize.WGMMA, 4)),  # 48 tiles of 128x64
+    (256, 2048, 768, (quantize.WGMMA, 8)),  # 24 tiles
+    (512, 768, 2048, (quantize.WGMMA, 2)),  # 128 tiles
+    (2304, 768, 768, (quantize.WGMMA, 1)),  # 216 tiles: every SM has one
+    (quantize.GEMV_MAX_M, 768, 3072, (quantize.GEMV, 8)),  # the cut-off
+    (quantize.GEMV_MAX_M + 1, 768, 3072, (quantize.WGMMA, 4)),
+    (256, 768, 2048, (quantize.WGMMA, 2)),  # 4 would make 256 blocks
 ])
 def test_split_k_policy(m, k, n, want):
-  """The kernel's K split on a 132-SM card (H100 SXM): a divisor of the K
-  steps, at most MAX_SPLITS, none once every SM has a tile."""
-  got = quantize.split_k(m, k, n, 132)
-  assert got == want
-  assert (k // quantize.K_MULTIPLE) % got == 0
-  assert 1 <= got <= quantize.MAX_SPLITS
+  """The kernel's plan on a 132-SM card (H100 SXM): the route by M, and K
+  split into a power of two of ranges (at most MAX_SPLITS, dividing the K
+  steps): on the tensor cores the fewest that fill the card, none once
+  every SM has a tile, half as many where clusters of 4 or more would make
+  over 1.5 blocks an SM; on GEMV the fewest that leave a thread one batch
+  of loads within 0.7-2 blocks an SM."""
+  got = quantize.plan(m, k, n, 132)
+  assert (got.route, got.splits) == want
+  assert (k // quantize.k_step(got.config)) % got.splits == 0
+  assert 1 <= got.splits <= quantize.MAX_SPLITS
 
 
 # ---------------------------------------------------------------------------
@@ -528,33 +535,3 @@ def test_int8_render_matches_jax(int8_renders):
   assert module.decoder.layers[0].mlp_film.dense.is_int8
   assert not module.decoder.spec_out_dense.is_int8
   assert module.decoder.spec_out_dense.kernel.dtype == torch.float32
-
-
-@pytest.fixture
-def cuda_device():
-  if not torch.cuda.is_available():
-    pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-  return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,dtype", [
-    (1, 3072, 1536, torch.float32), (2, 768, 3072, torch.bfloat16),
-    (100, 512, 256, torch.bfloat16), (512, 768, 2048, torch.bfloat16),
-    (2304, 768, 768, torch.bfloat16)])
-def test_kernel_matches_plain_version_on_card(cuda_device, m, k, n, dtype):
-  torch.backends.cuda.matmul.allow_tf32 = False
-  gen = torch.Generator(cuda_device).manual_seed(m)
-  q, s = quantize.quantize_kernel(
-      torch.randn(k, n, device=cuda_device, generator=gen) * k ** -0.5)
-  x = torch.randn(m, k, device=cuda_device, generator=gen).to(dtype)
-  before = quantize.quantized_matmul.launches
-  got = quantize.quantized_matmul(x, q, s)
-  torch.cuda.synchronize()
-  assert quantize.quantized_matmul.launches == before + 1
-  want = quantize.qmm_reference(x, q, s)
-  peak = want.float().abs().max().item()
-  # f32: the same exact products summed in another order; bf16: one
-  # rounding step of the output.
-  tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * peak
-  assert (got.float() - want.float()).abs().max().item() <= tol
