@@ -29,12 +29,16 @@ Phases, each printed on its own line with its seconds:
               t in [0.1, 0.8]) and vocodes it with Griffin-Lim (PGHI init,
               32 iterations) into out/chip_smoke_seed<seed>.wav; the
               attention kernel's launch count must match the config's;
+              PGHI's host seconds with the C++ heap and the Python heap;
   6. check    one float32 decoder step on the card against the same step
               on the CPU (plain versions there);
   7. main     int8 context_base (bf16 network, int8 weights from the same
               seed) renders a seeded MIDI file of 3 segments, written to
               and read back from out/chip_smoke_seed<seed>.mid and cut by
-              the port's segment_midi, under the same sampler and vocoder;
+              the port's segment_midi, under the same sampler, vocoded by
+              the repo's trained vocoder (the committed export
+              assets/magnitude_gl_step4000.npz through load_trained:
+              MagnitudeNet hidden 512, PGHI, 32 FGLA iterations at 0.9);
               both kernels' launch counts must match the config's;
   8. check    one int8 decoder step on the card against the same step on
               the CPU;
@@ -56,8 +60,24 @@ Phases, each printed on its own line with its seconds:
               dropout) on the card against the same step on the CPU: the
               loss and every parameter's gradient;
  13. check    2 steps, a checkpoint, a resumed trainer and 2 more steps
-              against 4 steps straight through.
-Then one JSON line of the kernels, the nvidia-smi line again, and last
+              against 4 steps straight through;
+ 14. vocoder  the trained vocoder on phase 7's song: the net (with the
+              mel-consistency projection) on the card, PGHI on the host
+              with the C++ heap and the Python heap, Griffin-Lim on the
+              card, the whole vocoder, phase 7's realtime factor with it;
+              card (TF32 off) vs CPU: the magnitude, and the audio from the
+              same magnitude and initial phase (the end to end reported);
+ 15. quality  cli/eval_vocoder.py --synthetic --clips 16 --seed 1000 on the
+              card: trained's spectral convergence within 2% of the JAX
+              package's on the CPU, and better than griffin_lim's;
+ 16. main     stream_song on phase 7's song: each segment's mel equal to
+              the batch render's bit for bit, its audio one segment;
+ 17. main     cli/synthesize_midi.py --vocoder_checkpoint <the export> on
+              the card: a finite WAV of the song's length;
+ 18. check    SoundStreamDecoder at full width (base 512, strides 8.5.4.2)
+              on random weights from --seed: card vs CPU, timed.
+Then the vocoder phases' numbers as one JSON line, one JSON line of the
+kernels, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
 """
@@ -176,6 +196,39 @@ STEP_GRAD_TOLERANCE = 1e-4
 # update over the 4 steps and the step losses relative: the same
 # arithmetic, but the embedding's backward on CUDA adds with atomics.
 RESUME_TOLERANCE = 1e-3
+# The trained vocoder (phases 7, 14-16): the repo's magnitude_gl
+# checkpoint exported from JAX. The JAX package's own report on the CPU,
+# from
+#   JAX_PLATFORMS=cpu python -m music_spectrogram_diffusion_tpu.cli.eval_vocoder \
+#       --checkpoint results/round3/vocoder_ckpt --synthetic --clips 16 \
+#       --seed 1000 --output <dir>
+# (spectral convergence, log-magnitude, mel round trip, SNR dB):
+JAX_EVAL_VOCODER = {
+    "griffin_lim": (0.22553573548793793, 0.34683001041412354,
+                    0.6951680779457092, -6.399318695068359),
+    "griffin_lim_zero": (0.413283109664917, 0.473969429731369,
+                         0.8348754048347473, -12.388628959655762),
+    "trained": (0.16026504337787628, 0.3254931569099426,
+                0.7812255620956421, -3.0962748527526855),
+}
+# trained's spectral convergence on the card within 2% of the JAX value.
+QUALITY_TOLERANCE = 0.02
+# The trained vocoder, card (TF32 off) vs CPU: the magnitude after the
+# projection, max abs over the max; the Griffin-Lim audio from the same
+# magnitude and initial phase, max abs from the second frame on over the
+# peak (the first frame's window-envelope division scales float error by
+# up to 1e4). float32 convs, matmuls and FFTs in other orders: measured
+# 2.05e-6 and 1.32e-4 on an H100 80GB HBM3 at 700 W (PERF.md §6; the
+# limits are the CPU tests' against JAX, tests/test_torch_vocoder.py). The
+# audio end to end is reported, not held: PGHI's heap order follows the
+# magnitude's ulps, so the card's and the CPU's initial phases differ
+# (9954 of 393984 bins there) and the audio with them.
+VOCODER_MAG_TOLERANCE = 1e-5
+VOCODER_AUDIO_TOLERANCE = 1e-3
+# SoundStream at full width, card (TF32 off) vs CPU, max abs on its tanh
+# output: float32 convs in other orders through 17 conv layers (measured
+# 1.45e-7 at an output max of 0.113 on an H100 80GB HBM3 at 700 W).
+SOUNDSTREAM_TOLERANCE = 1e-5
 # The softmax statistics of the f32 forward against softmax_stats_reference:
 # the row max m to 1e-4 x max(1, |m|), the row sum l to 1e-4 relative
 # (3xTF32 scores against f32 ones; -1e10 on an all-masked row is exact).
@@ -778,12 +831,10 @@ def main_phase(seed: int, card: str, rows, stream):
   peak = max(float(np.abs(render.audio).max()), 1e-9)
   wav_io.write_wav(wav, render.audio / peak, model.audio_codec.sample_rate)
   log(f"  wrote {wav} (peak-normalized; the weights are random)")
-  mag = stft.mel_to_linear(
-      torch.exp(torch.as_tensor(render.mel, device="cuda")), voc.mel_basis)
-  t0 = time.perf_counter()
-  stft.pghi_phase(mag.cpu().numpy(), **voc.stft_params)
-  log(f"  [{card}'s host] PGHI heap (Python) alone on the "
-      f"{n_frames} x 513 magnitude: {time.perf_counter() - t0:.3f} s")
+  mag = voc.magnitude(torch.as_tensor(render.mel[None], device="cuda"))
+  cpp_s, py_s = pghi_seconds(mag, voc.stft_params)
+  log(f"  [{card}'s host] PGHI alone on the {n_frames} x 513 magnitude: "
+      f"C++ heap {cpp_s:.3f} s, Python heap {py_s:.3f} s")
   return model, segments, launches
 
 
@@ -813,7 +864,13 @@ def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
   log(f"  wrote and read back {midi}: {len(ns.notes)} notes, "
       f"{ns.total_time:.2f} s; segment_midi gave {len(segments)} segments "
       f"of {[len(x) for x in segments]} tokens ({host_s:.2f} s on the host)")
-  voc = vocoder.GriffinLimVocoder(num_iters=32, device="cuda")
+  t0 = time.perf_counter()
+  voc = vocoder.load_trained(vocoder.TRAINED_MAGNITUDE_GL, device="cuda")
+  log(f"  trained vocoder loaded from {vocoder.TRAINED_MAGNITUDE_GL} "
+      f"(magnitude_gl, hidden {voc.net.hidden}, n_fft "
+      f"{voc.stft_params['fft_length']}, hop {voc.hop_length}, FGLA "
+      f"{voc.momentum}, {voc.num_iters} iterations; "
+      f"{time.perf_counter() - t0:.2f} s)")
   synth = model.synthesizer(voc)
   l_in = synth._input_length(max(len(x) for x in segments))
   check(l_in == experiment.task_lengths.inputs,
@@ -870,8 +927,8 @@ def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
   wav = os.path.join("out", f"chip_smoke_seed{seed}_int8.wav")
   peak = max(float(np.abs(render.audio).max()), 1e-9)
   wav_io.write_wav(wav, render.audio / peak, model.audio_codec.sample_rate)
-  log(f"  wrote {wav} (peak-normalized; the weights are random)")
-  return model, segments, launches
+  log(f"  wrote {wav} (peak-normalized; the diffusion weights are random)")
+  return model, segments, launches, synth, render, audio_s / wall
 
 
 def bf16_phase(seed: int, card: str, tokens: np.ndarray, stream):
@@ -1350,6 +1407,210 @@ def resume_phase(t, seed: int):
   return dict(update_rel_rms=worst[0], loss_rel=loss_rel)
 
 
+def pghi_seconds(magnitude: torch.Tensor, stft_params) -> tuple:
+  """Host seconds of PGHI on `magnitude` [1, frames, bins]: the C++ heap
+  (`pghi_phase`, the main path's) and the Python heap (`_pghi_heap_py`, its
+  plain version), each with the gradients it needs."""
+  mag = magnitude.float().cpu().numpy()
+  t0 = time.perf_counter()
+  stft.pghi_phase(mag, **stft_params)
+  cpp = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  log_mag = np.log(np.maximum(mag, 1e-12))
+  tgrad, fgrad = stft._pghi_gradients(log_mag, **stft_params)
+  for b in range(mag.shape[0]):
+    stft._pghi_heap_py(mag[b], tgrad[b], fgrad[b], 1e-6)
+  return cpp, time.perf_counter() - t0
+
+
+def host_s(fn):
+  """Seconds of fn() on the host clock, synchronized; and its result."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return time.perf_counter() - t0, out
+
+
+def vocoder_phase(card: str, voc, render, realtime: float) -> dict:
+  """The trained vocoder on phase 7's song: its split (the net with the
+  projection on the card, PGHI on the host in C++ and in Python, Griffin-
+  Lim on the card), and the card against the CPU with TF32 off: the
+  magnitude, and the audio from the same magnitude and initial phase."""
+  mel = torch.as_tensor(render.mel[None], device="cuda")  # [1, frames, 128]
+  frames = mel.shape[1]
+  with torch.inference_mode():
+    net_ms = cuda_ms(lambda: voc.magnitude(mel), 10)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+      net_tf32_ms = cuda_ms(lambda: voc.magnitude(mel), 10)
+    finally:
+      torch.backends.cudnn.allow_tf32 = False
+      torch.backends.cuda.matmul.allow_tf32 = False
+    mag = voc.magnitude(mel)
+    cpp_s, py_s = pghi_seconds(mag, voc.stft_params)
+    init = voc.initial_phase(mag)
+    gl_ms = cuda_ms(lambda: voc.griffin_lim(mag, init), 3)
+    audio = voc.griffin_lim(mag, init)
+  total_s, full = host_s(lambda: voc(mel))
+  check(tuple(full.shape) == (1, frames * voc.hop_length)
+        and bool(torch.isfinite(full).all()), "trained vocoder audio")
+  cpu = vocoder.load_trained(vocoder.TRAINED_MAGNITUDE_GL, device="cpu")
+  mag_cpu = cpu.magnitude(mel.cpu())
+  mag_err = float((mag.cpu() - mag_cpu).abs().max() / mag_cpu.abs().max())
+  audio_cpu = cpu.griffin_lim(mag.cpu(), init.cpu())
+  skip = voc.stft_params["frame_length"]
+  audio_err = float((audio.cpu() - audio_cpu)[..., skip:].abs().max()
+                    / audio_cpu[..., skip:].abs().max())
+  end_to_end = cpu(mel.cpu())
+  e2e_err = float((full.cpu() - end_to_end)[..., skip:].abs().max()
+                  / end_to_end[..., skip:].abs().max())
+  phase_diff = int((init.cpu() != cpu.initial_phase(mag_cpu)).sum())
+  check(mag_err <= VOCODER_MAG_TOLERANCE,
+        f"vocoder magnitude card vs CPU {mag_err} > {VOCODER_MAG_TOLERANCE}")
+  check(audio_err <= VOCODER_AUDIO_TOLERANCE,
+        f"vocoder GL audio card vs CPU {audio_err} > "
+        f"{VOCODER_AUDIO_TOLERANCE}")
+  audio_s = frames / 50.0
+  log(f"  [{card}] trained vocoder on the int8 song ({frames} frames, "
+      f"{audio_s:.2f} s): magnitude net + projection {net_ms:.3f} ms on the "
+      f"card ({net_tf32_ms:.3f} ms with TF32 on, the CLIs' default); PGHI on "
+      f"the host: C++ heap {cpp_s:.3f} s, Python heap {py_s:.3f} s; "
+      f"Griffin-Lim ({voc.num_iters} FGLA iterations) {gl_ms:.3f} ms on the "
+      f"card; the vocoder end to end {total_s:.3f} s; realtime factor of "
+      f"phase 7 with it {realtime:.3f}")
+  log(f"  card vs CPU (TF32 off): magnitude after projection max abs "
+      f"{mag_err:.3g} of the max (tol {VOCODER_MAG_TOLERANCE}); GL audio "
+      f"from the same magnitude and initial phase {audio_err:.3g} of the "
+      f"peak (tol {VOCODER_AUDIO_TOLERANCE}); reported, not gated: the "
+      f"vocoder end to end {e2e_err:.3g} of the peak, PGHI phases that "
+      f"differ between the card's and the CPU's magnitude {phase_diff} of "
+      f"{init.numel()}")
+  return dict(net_ms=net_ms, net_tf32_ms=net_tf32_ms, pghi_cpp_s=cpp_s,
+              pghi_python_s=py_s, gl_ms=gl_ms, total_s=total_s,
+              realtime_factor=realtime, magnitude_err=mag_err,
+              audio_err=audio_err, end_to_end_err=e2e_err,
+              pghi_phases_differing=phase_diff)
+
+
+def quality_phase(card: str) -> dict:
+  """cli/eval_vocoder.py --synthetic --clips 16 --seed 1000 with the
+  committed export, on the card, against the JAX package's CPU report."""
+  from music_spectrogram_diffusion_tpu_torch.cli import eval_vocoder
+  os.makedirs("out", exist_ok=True)
+  seconds, report = host_s(lambda: eval_vocoder.main([
+      "--checkpoint", vocoder.TRAINED_MAGNITUDE_GL, "--synthetic",
+      "--clips", "16", "--seed", "1000", "--device", "cuda", "--output",
+      os.path.join("out", "chip_smoke_eval_vocoder.json")]))
+  names = ("spectral_convergence", "log_magnitude", "mel_roundtrip_l2",
+           "snr_db")
+  for method, want in JAX_EVAL_VOCODER.items():
+    got = report["methods"][method]
+    log(f"  [{card}] {method}: " + ", ".join(
+        f"{k} {got[k]:.4f} (JAX CPU {w:.4f})" for k, w in zip(names, want)))
+  trained = report["methods"]["trained"]["spectral_convergence"]
+  want = JAX_EVAL_VOCODER["trained"][0]
+  gl = report["methods"]["griffin_lim"]["spectral_convergence"]
+  rel = abs(trained - want) / want
+  check(rel <= QUALITY_TOLERANCE, f"trained spectral convergence {trained} "
+        f"vs JAX {want}: {rel:.3%} > {QUALITY_TOLERANCE:.0%}")
+  check(trained < gl, f"trained spectral convergence {trained} does not "
+        f"beat griffin_lim's {gl}")
+  log(f"  trained spectral convergence {trained:.5f}, {rel:.3%} from the JAX "
+      f"package's {want:.5f} (tol {QUALITY_TOLERANCE:.0%}), beats "
+      f"griffin_lim's {gl:.5f}; 16 clips x 3 vocoders in {seconds:.2f} s")
+  return dict(report["methods"], seconds=seconds)
+
+
+def stream_phase(card: str, synth, segments, render, experiment) -> tuple:
+  """stream_song on phase 7's song with phase 7's noise: each segment's mel
+  equals the batch render's bit for bit, and its audio is one segment."""
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+  t0 = time.perf_counter()
+  firsts, mels = [], []
+  for gi, mel, audio in synth.stream_song(segments):
+    firsts.append(time.perf_counter() - t0)
+    mels.append(mel)
+    check(audio.shape == (experiment.task_lengths.targets * 320,)
+          and bool(np.isfinite(audio).all()),
+          f"streamed segment {gi} audio {audio.shape}")
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              quantize.quantized_matmul.launches)
+  streamed = np.concatenate(mels)
+  check(np.array_equal(streamed, render.mel),
+        f"streamed mel differs from the batch render: max abs "
+        f"{np.abs(streamed - render.mel).max()}")
+  per_segment = attention_launches(experiment)
+  check(launches[0] == SEGMENTS * per_segment,
+        f"streaming flash_attention launches {launches[0]}")
+  check(launches[1] > 0, "streaming launched no int8 GEMM")
+  log(f"  [{card}] {len(mels)} segments streamed, mel equal to phase 7's "
+      f"batch render bit for bit, each audio {256 * 320} samples finite; "
+      f"audio of segment i out after " + ", ".join(
+          f"{t:.3f}" for t in firsts) + f" s ({wall:.3f} s in all); launches "
+      f"flash_attention {launches[0]}, quantized_matmul {launches[1]}")
+  return launches, wall
+
+
+def cli_phase(card: str, seed: int, experiment) -> int:
+  """cli/synthesize_midi.py on the card with --vocoder_checkpoint: phase
+  7's MIDI file, float32 context_base with random weights, the serving
+  sampler; a finite WAV of the song's length."""
+  midi = os.path.join("out", f"chip_smoke_seed{seed}.mid")
+  wav = os.path.join("out", f"chip_smoke_seed{seed}_cli.wav")
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+  seconds, timings = host_s(lambda: synthesize_midi.main([
+      "--midi", midi, "--output", wav, "--size", "base", "--steps", "100",
+      "--sampler", "sde-dpm++", "--guidance_interval", "0.1,0.8",
+      "--vocoder_checkpoint", vocoder.TRAINED_MAGNITUDE_GL, "--device",
+      "cuda", "--seed", str(seed)]))
+  launches = attention.flash_attention.launches
+  check(quantize.quantized_matmul.launches == 0, "the CLI launched int8")
+  check(launches == SEGMENTS * attention_launches(experiment),
+        f"CLI flash_attention launches {launches}")
+  rate, audio = wav_io.decode_wav(open(wav, "rb").read())
+  want = SEGMENTS * experiment.task_lengths.targets * 320
+  check(rate == 16000 and audio.shape == (want,)
+        and bool(np.isfinite(audio).all()), f"CLI wrote {audio.shape}")
+  log(f"  [{card}] wrote {wav}: {audio.shape[0]} samples at {rate} Hz, "
+      f"finite; {seconds:.2f} s in all (vocoder "
+      f"{timings['audio_decode_seconds']:.3f} s, TF32 off in this run); "
+      f"flash_attention launches {launches}")
+  return launches
+
+
+def soundstream_phase(card: str, seed: int, mel: np.ndarray) -> dict:
+  """SoundStreamDecoder at full width (base 512, strides 8.5.4.2) on
+  random weights from the seed: one forward on the card against the CPU,
+  timed."""
+  with torch.random.fork_rng(devices=[]):
+    torch.manual_seed(seed)
+    decoder = vocoder.SoundStreamDecoder()
+  cpu = copy.deepcopy(decoder).eval()
+  voc = vocoder.SoundStreamVocoder(decoder, device="cuda")
+  x = torch.as_tensor(mel[None])
+  with torch.inference_mode():
+    out = voc(x)
+    ms = cuda_ms(lambda: voc(x), 5)
+    want = cpu(x)
+  err = float((out.cpu() - want).abs().max())
+  check(tuple(out.shape) == (1, mel.shape[0] * 320)
+        and bool(torch.isfinite(out).all()), f"SoundStream {out.shape}")
+  check(err <= SOUNDSTREAM_TOLERANCE,
+        f"SoundStream card vs CPU {err} > {SOUNDSTREAM_TOLERANCE}")
+  params = sum(p.numel() for p in decoder.parameters())
+  log(f"  [{card}] SoundStream base {decoder.config.base_channels}, strides "
+      f"{decoder.config.strides}, {params / 1e6:.2f}M parameters: "
+      f"{mel.shape[0]} frames -> {out.shape[1]} samples in {ms:.3f} ms on "
+      f"the card (TF32 off); card vs CPU max abs {err:.3g} (tol "
+      f"{SOUNDSTREAM_TOLERANCE}; output max {float(want.abs().max()):.3g})")
+  return dict(ms=ms, max_abs_err=err)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -1418,16 +1679,14 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
-  model, segments, int8_launches = int8_phase(args.seed, card, rows,
-                                              qmm_rows, capture)
+  model, segments, int8_launches, synth, render, realtime = int8_phase(
+      args.seed, card, rows, qmm_rows, capture)
   log(f"phase 7 main path, int8 from a MIDI file "
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
   reference_phase(model, segments, int8_tolerance)
   log(f"phase 8 reference check, int8 ({time.perf_counter() - t0:.2f} s)")
-  del model
-  torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
   bf16_phase(args.seed, card, segments[0], capture)
@@ -1454,6 +1713,36 @@ def main() -> int:
   resume = resume_phase(t, args.seed)
   log(f"phase 13 resume check ({time.perf_counter() - t0:.2f} s)")
   del t
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  vocoder_summary = vocoder_phase(card, synth.vocoder, render, realtime)
+  log(f"phase 14 trained vocoder on the int8 song, card vs CPU "
+      f"({time.perf_counter() - t0:.2f} s)")
+
+  t0 = time.perf_counter()
+  quality = quality_phase(card)
+  log(f"phase 15 vocoder quality, cli/eval_vocoder.py --synthetic "
+      f"({time.perf_counter() - t0:.2f} s)")
+
+  t0 = time.perf_counter()
+  stream_launches, stream_wall = stream_phase(card, synth, segments, render,
+                                              experiment)
+  log(f"phase 16 main path, int8 streamed with stream_song "
+      f"({time.perf_counter() - t0:.2f} s)")
+  del model, synth
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  cli_launches = cli_phase(card, args.seed, experiment)
+  log(f"phase 17 main path, cli/synthesize_midi.py with the trained vocoder "
+      f"({time.perf_counter() - t0:.2f} s)")
+
+  t0 = time.perf_counter()
+  soundstream = soundstream_phase(card, args.seed,
+                                  render.mel[:experiment.task_lengths.targets])
+  log(f"phase 18 SoundStream at full width, card vs CPU "
+      f"({time.perf_counter() - t0:.2f} s)")
 
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
@@ -1468,10 +1757,13 @@ def main() -> int:
       "route": "cuda",
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_fwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:441",
-      "launches": f32_launches + int8_launches[0] + train_launches[0],
+      "launches": (f32_launches + int8_launches[0] + train_launches[0]
+                   + stream_launches[0] + cli_launches),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
-                           "training": train_launches[0]},
+                           "training": train_launches[0],
+                           "int8_streamed": stream_launches[0],
+                           "cli_float32": cli_launches},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -1485,7 +1777,9 @@ def main() -> int:
       "route": "cuda",
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/qmm.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/quantize.py:114",
-      "launches": int8_launches[1],
+      "launches": int8_launches[1] + stream_launches[1],
+      "launches_by_path": {"int8": int8_launches[1],
+                           "int8_streamed": stream_launches[1]},
       "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
       "ms": total("ms", qmm_rows),
       "plain_ms": total("plain_ms", qmm_rows),
@@ -1513,6 +1807,9 @@ def main() -> int:
       "training": dict(train_summary, step_check=step_check,
                        resume=resume),
   }]}
+  log("vocoder " + json.dumps(dict(vocoder_summary, quality=quality,
+                                   soundstream=soundstream,
+                                   stream_wall_s=stream_wall)))
   print(json.dumps(kernels))
   print(card)
   print(json.dumps({"ok": True, "device": {

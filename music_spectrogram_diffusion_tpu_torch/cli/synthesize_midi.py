@@ -1,17 +1,25 @@
 """Synthesize a MIDI file to audio with the PyTorch port.
 
   python -m music_spectrogram_diffusion_tpu_torch.cli.synthesize_midi \
-      --midi song.mid --output out.wav [--steps 1000] [--size base] \
+      --midi song.mid --output out.wav [--checkpoint model.npz] \
+      [--vocoder_checkpoint vocoder.npz] [--steps 1000] [--size base] \
       [--device cpu]
 
 Port of music_spectrogram_diffusion_tpu/cli/synthesize_midi.py: the MIDI
 file is read, cut into per-segment event tokens (`segment_midi`), rendered
-segment by segment with the context diffusion model and vocoded with
-Griffin-Lim. The weights are random from a fixed seed (a smoke test of the
-pipeline): `--checkpoint`, `--vocoder_checkpoint` and
-`--vocoder_base_channels` raise until the orbax export and the trained
-vocoders' port (ROADMAP). The network runs in
-float32, as the JAX CLI's does; int8 serving is reached through
+segment by segment with the context diffusion model and vocoded.
+
+`--checkpoint` is a JAX checkpoint exported to `.npz` by
+tools/export_jax_checkpoint.py (or a port training checkpoint); without
+one the weights are random from a fixed seed (a smoke test of the
+pipeline). `--vocoder_checkpoint` is an exported vocoder (`load_trained`:
+the trained MagnitudeNet + Griffin-Lim, or a SoundStream decoder of
+`--vocoder_base_channels`); without one, `--vocoder griffin_lim` is the
+weights-free vocoder. Tokenization follows the experiment
+(`SegmentSettings.for_experiment`); the JAX CLI fixes one velocity bin,
+ties and 'full' programs, which agree with every `context_*` preset. The
+network runs in the checkpoint's dtype (float32 for random weights); int8
+serving is reached through
 `infer.inference.InferenceModel(compute_dtype="int8")`.
 """
 
@@ -88,13 +96,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--midi", required=True)
   p.add_argument("--output", required=True)
   p.add_argument("--checkpoint", default=None,
-                 help="not ported yet (ROADMAP: the orbax -> .npz export)")
+                 help="a JAX checkpoint exported to .npz "
+                      "(tools/export_jax_checkpoint.py), or a port training "
+                      "checkpoint; default: random weights")
   p.add_argument("--size", default="small")
   p.add_argument("--steps", type=int, default=None,
-                 help="sampler steps (default 1000)")
+                 help="sampler steps override (default: the checkpoint's "
+                      "configured count; 1000 with random weights)")
   p.add_argument("--sampler", default=None,
                  choices=["ddpm", "ddim", "dpm++", "sde-dpm++"],
-                 help="sampler family override")
+                 help="sampler family override (default: the checkpoint's)")
   p.add_argument("--guidance_interval", default=None, metavar="LO,HI",
                  help="apply CFG only at noise times LO <= t <= HI; "
                       "steps outside run one conditional forward")
@@ -102,31 +113,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--vocoder", default="griffin_lim",
                  choices=["griffin_lim", "none"])
   p.add_argument("--vocoder_checkpoint", default=None,
-                 help="not ported yet (ROADMAP: HybridGLVocoder)")
-  p.add_argument("--vocoder_base_channels", type=int, default=None,
-                 help="not ported yet: sizes the --vocoder_checkpoint "
-                      "vocoder (ROADMAP: HybridGLVocoder)")
+                 help="a trained vocoder exported to .npz "
+                      "(tools/export_jax_checkpoint.py); overrides --vocoder")
+  p.add_argument("--vocoder_base_channels", type=int, default=512,
+                 help="the width of a 'soundstream' --vocoder_checkpoint "
+                      "whose config does not name it")
   p.add_argument("--device", default="cuda",
                  help="'cuda' (default) or 'cpu'")
   return p.parse_args(argv)
 
 
 def build_model(args: argparse.Namespace):
-  """The CLI's InferenceModel: random weights (seed 0) on `args.device`."""
+  """The CLI's InferenceModel on `args.device`: `--checkpoint`'s weights
+  and experiment, else random weights (seed 0)."""
   from music_spectrogram_diffusion_tpu_torch.infer import inference
-  if args.checkpoint:
-    raise NotImplementedError(
-        "--checkpoint: the orbax restore is not ported; export the params "
-        "to .npz and load them with convert.py (ROADMAP queue 0)")
-  for flag in ("vocoder_checkpoint", "vocoder_base_channels"):
-    if getattr(args, flag) is not None:
-      raise NotImplementedError(
-          f"--{flag}: the trained vocoders are not ported "
-          "(ROADMAP queue 0: HybridGLVocoder / MagnitudeNet)")
   interval = None
   if args.guidance_interval:
     lo, hi = args.guidance_interval.split(",")
     interval = (float(lo), float(hi))
+  if args.checkpoint:
+    return inference.load_checkpoint(
+        args.checkpoint, device=args.device, sampler_steps=args.steps,
+        sampler_name=args.sampler, guidance_interval=interval)
   experiment = inference.with_sampler(
       cfg_lib.ExperimentConfig(size=args.size, dropout_rate=0.0),
       sampler_steps=args.steps or 1000, sampler_name=args.sampler,
@@ -134,14 +142,30 @@ def build_model(args: argparse.Namespace):
   return inference.InferenceModel(experiment, seed=0, device=args.device)
 
 
+def build_vocoder(args: argparse.Namespace):
+  """The CLI's vocoder on `args.device`: `--vocoder_checkpoint`'s trained
+  vocoder (`load_trained`), else Griffin-Lim, else None."""
+  from music_spectrogram_diffusion_tpu_torch.audio import vocoder
+  if args.vocoder_checkpoint:
+    return vocoder.load_trained(args.vocoder_checkpoint,
+                                base_channels=args.vocoder_base_channels,
+                                device=args.device)
+  if args.vocoder == "griffin_lim":
+    return vocoder.GriffinLimVocoder(num_iters=32, device=args.device)
+  return None
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
-  from music_spectrogram_diffusion_tpu_torch.audio import vocoder, wav_io
+  from music_spectrogram_diffusion_tpu_torch.audio import wav_io
   from music_spectrogram_diffusion_tpu_torch.infer import synthesize
   from music_spectrogram_diffusion_tpu_torch.midi import midi_io
 
   args = parse_args(argv)
   model = build_model(args)
-  print("NOTE: random weights (smoke test of the pipeline).")
+  if args.checkpoint:
+    print(f"loaded {args.checkpoint} (step {model.step})")
+  else:
+    print("NOTE: no checkpoint given; random weights (smoke test).")
   print(f"reading {args.midi}")
   ns = midi_io.read_midi_file(args.midi)
   print(f"  {len(ns.notes)} notes, {ns.total_time:.1f}s")
@@ -153,12 +177,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
   print(f"  {len(segments)} segments of "
         f"{lengths['targets'] / codec.frame_rate:.2f}s")
 
-  voc = (vocoder.GriffinLimVocoder(num_iters=32, device=args.device)
-         if args.vocoder == "griffin_lim" else None)
+  voc = build_vocoder(args)
   synth = model.synthesizer(voc)
   t0 = time.time()
   out = synth.render_song(
-      segments, noise=synthesize.seeded_noise(args.seed, model.model.device))
+      segments, noise=synthesize.seeded_noise(args.seed, model.model.device),
+      vocode=voc is not None)
   print(f"rendered in {time.time() - t0:.1f}s "
         f"({out.timings['prediction_seconds_per_audio_second']:.3f} "
         f"pred-s per audio-s)")

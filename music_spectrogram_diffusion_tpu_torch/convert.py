@@ -17,12 +17,20 @@ too: an int8 `kernel` and its sibling float32 `kernel_scale` are copied
 exactly, as int8 and float32, and load into the DenseGeneral's int8 form
 (`infer.inference.load_serving_state_`). Float leaves of such a tree (bf16
 after the serving cast) are copied exactly in float32, like any other.
+
+The vocoders' convolutions map with `flax_convs_to_state_dict`: a Flax
+`Conv` / `ConvTranspose` kernel [k, in, out] becomes torch's conv weight
+[out, in, k], its bias is copied as it is.
+
+A JAX checkpoint reaches the port as one `.npz` written by
+`tools/export_jax_checkpoint.py`; `read_export` reads it.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +99,75 @@ def flax_to_state_dict(params: Mapping[str, Any],
       raise ValueError(f"{path}: {arr.shape} does not fit {name} {want}")
     dtype = np.int8 if arr.dtype == np.int8 else np.float32
     out[name] = torch.from_numpy(np.array(arr, dtype=dtype).reshape(want))
+  missing = sorted(set(target) - set(out))
+  if missing:
+    raise KeyError(f"parameters without a Flax leaf: {missing}")
+  return out
+
+
+EXPORT_TOOL = "tools/export_jax_checkpoint.py"
+
+
+def read_export(path: str) -> Tuple[Dict[str, Any], str, int]:
+  """An exported JAX checkpoint -> (params tree of numpy arrays,
+  config_json text, step).
+
+  Raises ValueError, naming the export tool, for anything that is not
+  such an export (an orbax directory, another `.npz`)."""
+  path = os.fspath(path)
+  hint = (f"{path} is not an exported JAX checkpoint; export one to .npz "
+          f"with {EXPORT_TOOL}")
+  if os.path.isdir(path) or not path.endswith(".npz"):
+    raise ValueError(hint)
+  with np.load(path) as z:
+    if "config_json" not in z.files or "step" not in z.files:
+      raise ValueError(hint)
+    tree: Dict[str, Any] = {}
+    for key in z.files:
+      if not key.startswith("params/"):
+        continue
+      node = tree
+      parts = key.split("/")[1:]
+      for part in parts[:-1]:
+        node = node.setdefault(part, {})
+      node[parts[-1]] = z[key]
+    return tree, str(z["config_json"].item()), int(z["step"])
+
+
+def conv_weight(kernel: np.ndarray) -> torch.Tensor:
+  """A Flax Conv/ConvTranspose kernel [k, in, out] -> torch [out, in, k],
+  exactly, in float32."""
+  arr = np.asarray(kernel)
+  if arr.ndim != 3:
+    raise ValueError(f"a 1-d conv kernel has 3 dims, got {arr.shape}")
+  return torch.from_numpy(np.ascontiguousarray(
+      np.array(arr, dtype=np.float32).transpose(2, 1, 0)))
+
+
+def flax_convs_to_state_dict(params: Mapping[str, Any],
+                             module: nn.Module) -> Dict[str, torch.Tensor]:
+  """Map a Flax params tree of 1-d convolutions onto `module`'s state_dict:
+  'a/b/kernel' -> 'a.b.weight' (`conv_weight`), 'a/b/bias' -> 'a.b.bias'.
+  Raises if a leaf has no counterpart, a counterpart has no leaf, or a
+  shape differs."""
+  target = module.state_dict()
+  out: Dict[str, torch.Tensor] = {}
+  for path, leaf in flatten(params).items():
+    stem, _, leaf_name = path.rpartition("/")
+    stem = stem.replace("/", ".")
+    if leaf_name == "kernel":
+      name, value = f"{stem}.weight", conv_weight(leaf)
+    elif leaf_name == "bias":
+      name = f"{stem}.bias"
+      value = torch.from_numpy(np.array(leaf, dtype=np.float32))
+    else:
+      raise KeyError(f"Flax leaf {path}: not a conv kernel or bias")
+    if name not in target:
+      raise KeyError(f"Flax leaf {path} -> {name}: no such parameter")
+    if tuple(value.shape) != tuple(target[name].shape):
+      raise ValueError(f"{path}: {tuple(value.shape)} does not fit {name} "
+                       f"{tuple(target[name].shape)}")
+    out[name] = value
   missing = sorted(set(target) - set(out))
   if missing:
     raise KeyError(f"parameters without a Flax leaf: {missing}")

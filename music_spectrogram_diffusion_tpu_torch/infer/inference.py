@@ -1,9 +1,12 @@
 """Ready-to-predict model from a config and weights.
 
 Port of music_spectrogram_diffusion_tpu/infer/inference.py. The weights
-come from a port `state_dict` (for a JAX checkpoint: `convert.py` on its
-params tree), from a port training checkpoint (`load_checkpoint`), or are
-drawn at random from a seed; the orbax restore stays in the JAX package. The port serves the context diffusion family in
+come from a port `state_dict`, from a JAX checkpoint exported to `.npz` by
+tools/export_jax_checkpoint.py (`load_export`: the experiment from its
+config_json, the params through `convert.py`), from a port training
+checkpoint (`load_checkpoint`), or are drawn at random from a seed; the
+orbax restore stays in the JAX package. The port serves the context
+diffusion family in
 float32, or with `compute_dtype` in bfloat16 (`cast_params_bf16`) or with
 weight-only int8 kernels on a bfloat16 network (`ops.quantize`), as the
 JAX package's InferenceModel does.
@@ -12,16 +15,20 @@ JAX package's InferenceModel does.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from music_spectrogram_diffusion_tpu_torch import config as cfg_lib
+from music_spectrogram_diffusion_tpu_torch import convert
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.models import layers
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
     model as diffusion_model, network as diffusion_network)
+from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 from music_spectrogram_diffusion_tpu_torch.ops import quantize
 
 COMPUTE_DTYPES = (None, "float32", "bfloat16", "int8")
@@ -174,17 +181,20 @@ class InferenceModel:
                state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                seed: int = 0,
                device="cuda",
-               compute_dtype: Optional[str] = None):
+               compute_dtype: Optional[str] = None,
+               step: int = -1):
     """See `build_model`; `with_sampler` changes the sampler first.
 
     compute_dtype: None or 'float32' (the default: the experiment's own
     dtype), 'bfloat16' or 'int8'. The sampler's state and the output
-    projection stay float32 in every case.
+    projection stay float32 in every case. `step`: the training step of
+    the weights (-1: not from a checkpoint).
     """
     self.experiment = serving_experiment(experiment, compute_dtype)
     self.model = _build_served(self.experiment, state_dict=state_dict,
                                seed=seed, device=device,
                                compute_dtype=compute_dtype)
+    self.step = step
 
   @property
   def task_lengths(self) -> Dict[str, int]:
@@ -196,22 +206,84 @@ class InferenceModel:
   def audio_codec(self) -> codecs.MelGan:
     return self.model.audio_codec
 
-  def synthesizer(self, vocoder=None):
+  def predict(self, batch: Mapping[str, np.ndarray], seed: int = 0,
+              noise: Optional[dops.NoiseFn] = None) -> np.ndarray:
+    """One batched segment prediction, numpy in and out: mel features
+    [B, L_tgt, n_dims]. `batch` as `ContextDiffusionModel.predict` takes
+    it. The noise is `noise` if given (e.g. replayed draws), else row i's
+    generator seeded from (seed, i, 0), as `synthesize.seeded_noise`
+    draws a song's first segment."""
+    from music_spectrogram_diffusion_tpu_torch.infer import synthesize
+    device = self.model.device
+    dtypes = {"encoder_input_tokens": torch.int64,
+              "encoder_continuous_mask": torch.bool}
+    tensors = {k: torch.as_tensor(np.asarray(v), device=device,
+                                  dtype=dtypes.get(k, torch.float32))
+               for k, v in batch.items()}
+    if noise is None:
+      rows = tensors["decoder_target_tokens"].shape[0]
+      noise = synthesize.seeded_noise(seed, device)(0, rows)
+    return self.model.predict(tensors, noise).cpu().numpy()
+
+  def synthesizer(self, vocoder=None, bucket_inputs: bool = True):
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize
     return synthesize.Synthesizer(self.model, self.task_lengths,
-                                  vocoder=vocoder)
+                                  vocoder=vocoder,
+                                  bucket_inputs=bucket_inputs)
+
+
+def load_export(path: str, *, device="cuda",
+                compute_dtype: Optional[str] = None,
+                sampler_steps: Optional[int] = None,
+                sampler_name: Optional[str] = None,
+                guidance_interval: Optional[Tuple[float, float]] = None
+                ) -> InferenceModel:
+  """An InferenceModel from a JAX diffusion checkpoint exported to `.npz`
+  (tools/export_jax_checkpoint.py): the experiment from its config_json
+  (`ExperimentConfig.from_json`), the sampler overrides of
+  `with_sampler`, the params through `convert.flax_to_state_dict`.
+  Raises ValueError naming the tool for anything that is not an export."""
+  params, config_json, step = convert.read_export(path)
+  if not config_json:
+    raise ValueError(f"{path} has no config_json: not an experiment")
+  experiment = with_sampler(cfg_lib.ExperimentConfig.from_json(config_json),
+                            sampler_steps=sampler_steps,
+                            sampler_name=sampler_name,
+                            guidance_interval=guidance_interval)
+  module = diffusion_network.ContextTransformer(experiment.network())
+  state = convert.flax_to_state_dict(params, module)
+  return InferenceModel(experiment, state_dict=state, device=device,
+                        compute_dtype=compute_dtype, step=step)
 
 
 def load_checkpoint(path: str, *, device="cuda",
-                    compute_dtype: Optional[str] = None) -> InferenceModel:
-  """An InferenceModel from a port training checkpoint: a step_<N>
+                    compute_dtype: Optional[str] = None,
+                    sampler_steps: Optional[int] = None,
+                    sampler_name: Optional[str] = None,
+                    guidance_interval: Optional[Tuple[float, float]] = None
+                    ) -> InferenceModel:
+  """An InferenceModel from a checkpoint: an exported JAX checkpoint
+  (`.npz`, `load_export`), or a port training checkpoint, a step_<N>
   directory of `train/checkpoints.py` (or the model directory holding
   them, for the latest), its experiment from `config.json` and its weights
-  from the saved state."""
+  from the saved state. Anything else (an orbax directory) raises
+  ValueError naming tools/export_jax_checkpoint.py."""
   from music_spectrogram_diffusion_tpu_torch.train import checkpoints
-  restored = checkpoints.restore_checkpoint(path)
+  overrides = dict(sampler_steps=sampler_steps, sampler_name=sampler_name,
+                   guidance_interval=guidance_interval)
+  if not os.path.isdir(path):
+    return load_export(path, device=device, compute_dtype=compute_dtype,
+                       **overrides)
+  step_dir = (path if os.path.basename(os.path.normpath(path)).startswith(
+      "step_") else checkpoints.latest_checkpoint(path))
+  if step_dir is None or not os.path.exists(
+      os.path.join(step_dir, checkpoints.STATE_FILE)):
+    convert.read_export(path)  # raises, naming the export tool
+  restored = checkpoints.restore_checkpoint(step_dir)
   if "config_json" not in restored:
     raise ValueError(f"{path} has no config.json")
-  return InferenceModel(cfg_lib.ExperimentConfig.from_json(
-      restored["config_json"]), state_dict=restored["params"],
-                        device=device, compute_dtype=compute_dtype)
+  experiment = with_sampler(cfg_lib.ExperimentConfig.from_json(
+      restored["config_json"]), **overrides)
+  return InferenceModel(experiment, state_dict=restored["params"],
+                        device=device, compute_dtype=compute_dtype,
+                        step=int(restored.get("step", -1)))

@@ -1,18 +1,20 @@
 """Full-song synthesis by segment chaining, in PyTorch.
 
-Port of `Synthesizer.render_songs` / `render_song` from
-music_spectrogram_diffusion_tpu/infer/synthesize.py: per segment the model
-runs with the previous segment's prediction as its context (the first
-segment's context is masked out), songs are batched so the sequential
-dependency is only along segments, and the concatenated spectrogram is
-vocoded at the end.
+Port of `Synthesizer` from music_spectrogram_diffusion_tpu/infer/
+synthesize.py: per segment the model runs with the previous segment's
+prediction as its context (the first segment's context is masked out),
+songs are batched so the sequential dependency is only along segments, and
+the concatenated spectrogram is vocoded at the end (`render_songs`); or
+one song is streamed, each segment vocoded as soon as it is denoised
+(`stream_song`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Sequence
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -56,11 +58,13 @@ class Synthesizer:
   INPUT_BUCKETS = (256, 512, 1024, 2048)
 
   def __init__(self, model, task_feature_lengths: Mapping[str, int],
-               vocoder=None):
+               vocoder=None, bucket_inputs: bool = True):
     """Args:
       model: ContextDiffusionModel (or anything with its .predict).
       task_feature_lengths: {'inputs', 'targets', 'targets_context'}.
       vocoder: optional callable [B, T, D] mel -> [B, T*hop] audio.
+      bucket_inputs: pad the tokens to the smallest of INPUT_BUCKETS that
+        fits the longest segment (False: always to the task's inputs).
     """
     self.model = model
     self.lengths = dict(task_feature_lengths)
@@ -70,24 +74,43 @@ class Synthesizer:
           f"({self.lengths['targets']}) is unsupported: segment chaining "
           "uses the previous segment's prediction as context")
     self.vocoder = vocoder
+    self.bucket_inputs = bucket_inputs
 
   def _input_length(self, max_tokens: int) -> int:
     cap = self.lengths["inputs"]
+    if not self.bucket_inputs:
+      return cap
     for bucket in self.INPUT_BUCKETS:
       if max_tokens <= bucket <= cap:
         return bucket
     return cap
 
+  def _segment_batch(self, tokens: np.ndarray, context: torch.Tensor,
+                     context_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    device = self.model.device
+    return {
+        "encoder_input_tokens": torch.as_tensor(tokens, device=device),
+        "encoder_continuous_inputs": context,
+        "encoder_continuous_mask": context_mask,
+        "decoder_target_tokens": torch.zeros(
+            (tokens.shape[0], self.lengths["targets"],
+             self.model.audio_codec.n_dims), device=device),
+    }
+
   def render_songs(self,
                    songs: Sequence[Sequence[np.ndarray]],
-                   noise: Optional[SegmentNoise] = None
-                   ) -> List[SongRender]:
+                   noise: Optional[SegmentNoise] = None,
+                   vocode: bool = True,
+                   always_mask_context: bool = False) -> List[SongRender]:
     """Render a batch of songs, chaining context across segments.
 
     Args:
       songs: per song, its per-segment `encoder_input_tokens` (1-d ints,
         padded/EOS'd to at most the task inputs length).
       noise: the sampler noise per segment; default `seeded_noise(0)`.
+      vocode: run the attached vocoder (if any) on the result.
+      always_mask_context: keep every segment's context mask at 0 (the
+        reference's ablation that renders every segment blind).
     """
     device = self.model.device
     if noise is None:
@@ -112,13 +135,7 @@ class Synthesizer:
                                device=device)
     mel_segments, seg_times = [], []
     for gi in range(max_segments):
-      batch = {
-          "encoder_input_tokens": torch.as_tensor(tokens[gi], device=device),
-          "encoder_continuous_inputs": context,
-          "encoder_continuous_mask": context_mask,
-          "decoder_target_tokens": torch.zeros(
-              (n_songs, l_tgt, codec.n_dims), device=device),
-      }
+      batch = self._segment_batch(tokens[gi], context, context_mask)
       _sync(device)
       t0 = time.perf_counter()
       pred = self.model.predict(batch, noise(gi, n_songs))
@@ -126,12 +143,12 @@ class Synthesizer:
       seg_times.append(time.perf_counter() - t0)
       mel_segments.append(pred)
       context = pred[:, -l_ctx:, :]
-      context_mask = torch.ones((n_songs, l_ctx), dtype=torch.bool,
-                                device=device)
+      context_mask = torch.full((n_songs, l_ctx), not always_mask_context,
+                                dtype=torch.bool, device=device)
     mel = torch.cat(mel_segments, dim=1)
 
     audio, vocode_time = None, 0.0
-    if self.vocoder is not None:
+    if vocode and self.vocoder is not None:
       t0 = time.perf_counter()
       audio = self.vocoder(mel)
       _sync(audio.device)
@@ -163,5 +180,51 @@ class Synthesizer:
     return results
 
   def render_song(self, segments: Sequence[np.ndarray],
-                  noise: Optional[SegmentNoise] = None) -> SongRender:
-    return self.render_songs([segments], noise=noise)[0]
+                  noise: Optional[SegmentNoise] = None,
+                  vocode: bool = True) -> SongRender:
+    return self.render_songs([segments], noise=noise, vocode=vocode)[0]
+
+  def stream_song(self, segments: Sequence[np.ndarray],
+                  noise: Optional[SegmentNoise] = None,
+                  vocoder_context_frames: int = 16
+                  ) -> Iterator[Tuple[int, np.ndarray, Optional[np.ndarray]]]:
+    """Low-latency render of one song: yields (segment index, mel
+    [l_tgt, n_dims], audio [l_tgt * hop] or None) as each segment is
+    denoised.
+
+    The vocoder runs on [the previous `vocoder_context_frames` mel frames |
+    the segment] and the context's samples are dropped (the codec's
+    warm-up convention). The noise of segment i is `noise(i, 1)`, what
+    `render_songs` draws for song 0, so the streamed mel equals the batch
+    renderer's exactly. Griffin-Lim's phase is chunk-local, so streamed
+    audio differs slightly from whole-song vocoding.
+    """
+    device = self.model.device
+    if noise is None:
+      noise = seeded_noise(0, device)
+    codec = self.model.audio_codec
+    l_ctx = self.lengths["targets_context"]
+    l_in = self._input_length(max((len(s) for s in segments), default=1))
+    context = torch.full((1, l_ctx, codec.n_dims), codec.pad_value,
+                         dtype=torch.float32, device=device)
+    context_mask = torch.zeros((1, l_ctx), dtype=torch.bool, device=device)
+    prev_tail = None  # the last vocoder_context_frames of mel
+    for gi, seg in enumerate(segments):
+      tokens = np.zeros((1, l_in), np.int64)
+      seg = np.asarray(seg)[:l_in]
+      tokens[0, :len(seg)] = seg
+      pred = self.model.predict(
+          self._segment_batch(tokens, context, context_mask), noise(gi, 1))
+      audio = None
+      if self.vocoder is not None:
+        if prev_tail is None:
+          audio = self.vocoder(pred)[0]
+        else:
+          audio = self.vocoder(torch.cat([prev_tail, pred], dim=1))[
+              0, vocoder_context_frames * codec.hop_size:]
+        audio = audio.cpu().numpy()
+        if vocoder_context_frames > 0:
+          prev_tail = pred[:, -vocoder_context_frames:, :]
+      context = pred[:, -l_ctx:, :]
+      context_mask = torch.ones((1, l_ctx), dtype=torch.bool, device=device)
+      yield gi, pred[0].cpu().numpy(), audio

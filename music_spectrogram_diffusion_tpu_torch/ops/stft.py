@@ -10,17 +10,21 @@ semantics:
   * HTK mel scale (2595 * log10(1 + f/700)) with triangular weights on the
     bin frequencies excluding DC; the DC row of the filterbank is zero.
 
-The filterbank, the window and the PGHI phase integration are numpy on the
-host; the transforms run on the tensors' device.
+The filterbank, the window and the PGHI phase integration are on the
+host (numpy, and the heap in C++: `ops/csrc/pghi_heap.cc`, built with g++
+on first use); the transforms run on the tensors' device.
 """
 
 from __future__ import annotations
 
+import ctypes
 import heapq
 from typing import Optional
 
 import numpy as np
 import torch
+
+from music_spectrogram_diffusion_tpu_torch.ops import _build
 
 
 def hann_window(win_length: int, dtype=np.float32) -> np.ndarray:
@@ -133,7 +137,10 @@ def _pghi_gradients(log_mag: np.ndarray, frame_length: int,
 
 def _pghi_heap_py(S: np.ndarray, tgrad: np.ndarray, fgrad: np.ndarray,
                   tol: float) -> np.ndarray:
-  """Heap integration of the phase gradients, largest magnitude first."""
+  """Heap integration of the phase gradients, largest magnitude first: the
+  plain version of `pghi_heap`, a copy of the JAX package's Python heap.
+  It breaks ties between equal magnitudes in another order than the C++
+  heap; the tests hold each against its JAX counterpart."""
   n, nb = S.shape
   phase = np.zeros_like(S)
   done = S <= tol * S.max()
@@ -163,12 +170,38 @@ def _pghi_heap_py(S: np.ndarray, tgrad: np.ndarray, fgrad: np.ndarray,
   return phase
 
 
+def _heap_entry():
+  fn = _build.load("pghi_heap").msd_pghi_heap
+  fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_double, ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def pghi_heap(S: np.ndarray, tgrad: np.ndarray, fgrad: np.ndarray,
+              tol: float) -> np.ndarray:
+  """Heap integration of the phase gradients in C++ (`csrc/pghi_heap.cc`),
+  the JAX package's default heap (`native/msd_native.cc pghi_heap`) step
+  for step. S, tgrad, fgrad: float32 [n_frames, n_bins]. Raises if the
+  heap cannot be built (no g++): there is no quiet Python fallback."""
+  S, tgrad, fgrad = (np.ascontiguousarray(a, np.float32)
+                     for a in (S, tgrad, fgrad))
+  if S.ndim != 2 or tgrad.shape != S.shape or fgrad.shape != S.shape:
+    raise ValueError(f"pghi_heap: shapes {S.shape}, {tgrad.shape}, "
+                     f"{fgrad.shape}; want three equal [n, bins]")
+  phase = np.empty_like(S)
+  _heap_entry()(S.ctypes.data, tgrad.ctypes.data, fgrad.ctypes.data,
+                S.shape[0], S.shape[1], float(tol), phase.ctypes.data)
+  return phase
+
+
 def pghi_phase(magnitude, *, frame_length: int, frame_step: int,
                fft_length: int, tol: float = 1e-6) -> np.ndarray:
   """Phase Gradient Heap Integration (Prusa et al. 2017) on the host.
 
   [..., n_frames, n_bins] |STFT| -> phase of the same shape; the
-  initializer of `griffin_lim`.
+  initializer of `griffin_lim`. The heap is `pghi_heap` (C++), on every
+  device.
   """
   S = np.asarray(magnitude, np.float32)
   batch_shape = S.shape[:-2]
@@ -178,17 +211,20 @@ def pghi_phase(magnitude, *, frame_length: int, frame_step: int,
                                  fft_length)
   out = np.empty_like(S2)
   for b in range(S2.shape[0]):
-    out[b] = _pghi_heap_py(S2[b], tgrad[b], fgrad[b], tol)
+    out[b] = pghi_heap(S2[b], tgrad[b], fgrad[b], tol)
   return out.reshape(batch_shape + S.shape[-2:])
 
 
 def griffin_lim(magnitude: torch.Tensor, *, frame_length: int,
                 frame_step: int, fft_length: int, num_iters: int = 32,
                 init_phase: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
                 momentum: float = 0.0) -> torch.Tensor:
   """Griffin-Lim phase reconstruction from |STFT| -> audio.
 
-  `init_phase` (e.g. from `pghi_phase`) replaces the zero start.
+  `init_phase` (e.g. from `pghi_phase`) replaces the zero start; without
+  it, a `generator` draws a random start, uniform in [-pi, pi), on its
+  own device (the JAX package draws it from its `rng`).
   `momentum` > 0 is the fast Griffin-Lim update (Perraudin et al. 2013):
   c_{n+1} = t_n + momentum * (t_n - t_{n-1}); 0 is the classic
   alternating projections.
@@ -196,8 +232,14 @@ def griffin_lim(magnitude: torch.Tensor, *, frame_length: int,
   n_frames = magnitude.shape[-2]
   num_samples = n_frames * frame_step
   window = _window(frame_length, magnitude.device)
-  angles = (torch.zeros_like(magnitude) if init_phase is None
-            else init_phase.to(magnitude.device, torch.float32))
+  if init_phase is not None:
+    angles = init_phase.to(magnitude.device, torch.float32)
+  elif generator is not None:
+    angles = (torch.rand(magnitude.shape, generator=generator,
+                         device=generator.device) * 2 - 1) * np.pi
+    angles = angles.to(magnitude.device)
+  else:
+    angles = torch.zeros_like(magnitude)
   stft_c = magnitude * torch.exp(1j * angles.to(torch.complex64))
 
   def project(c):

@@ -2,7 +2,8 @@
 and the port's card tools, tools/torch_*.py) pulls in neither JAX nor the
 JAX package, and a request for the card on a
 machine without one raises instead of running on the CPU: serving, the
-MIDI CLI, the vocoder, and training (the trainer and cli/train.py)."""
+MIDI CLI, the vocoders (weights-free and trained), and training (the
+trainer and cli/train.py)."""
 
 import os
 import subprocess
@@ -46,6 +47,7 @@ for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
                  ["--midi", "song.mid", "--output", "song.wav",
                   "--size", "tiny"])),
              lambda: vocoder.GriffinLimVocoder(),
+             lambda: vocoder.load_trained(vocoder.TRAINED_MAGNITUDE_GL),
              lambda: trainer.build_model(config.preset("context_tiny")),
              lambda: train_cli.main(["--synthetic", "--preset",
                                      "context_tiny", "--model_dir",

@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from music_spectrogram_diffusion_tpu.audio import codecs as jax_codecs
 from music_spectrogram_diffusion_tpu.cli import synthesize_midi as jax_cli
@@ -19,7 +20,7 @@ from music_spectrogram_diffusion_tpu.data import tasks as jax_tasks
 from music_spectrogram_diffusion_tpu.midi import midi_io as jax_midi_io
 from music_spectrogram_diffusion_tpu.midi import vocabularies as jax_vocab
 from music_spectrogram_diffusion_tpu_torch import config
-from music_spectrogram_diffusion_tpu_torch.audio import wav_io
+from music_spectrogram_diffusion_tpu_torch.audio import vocoder, wav_io
 from music_spectrogram_diffusion_tpu_torch.cli import synthesize_midi
 from music_spectrogram_diffusion_tpu_torch.midi import event_codec
 from music_spectrogram_diffusion_tpu_torch.midi import midi_io
@@ -142,6 +143,29 @@ def test_segment_settings_follow_the_experiment():
       config.preset("ismir2021_small").network().vocab_size)
 
 
+@pytest.mark.parametrize("preset,same", [("context_base", True),
+                                         ("context_tiny", True),
+                                         ("ismir2021_small", False)])
+def test_cli_tokenization_against_the_jax_clis_fixed_settings(
+    tmp_path, preset, same):
+  """The JAX CLI tokenizes with fixed settings whatever the checkpoint
+  (jax cli/synthesize_midi.py: one velocity bin, ties, 'full' programs);
+  the port's follows the experiment (`SegmentSettings.for_experiment`).
+  They agree on every context_* preset; an ismir2021_* experiment (127
+  velocity bins, no ties, 'flat') is tokenized differently."""
+  path = str(tmp_path / "song.mid")
+  jax_midi_io.write_midi_file(_song(3, 8.0, num_programs=4), path)
+  want = jax_cli.segment_midi(jax_midi_io.read_midi_file(path),
+                              _jax_task(), LENGTHS)
+  got = synthesize_midi.segment_midi(
+      midi_io.read_midi_file(path),
+      synthesize_midi.SegmentSettings.for_experiment(config.preset(preset)),
+      LENGTHS)
+  equal = len(got) == len(want) and all(
+      g.shape == w.shape and np.array_equal(g, w) for g, w in zip(got, want))
+  assert equal == same
+
+
 def test_cli_renders_a_wav_on_the_cpu(tmp_path):
   midi_path = str(tmp_path / "song.mid")
   midi_io.write_midi_file(_song(0, 3.0), midi_path)
@@ -158,14 +182,56 @@ def test_cli_renders_a_wav_on_the_cpu(tmp_path):
   assert timings["audio_seconds"] == pytest.approx(5.12)
 
 
+def _soundstream_export(path, base):
+  """An exported 'soundstream' vocoder (tools/export_jax_checkpoint.py's
+  layout, random weights in Flax's [k, in, out]) with no width in its
+  config, as the JAX trainer's older checkpoints have."""
+  dec = vocoder.SoundStreamDecoder(vocoder.SoundStreamConfig(
+      base_channels=base))
+  rng = np.random.RandomState(0)
+  arrays = {"config_json": np.asarray(""), "step": np.asarray(3)}
+  for name, t in dec.state_dict().items():
+    stem, leaf = name.rsplit(".", 1)
+    shape = tuple(t.shape)[::-1] if leaf == "weight" else tuple(t.shape)
+    key = f"params/params/{stem.replace('.', '/')}/" + (
+        "kernel" if leaf == "weight" else "bias")
+    arrays[key] = rng.randn(*shape).astype(np.float32) * 0.01
+  np.savez(path, **arrays)
+
+
 @pytest.mark.parametrize("flag", ["--checkpoint", "--vocoder_checkpoint",
                                   "--vocoder_base_channels"])
-def test_cli_refuses_what_is_not_ported(tmp_path, flag):
-  value = "512" if flag == "--vocoder_base_channels" else "/ckpt"
-  args = synthesize_midi.parse_args(["--midi", "x.mid", "--output", "y.wav",
-                                     "--device", "cpu", flag, value])
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    synthesize_midi.build_model(args)
+def test_cli_loads_exports_and_refuses_orbax(tmp_path, flag):
+  """The flags that raised until the export existed: --checkpoint and
+  --vocoder_checkpoint refuse an orbax directory, naming the export tool
+  (tests/test_torch_export.py serves real exports through them), the
+  committed vocoder export loads at hidden 512, and
+  --vocoder_base_channels sizes a 'soundstream' export."""
+  orbax = tmp_path / "model" / "step_3"
+  (orbax / "state").mkdir(parents=True)
+  (orbax / "METADATA").write_text('{"step": 3}')
+  base = ["--midi", "x.mid", "--output", "y.wav", "--device", "cpu"]
+  if flag == "--vocoder_base_channels":
+    npz = str(tmp_path / "soundstream.npz")
+    _soundstream_export(npz, 16)
+    voc = synthesize_midi.build_vocoder(synthesize_midi.parse_args(
+        base + ["--vocoder_checkpoint", npz, flag, "16"]))
+    assert isinstance(voc, vocoder.SoundStreamVocoder)
+    assert voc.decoder.config.base_channels == 16
+    audio = voc(torch.zeros(1, 3, 128))
+    assert tuple(audio.shape) == (1, 3 * 320)
+    return
+  for path in (str(orbax), str(orbax.parent)):
+    args = synthesize_midi.parse_args(base + [flag, path])
+    build = (synthesize_midi.build_model if flag == "--checkpoint"
+             else synthesize_midi.build_vocoder)
+    with pytest.raises(ValueError, match="tools/export_jax_checkpoint.py"):
+      build(args)
+  if flag == "--vocoder_checkpoint":
+    voc = synthesize_midi.build_vocoder(synthesize_midi.parse_args(
+        base + [flag, vocoder.TRAINED_MAGNITUDE_GL]))
+    assert isinstance(voc, vocoder.HybridGLVocoder)
+    assert voc.net.hidden == 512
 
 
 def test_note_sequence_to_events_matches_jax(tmp_path):
