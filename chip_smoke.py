@@ -75,7 +75,25 @@ Phases, each printed on its own line with its seconds:
  17. main     cli/synthesize_midi.py --vocoder_checkpoint <the export> on
               the card: a finite WAV of the song's length;
  18. check    SoundStreamDecoder at full width (base 512, strides 8.5.4.2)
-              on random weights from --seed: card vs CPU, timed.
+              on random weights from --seed: card vs CPU, timed;
+ 19. kernel   the flash-attention backward in bfloat16 against its plain
+              bf16 version at the four training shapes at batch 8 (key
+              masks with an all-masked row): error against 2^-6 x max
+              |plain| and relative RMS of dq, dk, dv, finite, two launches
+              bitwise equal, kernel / plain / SDPA bf16 backward (yardstick
+              only) times and the bound; a planted fault (dq without one
+              K/V tile, built in phase 2) must exceed the limit;
+ 20. main     context_base trains 5 steps in bfloat16 with remat and
+              dropout 0.1 at batch 8 through build_model, Trainer and
+              TrainLoop: finite losses, s per step, frames/s, peak memory
+              beside phase 11's, 96 forward (48 and their recompute) and 48
+              bf16 backward launches a step; one bf16 step at batch 1
+              (injected draws, no dropout), kernels vs plain attention on
+              the card; remat on vs off at batch 2 with dropout (the
+              largest gradient difference);
+ 21. main     cli/train.py --remat --eval_batches 2 --eval_period 2
+              --cache_root at batch 64 in float32 (2 steps): eval/loss
+              logged, both caches built and read, peak memory.
 Then the vocoder phases' numbers as one JSON line, one JSON line of the
 kernels, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
@@ -86,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -112,6 +131,8 @@ from music_spectrogram_diffusion_tpu_torch.midi import note_tokens
 from music_spectrogram_diffusion_tpu_torch.midi import sequences
 from music_spectrogram_diffusion_tpu_torch.midi import vocabularies
 from music_spectrogram_diffusion_tpu_torch.models import layers
+from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
+    model as diffusion_model, network as diffusion_network)
 from music_spectrogram_diffusion_tpu_torch.ops import _build
 from music_spectrogram_diffusion_tpu_torch.ops import attention
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
@@ -178,6 +199,31 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_SONGS, RESUME_BATCH = 8, 5, 16, 2
 # error over max(1, the gradient's max): float32 products and sums in
 # another order (observed <= 5.2e-6 at these shapes).
 BWD_TOLERANCE = 1e-4
+# Kernel #2's bf16 configuration against its plain bf16 version (phase 19),
+# max |kernel - plain| over the gradient's max |plain|: the bf16 forward's
+# limit. p and dS are rounded to bf16 on both sides, so a rounding that the
+# sums' order flips moves a gradient by a step or so, and the outputs are
+# rounded to bf16 once (observed at most 0.24 of the limit at these shapes
+# on an H100 80GB HBM3 at 700 W, PERF.md §6); the planted fault (dq
+# without one 32-key tile) lands 34-61x past it there.
+BWD_BF16_TOLERANCE = 2.0 ** -6
+# One bf16 step with remat (phase 20), the kernels vs their plain versions
+# on the card: the loss relative, and each gradient's max |diff| over its
+# max and its relative RMS, within these or within twice the plain bf16
+# path's own distance from the float32 step, whichever is larger. Two bf16
+# paths that round in other places (sums in other orders, p rounded before
+# p.v in the forward kernel only) differ by about bf16's own error,
+# which at tiny size on the CPU already reaches 3.3% / 2.2% (JAX's bf16
+# step against its float32 one, L2 loss; 8.2% / 6.7% with the preset's L1
+# loss, whose sign turns a one-ulp change of a prediction into a full
+# gradient term; tools/bf16_step_noise.py). The step takes an L2 loss for
+# that reason. A kernel fault moves gradients far more (phase 19).
+BF16_STEP_LOSS_TOLERANCE = 1e-2
+BF16_GRAD_MAX_TOLERANCE = 0.025
+BF16_GRAD_RMS_TOLERANCE = 0.02
+# The remat check's batch (phase 20), and the CLI's batch with remat (phase
+# 21): without remat, float32 activations take about 1.9 GiB an example.
+REMAT_BATCH, CLI_BATCH = 2, 64
 # One training step, card vs CPU (phase 12). The timing embedding takes
 # sin/cos of arguments up to 2e4 rad (0.37 x 2e4 = 7400 in the check, where
 # one ulp is 4.9e-4 rad), so the card's and the CPU's float32 exp move it
@@ -1014,17 +1060,33 @@ def training_experiment():
   return config.preset("context_base")
 
 
-def bwd_bound_ms(batch, q_len, kv_len):
-  """max(10 b h q kv d FLOPs at the 3xTF32 route's peak, bytes at the HBM
-  rate): q, out, dO, dQ and k, v, dK, dV in f32, the statistics and the
-  key mask; and the operations at the bf16 peak."""
+def bwd_bound_ms(batch, q_len, kv_len, dtype=torch.float32):
+  """max(10 b h q kv d FLOPs at the route's peak for `dtype` (3xTF32 for
+  f32), bytes at the HBM rate): q, out, dO, dQ and k, v, dK, dV in
+  `dtype`, the f32 statistics and the key mask; and the operations at the
+  bf16 peak."""
   flops = 10.0 * batch * HEADS * q_len * kv_len * HEAD_DIM
-  nbytes = 4 * (4 * batch * q_len + 4 * batch * kv_len) * HEADS * HEAD_DIM
+  elt = torch.finfo(dtype).bits // 8
+  nbytes = elt * (4 * batch * q_len + 4 * batch * kv_len) * HEADS * HEAD_DIM
   nbytes += 4 * 2 * batch * HEADS * q_len + batch * kv_len
-  t_ops, t_bytes = flops / ROUTE_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S
+  t_ops, t_bytes = flops / ROUTE_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
   t_bf16 = max(flops / PEAK_FLOPS[torch.bfloat16], t_bytes)
   return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                      else "bytes"), 1e3 * t_bf16
+
+
+def sdpa_backward_ms(q, k, v, mask, dout, iters: int) -> float:
+  """The yardstick: ms of the backward of one SDPA call on the same inputs
+  in their dtype, [b, h, l, d], with the boolean mask (its all-masked row
+  gives NaN; it is timed, not used)."""
+  sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_()
+                for x in (q, k, v))
+  bool_mask = None if mask is None else mask[:, None, None, :]
+  out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bool_mask,
+                                       scale=1.0)
+  dout = dout.transpose(1, 2).contiguous()
+  return cuda_ms(lambda: torch.autograd.grad(out, (sq, sk, sv), dout,
+                                             retain_graph=True), iters)
 
 
 def bwd_kernel_phase(gen, batch: int):
@@ -1068,23 +1130,9 @@ def bwd_kernel_phase(gen, batch: int):
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two launches differ")
     del want, qkv
-    # SDPA yardstick: the backward of one SDPA call with the boolean mask,
-    # [b, h, l, d] (its all-masked row gives NaN; it is timed, not used).
-    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    bool_mask = None if mask is None else mask[:, None, None, :]
-    lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bool_mask,
-                                             scale=1.0)
-    lib_dout = dout.transpose(1, 2).contiguous()
-
-    def library():
-      return torch.autograd.grad(lib_out, (sq, sk, sv), lib_dout,
-                                 retain_graph=True)
-
     iters = 3 if q_len > 256 else 20
     ms, plain_ms, lib_ms = (cuda_ms(kernel, iters), cuda_ms(plain, iters),
-                            cuda_ms(library, iters))
-    del lib_out
+                            sdpa_backward_ms(q, k, v, mask, dout, iters))
     # The training forward at this batch: the forward kernel with the
     # statistics output.
     fwd_ms = cuda_ms(lambda: attention.flash_attention(
@@ -1194,7 +1242,7 @@ def profile_step(t, state, experiment, seed: int, card: str) -> dict:
     wall = time.perf_counter() - t0
   groups = {"flash_bwd (kernel #2)": ("flash_bwd",),
             "flash_fwd (kernel #1)": ("flash_fwd",),
-            "matmul (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv"),
+            "matmul (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv", "nvjet"),
             "other": ("",)}
   busy = {g: 0.0 for g in groups}
   # The kernels themselves (CPU-side operator events also carry their
@@ -1232,6 +1280,12 @@ def training_batches(experiment, batch: int, count: int, seed: int):
                            "targets_context": tl.targets_context},
                           seed=seed, num_threads=8)
   return list(ds.repeat().batch(batch).take(count))
+
+
+def rel_rms(a, b) -> float:
+  denom = b.float().pow(2).mean().sqrt().item()
+  diff = (a.float() - b.float()).pow(2).mean().sqrt().item()
+  return diff / denom if denom > 0 else diff
 
 
 def step_check_phase(t, seed: int):
@@ -1277,11 +1331,6 @@ def step_check_phase(t, seed: int):
     attention.flash_attention_bwd.launches = launches  # not the main path's
     return (metrics["loss"].item(), {n: g.cpu() for n, g in grads.items()},
             outputs[0], used)
-
-  def rel_rms(a, b):
-    denom = b.pow(2).mean().sqrt().item()
-    diff = (a - b).pow(2).mean().sqrt().item()
-    return diff / denom if denom > 0 else diff
 
   def worst(a, b):
     return max((rel_rms(a[n], b[n]), n) for n in b)
@@ -1611,6 +1660,423 @@ def soundstream_phase(card: str, seed: int, mel: np.ndarray) -> dict:
   return dict(ms=ms, max_abs_err=err)
 
 
+# The planted fault of phase 19: the dq pass leaves out its second K/V tile
+# (keys 32-63 at d = 64), built from a copy of the sources in phase 2.
+BWD_FAULT_AT = "const int k0 = it * kTK;"
+BWD_FAULT = BWD_FAULT_AT + " if (it == 1) continue;"
+
+
+def start_fault_build(work: str):
+  """nvcc on a copy of csrc/ whose flash_bwd.cu carries BWD_FAULT, started
+  now and joined by `finish_fault_build`: (library path, process)."""
+  shutil.rmtree(work, ignore_errors=True)
+  shutil.copytree(_build.CSRC, work, ignore=shutil.ignore_patterns("build"))
+  src = os.path.join(work, "flash_bwd.cu")
+  with open(src) as f:
+    text = f.read()
+  check(text.count(BWD_FAULT_AT) == 1, "the fault's line is not in "
+        "flash_bwd.cu once")
+  with open(src, "w") as f:
+    f.write(text.replace(BWD_FAULT_AT, BWD_FAULT))
+  out = os.path.join(work, "libflash_bwd_fault.so")
+  return out, subprocess.Popen(
+      [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_fault_build(build) -> ctypes.CDLL:
+  out, proc = build
+  stdout, stderr = proc.communicate()
+  check(proc.returncode == 0, f"nvcc on the planted fault failed:\n{stdout}"
+        f"{stderr}")
+  return ctypes.CDLL(out)
+
+
+def bwd_bf16_tolerance(plain) -> float:
+  """The bf16 backward's limit on max |kernel - plain|: BWD_BF16_TOLERANCE
+  of the gradient's max |plain|."""
+  return BWD_BF16_TOLERANCE * plain.float().abs().max().item()
+
+
+def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
+  """Kernel #2's bf16 configuration at the four attention shapes of
+  training, against its plain bf16 version; the planted fault against the
+  same limit."""
+  rows = []
+  for name, q_len, kv_len, masked, _ in SHAPES:
+    q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked, False,
+                                     torch.bfloat16, gen)
+    out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
+                                           return_stats=True)
+    dout = torch.randn(out.shape, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    args = (q, k, v, None, mask, out, stats, dout)
+
+    def kernel():
+      return attention.flash_attention_bwd(*args)
+
+    def plain():
+      return attention.flash_attention_bwd_reference(*args)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    errs, rmss, worst = [], [], 0.0
+    for what, g, w in zip("qkv", got, want):
+      check(g.dtype == torch.bfloat16, f"{name} d{what} is {g.dtype}")
+      check(bool(torch.isfinite(g).all()), f"{name} d{what} finite")
+      err = (g.float() - w.float()).abs().max().item()
+      tol = bwd_bf16_tolerance(w)
+      check(err <= tol, f"{name} d{what}: max |kernel - plain| {err} > {tol}")
+      errs.append(err)
+      rmss.append(((g.float() - w.float()).pow(2).mean()
+                   / w.float().pow(2).mean()).sqrt().item())
+      worst = max(worst, err / tol)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two launches differ")
+    # The planted fault, against the same limit (its launches are not the
+    # main path's).
+    launches = attention.flash_attention_bwd.launches
+    kept = _build._libraries["flash_bwd"]  # pylint: disable=protected-access
+    _build._libraries["flash_bwd"] = fault_lib  # pylint: disable=protected-access
+    try:
+      faulty = kernel()[0]
+    finally:
+      _build._libraries["flash_bwd"] = kept  # pylint: disable=protected-access
+      attention.flash_attention_bwd.launches = launches
+    fault_err = (faulty.float() - want[0].float()).abs().max().item()
+    fault_ratio = fault_err / bwd_bf16_tolerance(want[0])
+    check(fault_ratio > 1.0, f"{name}: the planted fault (dq without keys "
+          f"32-63) within the limit, {fault_ratio:.3g} of it")
+    del want, faulty
+    iters = 3 if q_len > 256 else 20
+    ms, plain_ms, lib_ms = (cuda_ms(kernel, iters), cuda_ms(plain, iters),
+                            sdpa_backward_ms(q, k, v, mask, dout, iters))
+    bound, bound_by, _ = bwd_bound_ms(batch, q_len, kv_len, torch.bfloat16)
+    log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} bfloat16: max_abs_err "
+        f"dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
+        f"{BWD_BF16_TOLERANCE:.6g} x max |plain|; at worst {worst:.3g} of "
+        f"it), relative RMS {max(rmss):.3g}, finite"
+        f"{' with an all-masked row' if masked else ''}, bitwise "
+        f"reproducible; planted fault {fault_ratio:.3g}x the limit; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} "
+        f"ms; bound {bound:.4f} ms ({bound_by}, bf16 peak)")
+    rows.append(dict(shape=name, batch=batch, q_len=q_len, kv_len=kv_len,
+                     max_abs_err=max(errs), worst_of_tolerance=worst,
+                     rel_rms=max(rmss), fault_of_tolerance=fault_ratio,
+                     ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound, bound_by=bound_by))
+  return rows
+
+
+def bf16_training_experiment():
+  """context_base as a user trains it in bf16 with remat."""
+  return dataclasses.replace(training_experiment(), dtype="bfloat16",
+                             remat=True)
+
+
+def bf16_train_phase(seed: int, card: str, f32_peak: float):
+  """build_model, Trainer and TrainLoop on context_base in bf16 with remat
+  and dropout 0.1: TRAIN_STEPS steps at TRAIN_BATCH."""
+  experiment = dataclasses.replace(
+      bf16_training_experiment(), train=dataclasses.replace(
+          training_experiment().train, batch_size=TRAIN_BATCH,
+          train_steps=TRAIN_STEPS, checkpoint_period=10 * TRAIN_STEPS))
+  batches = training_batches(experiment, TRAIN_BATCH, TRAIN_STEPS, seed)
+  model_dir = os.path.join("out", "chip_smoke_train_bf16")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  model = trainer.build_model(experiment, seed=seed, device="cuda")
+  check(all(p.dtype == torch.float32 for p in model.module.parameters()),
+        "bf16 training keeps float32 parameters")
+  t = trainer.Trainer(model, experiment.train)
+  runner = train_loop.TrainLoop(trainer=t, experiment=experiment,
+                                model_dir=model_dir, log_period=1)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  quantize.quantized_matmul.launches = 0
+  state = runner.run(iter(batches), t.create_state(), seed=seed)
+  launches = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  calls = attention_calls_per_step(experiment)
+  check(quantize.quantized_matmul.launches == 0,
+        "bf16 training launched the int8 GEMM")
+  check(launches == (2 * calls * TRAIN_STEPS, calls * TRAIN_STEPS),
+        f"bf16 training with remat launched flash_fwd {launches[0]} and "
+        f"flash_bwd {launches[1]} times, expected {2 * calls * TRAIN_STEPS} "
+        f"({calls} and their recompute a step) and {calls * TRAIN_STEPS}")
+  check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    lines = [json.loads(l) for l in f]
+  for m in lines:
+    check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+          f"bf16 step {m['step']}: loss {m['loss']}, grad_norm "
+          f"{m['grad_norm']}")
+  shutil.rmtree(model_dir, ignore_errors=True)  # the final checkpoint too
+  steady = lines[1:]
+  s_per_step = float(np.mean([m["timing/seconds_per_step"] for m in steady]))
+  frames_per_s = float(np.mean([m["timing/target_frames_per_second"]
+                                for m in steady]))
+  log("  " + "; ".join(
+      f"step {m['step']} loss {m['loss']:.6g} grad_norm {m['grad_norm']:.6g}"
+      for m in lines))
+  log(f"  launches: flash_fwd {launches[0]} ({2 * calls} a step: {calls} "
+      f"and their recompute), flash_bwd {launches[1]} ({calls} a step, "
+      f"bf16)")
+  log(f"  [{card}] {s_per_step:.3f} s per step after the first (first "
+      f"{lines[0]['timing/seconds_per_step']:.3f} s), {frames_per_s:.1f} "
+      f"target frames/s, batch {TRAIN_BATCH}; peak memory {peak:.2f} GiB "
+      f"(phase 11, float32 without remat: {f32_peak:.2f} GiB)")
+  summary = dict(seconds_per_step=s_per_step,
+                 target_frames_per_second=frames_per_s, peak_gib=peak,
+                 losses=[m["loss"] for m in lines],
+                 grad_norms=[m["grad_norm"] for m in lines])
+  summary["profile"] = profile_step(t, state, experiment, seed, card)
+  summary["step_check"] = bf16_step_check(t, experiment, seed)
+  summary["remat_check"] = remat_check(t, experiment, seed)
+  return launches, summary
+
+
+def grad_gaps(grads, ref) -> dict:
+  """Per parameter: (max |a - b| / max |b|, relative RMS) of `grads`
+  against `ref`; parameters whose reference gradient is 0 are left out."""
+  gaps = {}
+  for n, g in grads.items():
+    scale = ref[n].abs().max().item()
+    if scale > 0:
+      gaps[n] = ((g.float() - ref[n].float()).abs().max().item() / scale,
+                 rel_rms(g, ref[n]))
+  return gaps
+
+
+class _PlainAttentionFn(torch.autograd.Function):
+  """The attention kernels' plain versions on any device: forward
+  `attention_reference` with `softmax_stats_reference`, backward
+  `flash_attention_bwd_reference` (in bf16 it rounds p and dS where the
+  kernel does). What flash_attention_diff runs on CPU tensors in bf16."""
+
+  @staticmethod
+  def forward(ctx, query, key, value, bias, kv_mask, kv_transposed):
+    out = attention.attention_reference(query, key, value, bias, kv_mask,
+                                        kv_transposed=kv_transposed)
+    stats = attention.softmax_stats_reference(query, key, bias, kv_mask,
+                                              kv_transposed=kv_transposed)
+    ctx.save_for_backward(query, key, value, bias, kv_mask, out, stats)
+    ctx.kv_transposed = kv_transposed
+    return out
+
+  @staticmethod
+  def backward(ctx, dout):
+    grads = attention.flash_attention_bwd_reference(
+        *ctx.saved_tensors, dout, kv_transposed=ctx.kv_transposed)
+    return (*grads, None, None, None)
+
+
+def plain_attention_diff(query, key, value, bias=None, kv_mask=None, *,
+                         kv_transposed=False):
+  return _PlainAttentionFn.apply(query, key, value, bias, kv_mask,
+                                 kv_transposed)
+
+
+def bf16_step_check(t, experiment, seed: int) -> dict:
+  """One bf16 step at batch 1 (injected draws, no dropout, remat on, an L2
+  loss: see BF16_GRAD_MAX_TOLERANCE) with the kernels, with their plain
+  versions in their place (`plain_attention_diff`) and with autograd through
+  the plain forward, each held against the same step in float32 with the
+  kernels, on the card."""
+  batch = trainer.batch_to_device(training_batches(experiment, 1, 1, seed)[0],
+                                  "cuda")
+  gen = torch.Generator().manual_seed(seed)
+  eps = torch.randn(tuple(batch["decoder_target_tokens"].shape),
+                    generator=gen).cuda()
+  draws = lambda x0, cfg: (eps, torch.tensor([0.37], device="cuda"),
+                           torch.tensor([True], device="cuda"))
+  l2 = dataclasses.replace(experiment.diffusion, loss_norm="l2")
+  f32_module = diffusion_network.ContextTransformer(dataclasses.replace(
+      experiment, dtype="float32").network())
+  f32_module.load_state_dict(t.model.module.state_dict())
+  models = {"bf16": copy.copy(t.model), "f32": diffusion_model.
+            ContextDiffusionModel(f32_module.cuda().train(), l2,
+                                  t.model.audio_codec)}
+  models["bf16"].diffusion_config = l2
+
+  def step(which, plain=None):
+    launches = attention.flash_attention_bwd.launches
+    kernel_fn = attention.flash_attention_diff
+    if plain is not None:
+      attention.flash_attention_diff = plain
+    try:
+      metrics, grads = trainer.Trainer(
+          models[which], experiment.train).loss_and_grads(batch, draws, None)
+    finally:
+      attention.flash_attention_diff = kernel_fn
+    used = attention.flash_attention_bwd.launches - launches
+    attention.flash_attention_bwd.launches = launches  # not the main path's
+    return metrics["loss"].item(), grads, used
+
+  loss, grads, used = step("bf16")
+  check(used == attention_calls_per_step(experiment),
+        f"the bf16 step launched the backward kernel {used} times")
+  plain_loss, plain_grads, used = step("bf16", plain_attention_diff)
+  check(used == 0, "the plain bf16 step launched the kernel")
+  auto_loss, auto_grads, _ = step("bf16", attention.attention_reference)
+  f32_loss, f32_grads, _ = step("f32")
+  del models, f32_module
+  loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+  check(np.isfinite(loss) and loss_rel <= BF16_STEP_LOSS_TOLERANCE,
+        f"bf16 step, kernels vs plain attention: loss {loss} vs {plain_loss}")
+  for n, g in grads.items():
+    check(bool(torch.isfinite(g).all()), f"bf16 step: {n} grad finite")
+  gaps = grad_gaps(grads, plain_grads)
+  own = grad_gaps(plain_grads, f32_grads)  # bf16's own error, plain path
+  kernel_own = grad_gaps(grads, f32_grads)
+  auto_own = grad_gaps(auto_grads, f32_grads)
+  auto_gaps = grad_gaps(grads, auto_grads)
+  worst = (0.0, "")
+  for n, (gap_max, gap_rms) in gaps.items():
+    limit_max = max(BF16_GRAD_MAX_TOLERANCE, 2 * own[n][0])
+    limit_rms = max(BF16_GRAD_RMS_TOLERANCE, 2 * own[n][1])
+    worst = max(worst, (max(gap_max / limit_max, gap_rms / limit_rms), n))
+  check(worst[0] <= 1.0, f"bf16 step, kernels vs plain attention: the "
+        f"gradient of {worst[1]} {gaps[worst[1]]} (max rel, rel RMS) past "
+        f"its limit, {worst[0]:.3g} of it; plain bf16 vs f32 there "
+        f"{own[worst[1]]}")
+
+  def top(g):
+    return (max(v[0] for v in g.values()), max(v[1] for v in g.values()),
+            float(np.median([v[1] for v in g.values()])))
+
+  log(f"  one bf16 step at batch 1 (injected draws, no dropout, L2 loss), "
+      f"on the card: loss kernels {loss:.7g}, their plain versions "
+      f"{plain_loss:.7g} (relative {loss_rel:.3g}, tol "
+      f"{BF16_STEP_LOSS_TOLERANCE}), autograd through the plain forward "
+      f"{auto_loss:.7g}, float32 with the kernels {f32_loss:.7g}")
+  log(f"  gradients, largest max-rel / largest relative RMS / median "
+      f"relative RMS: kernels vs plain versions in bf16 %.3g / %.3g / %.3g; "
+      f"plain versions bf16 vs float32 %.3g / %.3g / %.3g; kernels bf16 vs "
+      f"float32 %.3g / %.3g / %.3g; autograd bf16 vs float32 %.3g / %.3g / "
+      f"%.3g; kernels vs autograd in bf16 %.3g / %.3g / %.3g; the worst "
+      f"gradient ({worst[1]}) at {worst[0]:.3g} of its limit "
+      f"(max({BF16_GRAD_MAX_TOLERANCE}, 2 x the plain bf16 path's own) "
+      f"max-rel, max({BF16_GRAD_RMS_TOLERANCE}, 2 x its own) relative RMS)"
+      % (*top(gaps), *top(own), *top(kernel_own), *top(auto_own),
+         *top(auto_gaps)))
+  return dict(loss_rel=loss_rel, kernel_vs_plain=top(gaps),
+              plain_vs_f32=top(own), kernel_vs_f32=top(kernel_own),
+              autograd_vs_f32=top(auto_own), kernel_vs_autograd=top(auto_gaps),
+              worst_of_limit=worst[0])
+
+
+def set_remat(module, on: bool) -> None:
+  """Turn the network's per-layer remat on or off in place (the encoders'
+  and the decoder's config)."""
+  for part in (module.token_encoder, module.continuous_encoder,
+               module.decoder):
+    part.cfg = dataclasses.replace(part.cfg, remat=on)
+
+
+def remat_check(t, experiment, seed: int) -> dict:
+  """A bf16 step at REMAT_BATCH with dropout, remat on against remat off
+  from the same weights, draws and dropout generator."""
+  batch = trainer.batch_to_device(
+      training_batches(experiment, REMAT_BATCH, 1, seed)[0], "cuda")
+  results = []
+  for on in (True, False):
+    set_remat(t.model.module, on)
+    draws_gen, dropout_gen = trainer.step_generators(seed, 0, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, grads = t.loss_and_grads(batch, dops.generator_draws(draws_gen),
+                                      dropout_gen)
+    results.append((metrics["loss"].item(), grads,
+                    torch.cuda.max_memory_allocated() / 2**30))
+  set_remat(t.model.module, True)
+  (loss_on, g_on, peak_on), (loss_off, g_off, peak_off) = results
+  equal = sum(torch.equal(g_on[n], g_off[n]) for n in g_on)
+  largest = max((g_on[n].float() - g_off[n].float()).abs().max().item()
+                for n in g_on)
+  worst = max(rel_rms(g_on[n], g_off[n]) for n in g_on)
+  check(loss_on == loss_off, f"remat on vs off: loss {loss_on} vs {loss_off}")
+  check(worst <= RESUME_TOLERANCE,
+        f"remat on vs off: a gradient's relative RMS {worst}")
+  log(f"  remat on vs off, bf16 at batch {REMAT_BATCH} with dropout "
+      f"{experiment.dropout_rate}: loss {loss_on:.7g} both; {equal} of "
+      f"{len(g_on)} gradients bitwise equal, largest difference {largest:.3g} "
+      f"(relative RMS at worst {worst:.3g}); peak memory {peak_on:.2f} GiB "
+      f"on, {peak_off:.2f} GiB off")
+  return dict(bitwise_equal=equal, leaves=len(g_on), largest_diff=largest,
+              peak_gib_on=peak_on, peak_gib_off=peak_off)
+
+
+def cli_train_phase(card: str, seed: int) -> dict:
+  """cli/train.py with --remat, --eval_batches, --eval_period and
+  --cache_root at a batch that could not fit without remat, float32."""
+  from music_spectrogram_diffusion_tpu_torch.data import cache as cache_lib
+  model_dir = os.path.join("out", "chip_smoke_train_cli")
+  cache_root = os.path.join("out", "chip_smoke_cache")
+  for d in (model_dir, cache_root):
+    shutil.rmtree(d, ignore_errors=True)
+  argv = ["--synthetic", "--preset", "context_base", "--remat", "--batch",
+          str(CLI_BATCH), "--steps", "2", "--eval_batches", "2",
+          "--eval_period", "2", "--cache_root", cache_root, "--model_dir",
+          model_dir, "--log_period", "1", "--seed", str(seed),
+          "--synthetic_examples", str(TRAIN_SONGS), "--device", "cuda"]
+  reads, read_cache = [], cache_lib.read_cache
+
+  def counted_read(cache_dir):
+    reads.append(os.path.basename(cache_dir))
+    return read_cache(cache_dir)
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  cache_lib.read_cache = counted_read
+  t0 = time.perf_counter()
+  try:
+    state, t = train_cli.main(argv)
+  finally:
+    cache_lib.read_cache = read_cache
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  check(state.step == 2, f"the CLI trained {state.step} steps")
+  del t
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    lines = [json.loads(l) for l in f]
+  evals = [m for m in lines if "eval/loss" in m]
+  check(len(evals) == 1 and evals[0]["step"] == 2
+        and np.isfinite(evals[0]["eval/loss"]),
+        f"eval lines {evals}")
+  train_lines = [m for m in lines if "loss" in m]
+  for m in train_lines:
+    check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+          f"CLI step {m['step']}: loss {m['loss']}")
+  built = sorted(os.listdir(cache_root))
+  check(len(built) == 2 and all(cache_lib.cache_exists(
+      os.path.join(cache_root, d)) for d in built), f"caches {built}")
+  check(sorted(set(reads)) == built, f"caches read {reads}, built {built}")
+  calls = attention_calls_per_step(training_experiment())
+  # 2 steps of the forward, its recompute and the backward; the eval pass's
+  # 2 batches of the forward.
+  check(launches == (2 * 2 * calls + 2 * calls, 2 * calls),
+        f"the CLI launched flash_fwd {launches[0]} and flash_bwd "
+        f"{launches[1]} times, expected {6 * calls} and {2 * calls}")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  log(f"  batch {CLI_BATCH}, float32, remat: losses "
+      f"{[round(m['loss'], 3) for m in train_lines]}, eval/loss "
+      f"{evals[0]['eval/loss']:.6g} at step 2; caches built and read: "
+      f"{', '.join(built)}; launches flash_fwd {launches[0]}, flash_bwd "
+      f"{launches[1]}")
+  log(f"  [{card}] {train_lines[-1]['timing/seconds_per_step']:.3f} s for "
+      f"step 2, peak memory {peak:.2f} GiB; {wall:.2f} s in all (model, "
+      f"caches, data, steps, eval, checkpoint)")
+  return dict(launches=launches, peak_gib=peak, wall_s=wall,
+              eval_loss=evals[0]["eval/loss"],
+              seconds_per_step=train_lines[-1]["timing/seconds_per_step"])
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -1633,11 +2099,15 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  _build.build("flash_fwd", "qmm", "flash_bwd")  # 3 nvcc processes at once
+  # 4 nvcc processes at once: the three kernels, and phase 19's fault.
+  fault_build = start_fault_build(os.path.join("out", "chip_smoke_fault"))
+  _build.build("flash_fwd", "qmm", "flash_bwd")
   attention._library("flash_fwd")
   attention._library("flash_bwd")
   quantize._library()
-  log(f"phase 2 build: flash_fwd.cu, qmm.cu and flash_bwd.cu with nvcc "
+  fault_lib = finish_fault_build(fault_build)
+  log(f"phase 2 build: flash_fwd.cu, qmm.cu and flash_bwd.cu with nvcc, "
+      f"and flash_bwd.cu with phase 19's planted fault "
       f"({time.perf_counter() - t0:.2f} s)")
   for name in ("flash_fwd", "qmm", "flash_bwd"):
     usage = ptxas_usage(name)
@@ -1744,6 +2214,25 @@ def main() -> int:
   log(f"phase 18 SoundStream at full width, card vs CPU "
       f"({time.perf_counter() - t0:.2f} s)")
 
+  t0 = time.perf_counter()
+  bwd_bf16_rows = bwd_bf16_phase(gen, TRAIN_BATCH, fault_lib)
+  log(f"phase 19 attention backward kernel in bf16 vs plain: "
+      f"{len(bwd_bf16_rows)} shapes passed ({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  bf16_launches, bf16_summary = bf16_train_phase(args.seed, card,
+                                                 train_summary["peak_gib"])
+  log(f"phase 20 main path, training bfloat16 with remat through "
+      f"build_model, Trainer and TrainLoop ({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  cli_train = cli_train_phase(card, args.seed)
+  log(f"phase 21 main path, cli/train.py --remat --eval_batches "
+      f"--eval_period --cache_root at batch {CLI_BATCH} "
+      f"({time.perf_counter() - t0:.2f} s)")
+
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
@@ -1758,12 +2247,15 @@ def main() -> int:
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_fwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:441",
       "launches": (f32_launches + int8_launches[0] + train_launches[0]
-                   + stream_launches[0] + cli_launches),
+                   + stream_launches[0] + cli_launches + bf16_launches[0]
+                   + cli_train["launches"][0]),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
                            "training": train_launches[0],
                            "int8_streamed": stream_launches[0],
-                           "cli_float32": cli_launches},
+                           "cli_float32": cli_launches,
+                           "training_bf16_remat": bf16_launches[0],
+                           "cli_training_remat": cli_train["launches"][0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -1795,7 +2287,11 @@ def main() -> int:
       "route": "cuda",
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_bwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:708",
-      "launches": train_launches[1],
+      "launches": (train_launches[1] + bf16_launches[1]
+                   + cli_train["launches"][1]),
+      "launches_by_path": {"training": train_launches[1],
+                           "training_bf16_remat": bf16_launches[1],
+                           "cli_training_remat": cli_train["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
       "ms": total("ms", bwd_rows),
       "plain_ms": total("plain_ms", bwd_rows),
@@ -1806,6 +2302,19 @@ def main() -> int:
       "per_shape": bwd_rows,
       "training": dict(train_summary, step_check=step_check,
                        resume=resume),
+      # The bf16 configuration (phases 19-20), summed as above.
+      "bf16": {"launches": bf16_launches[1],
+               "max_abs_err": max(r["max_abs_err"] for r in bwd_bf16_rows),
+               "ms": total("ms", bwd_bf16_rows),
+               "plain_ms": total("plain_ms", bwd_bf16_rows),
+               "bound_ms": total("bound_ms", bwd_bf16_rows),
+               "bound_by": "operations" if all(
+                   r["bound_by"] == "operations" for r in bwd_bf16_rows)
+               else "bytes",
+               "library_ms": total("library_ms", bwd_bf16_rows),
+               "per_shape": bwd_bf16_rows,
+               "training": bf16_summary},
+      "cli_training_remat": cli_train,
   }]}
   log("vocoder " + json.dumps(dict(vocoder_summary, quality=quality,
                                    soundstream=soundstream,

@@ -75,7 +75,8 @@ def network_config(size: str = "base",
                    with_context: bool = True,
                    vocab_size: Optional[int] = None,
                    dtype: str = "float32",
-                   dropout_rate: float = 0.1) -> network.NetworkConfig:
+                   dropout_rate: float = 0.1,
+                   remat: bool = False) -> network.NetworkConfig:
   """The transformer config for a model size."""
   if size not in _SIZES:
     raise ValueError(f"Unknown size {size!r}; have {sorted(_SIZES)}")
@@ -87,6 +88,7 @@ def network_config(size: str = "base",
       cross_attend_style="concat_encodings",
       position_encoding="fixed_permuted_offset",
       context_positions=("terminal_relative" if with_context else "regular"),
+      remat=remat,
       **_SIZES[size])
 
 
@@ -129,7 +131,7 @@ class ExperimentConfig:
       vocab_size = default_vocab_size(self.num_velocity_bins)
     return network_config(self.size, with_context=self.with_context,
                           vocab_size=vocab_size, dtype=self.dtype,
-                          dropout_rate=self.dropout_rate)
+                          dropout_rate=self.dropout_rate, remat=self.remat)
 
   def to_json(self) -> str:
     def default(o: Any):

@@ -1,16 +1,20 @@
 """The synthetic training task, named as the JAX package names it.
 
 `synthetic_cached_task` of music_spectrogram_diffusion_tpu/data/registry.py,
-copied without its offline cache (the port has no `cache_root`): the task's
-name encodes everything that changes the tokenized bytes, so a name means
-one dataset in both packages.
+copied: the task's name encodes everything that changes the tokenized
+bytes, so a name means one dataset in both packages, and with `cache_root`
+the task's offline cache lives in `<cache_root>/<name>`, where the JAX
+package puts it (a cache either package built serves the other).
 """
 
 from __future__ import annotations
 
 import functools
+import os
+from typing import Optional
 
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
+from music_spectrogram_diffusion_tpu_torch.data import cache as cache_lib
 from music_spectrogram_diffusion_tpu_torch.data import synthetic
 from music_spectrogram_diffusion_tpu_torch.data import tasks
 from music_spectrogram_diffusion_tpu_torch.midi import vocabularies
@@ -26,8 +30,11 @@ def synthetic_cached_task(prefix: str, *,
                           duration: float = 12.0,
                           seed: int = 0,
                           timbre: str = "sine",
-                          drum_fraction: float = 0.0) -> tasks.Task:
-  """Synthetic-source Task of the context model (seeds [seed, seed + N))."""
+                          drum_fraction: float = 0.0,
+                          cache_root: Optional[str] = None) -> tasks.Task:
+  """Synthetic-source Task of the context model (seeds [seed, seed + N)).
+  With `cache_root`, the task reads its cache there, built first if it is
+  not there yet."""
   if not with_context:
     raise NotImplementedError(
         "the port trains the context model only (with_context=True)")
@@ -48,8 +55,9 @@ def synthetic_cached_task(prefix: str, *,
     sig.append(timbre)
   if drum_fraction:
     sig.append(f"dr{drum_fraction:g}")
-  return tasks.Task(
-      name="_".join(sig),
+  name = "_".join(sig)
+  task = tasks.Task(
+      name=name,
       source_fn=functools.partial(synthetic.synthetic_source,
                                   num_examples, duration=duration,
                                   seed=seed, timbre=timbre,
@@ -58,3 +66,10 @@ def synthetic_cached_task(prefix: str, *,
       vocab_config=vocab_config,
       note_rep=note_rep,
       program_granularity=program_granularity)
+  if cache_root:
+    cache_dir = os.path.join(cache_root, name)
+    if not cache_lib.cache_exists(cache_dir):
+      print(f"building synthetic cache {name}: "
+            f"{task.build_cache(cache_dir)}")
+    task.cache_dir = cache_dir
+  return task

@@ -2,13 +2,13 @@
 batch.
 
 The training half of music_spectrogram_diffusion_tpu/data/tasks.py, copied
-(`Task.tokenized`, `train_dataset`, `_finalize`, `model_dataset`) without
-the offline tokenization cache, the full-song eval split and the
-mixtures:
+(`Task.tokenized`, `build_cache`, `train_dataset`, `_finalize`,
+`model_dataset`) without the full-song eval split and the mixtures:
 
-  pre-split:  tokenize -> rekey (transcription->synthesis) -> split into
-              <=2000-frame chunks
-  post-split: random-chunk-with-context -> slice events + tie prefix ->
+  pre-cache:  tokenize -> rekey (transcription->synthesis) -> split into
+              <=2000-frame chunks (written once to the offline cache,
+              `data/cache.py`, when the task has a `cache_dir`)
+  post-cache: random-chunk-with-context -> slice events + tie prefix ->
               program map -> RLE shifts -> mel encode -> length guard ->
               vocab encode + EOS
 """
@@ -16,9 +16,10 @@ mixtures:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional
 
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
+from music_spectrogram_diffusion_tpu_torch.data import cache as cache_lib
 from music_spectrogram_diffusion_tpu_torch.data import core
 from music_spectrogram_diffusion_tpu_torch.data import feature_converters
 from music_spectrogram_diffusion_tpu_torch.data import preprocessors
@@ -42,13 +43,36 @@ class Task:
   vocab_config: vocabularies.VocabularyConfig
   note_rep: NoteRepresentationConfig
   program_granularity: str = "full"
+  # The directory of the offline tokenization cache (reference
+  # CacheDatasetPlaceholder, tasks.py:38,325): once the cache exists there,
+  # `tokenized()` streams it instead of tokenizing the songs every epoch.
+  cache_dir: Optional[str] = None
 
   def __post_init__(self):
     self.codec = vocabularies.build_codec(self.vocab_config)
     self.vocabulary = vocabularies.vocabulary_from_codec(self.codec)
 
   def tokenized(self) -> core.Dataset:
-    """tokenize -> rekey -> split into <= MAX_NUM_CACHED_FRAMES chunks."""
+    """tokenize -> rekey -> split into <= MAX_NUM_CACHED_FRAMES chunks, or
+    those chunks read back from the cache when one was built."""
+    if cache_lib.cache_exists(self.cache_dir):
+      return cache_lib.read_cache(self.cache_dir)
+    return self._tokenized_fresh()
+
+  def build_cache(self, cache_dir: Optional[str] = None,
+                  examples_per_shard: int = 128):
+    """Write tokenize -> rekey -> split to TFRecord shards under
+    `cache_dir` (or the task's), which the task reads from then on.
+    Returns {'num_examples', 'num_shards'}."""
+    cache_dir = cache_dir or self.cache_dir
+    if not cache_dir:
+      raise ValueError(f"task {self.name}: no cache_dir given")
+    self.cache_dir = cache_dir
+    # Always tokenize anew for the write (never read a stale cache).
+    return cache_lib.write_cache(self._tokenized_fresh(), cache_dir,
+                                 examples_per_shard=examples_per_shard)
+
+  def _tokenized_fresh(self) -> core.Dataset:
     def tokenize(ex):
       return preprocessors.tokenize_example(
           ns=ex["sequence"], samples=ex["audio"],

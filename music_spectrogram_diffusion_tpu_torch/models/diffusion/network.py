@@ -15,7 +15,10 @@ convert.py).
 Training: every forward takes an optional `generator`; with one, dropout
 runs at the JAX module's sites (rate `dropout_rate`), with the same
 broadcast over the length axis where JAX has it. Without one the forward
-is deterministic. `remat` is not ported.
+is deterministic. With `remat` every encoder and decoder layer is
+rematerialized in grad mode, as JAX's `nn.remat` of each layer
+(`_run_layer`): its activations are recomputed in the backward pass, with
+the same dropout masks.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from music_spectrogram_diffusion_tpu_torch.models import layers
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
@@ -59,6 +63,8 @@ class NetworkConfig:
   max_context_length: int = 256
   max_target_length: int = 256
   output_dim: int = 128
+  # Per-layer rematerialization in grad mode (training); serving ignores it.
+  remat: bool = False
 
 
 def sequence_length_from_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -101,6 +107,39 @@ def _dropout(x, rate, generator, broadcast: bool = True):
   `broadcast` is False."""
   return layers.dropout(x, rate, generator,
                         broadcast_dims=(-2,) if broadcast else ())
+
+
+def _run_layer(layer: nn.Module, remat: bool,
+               generator: Optional[torch.Generator], *args):
+  """layer(*args, generator), rematerialized when `remat` and grad mode is
+  on: the layer's activations are not kept, and its forward runs again in
+  the backward pass (torch.utils.checkpoint, non-reentrant, so the rerun
+  sees grad mode on and attention takes the same differentiable path).
+
+  Dropout draws from `generator`, which checkpoint's RNG stashing does not
+  cover. So the layer runs, both times, from a generator restored to the
+  state `generator` had before it, and `generator` then takes the state the
+  first run left: the masks of the rerun are the first run's, and
+  `generator` advances as it does without remat, so remat on and off give
+  the same masks (as JAX's nn.remat, which replays the layer's key).
+  """
+  if not (remat and torch.is_grad_enabled()):
+    return layer(*args, generator)
+  if generator is None:
+    return checkpoint.checkpoint(layer, *args, None, use_reentrant=False)
+  start, after = generator.get_state(), []
+
+  def run(*inputs):
+    replay = torch.Generator(device=generator.device)
+    replay.set_state(start)
+    out = layer(*inputs, replay)
+    if not after:  # the first run; the rerun draws the same
+      after.append(replay.get_state())
+    return out
+
+  out = checkpoint.checkpoint(run, *args, use_reentrant=False)
+  generator.set_state(after[0])
+  return out
 
 
 def _init_children(module: nn.Module, generator: torch.Generator):
@@ -156,7 +195,7 @@ class _Encoder(nn.Module):
     rate = self.cfg.dropout_rate
     x = _dropout(x, rate, generator).to(self.cfg.dtype)
     for layer in self.layers:
-      x = layer(x, mask, generator)
+      x = _run_layer(layer, self.cfg.remat, generator, x, mask)
     return _dropout(self.encoder_norm(x), rate, generator,
                     broadcast=False), mask
 
@@ -354,9 +393,10 @@ class Decoder(nn.Module):
          self.position_encoder(positions)[None])
     y = _dropout(y, cfg.dropout_rate, generator).to(cfg.dtype)
     for i, lyr in enumerate(self.layers):
-      y = lyr(y, encodings_and_masks, conditioning,
-              cross_kv[i] if cross_kv is not None else None, cond_rows,
-              generator)
+      y = _run_layer(lyr, cfg.remat, generator, y, encodings_and_masks,
+                     conditioning,
+                     cross_kv[i] if cross_kv is not None else None,
+                     cond_rows)
     y = _dropout(self.decoder_norm(y), cfg.dropout_rate, generator)
     return self.spec_out_dense(y)
 

@@ -20,9 +20,11 @@ plain version).
 the JAX package's `flash_attention_diff`: its forward is the forward kernel,
 which also writes each row's softmax max and sum, and its backward
 `flash_attention_bwd` launches `csrc/flash_bwd.cu` (TPU kernel
-`_flash_bwd_pallas`). On CPU tensors it is autograd through
-`attention_reference`, and `flash_attention_bwd` runs
-`flash_attention_bwd_reference`.
+`_flash_bwd_pallas`), in float32 or bfloat16. On CPU tensors
+`flash_attention_bwd` runs `flash_attention_bwd_reference`, and
+`flash_attention_diff` is autograd through `attention_reference` in
+float32 and, in bfloat16, the plain versions of both kernels (so that p and
+dS round to bf16 where the kernel rounds them).
 """
 
 from __future__ import annotations
@@ -316,10 +318,15 @@ def flash_attention_bwd_reference(query, key, value, bias, kv_mask, out,
                                   einsum=torch.einsum):
   """The plain version of `flash_attention_bwd`, with the kernel's
   arithmetic: p = exp(s - m) / l from the forward's statistics,
-  delta = rowsum(dO out), dS = p (dP - delta); dV = p^T dO, dK = dS^T q,
-  dQ = dS k. `einsum` takes the five products (`einsum_3xtf32`: as the
-  kernel does). Returns (dq, dk, dv) in f32, in the layouts of q and k/v."""
+  delta = rowsum(dO out) in f32, dS = p (dP - delta); dV = p^T dO,
+  dK = dS^T q, dQ = dS k. `einsum` takes the five products
+  (`einsum_3xtf32`: as the kernel's f32 route does). On bfloat16 inputs p
+  and dS are rounded to bf16 before the products that use them, as the
+  kernel (and the TPU kernel with mxu_bf16) rounds them; every product
+  sums in f32. Returns (dq, dk, dv) in the inputs' dtype, each rounded
+  once at the end, in the layouts of q and k/v."""
   k_sub = "bhkd" if kv_transposed else "bkhd"
+  low = query.dtype == torch.bfloat16
   m, l = stats[0], stats[1]
   p = torch.exp(_scores(query, key, bias, kv_mask, kv_transposed, einsum)
                 - m[..., None]) / l[..., None]
@@ -327,28 +334,33 @@ def flash_attention_bwd_reference(query, key, value, bias, kv_mask, out,
   delta = torch.einsum("bqhd,bqhd->bhq", do, out.float())
   dp = einsum(f"bqhd,{k_sub}->bhqk", do, value.float())
   ds = p * (dp - delta[..., None])
+  if low:
+    p = p.to(torch.bfloat16).float()
+    ds = ds.to(torch.bfloat16).float()
   dv = einsum(f"bhqk,bqhd->{k_sub}", p, do)
   dk = einsum(f"bhqk,bqhd->{k_sub}", ds, query.float())
   dq = einsum(f"bhqk,{k_sub}->bqhd", ds, key.float())
-  return dq, dk, dv
+  return dq.to(query.dtype), dk.to(key.dtype), dv.to(value.dtype)
 
 
 def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
                         *, kv_transposed: bool = False):
   """dQ, dK, dV of `flash_attention` from its output and statistics.
 
-  Args as `flash_attention` (float32 only), plus `out` (its output),
-  `stats` (f32 [2, b, h, q] from `return_stats`) and `dout` (the output's
-  gradient). Bias and mask get no gradient. On CUDA tensors it launches
-  `csrc/flash_bwd.cu` (counted in `flash_attention_bwd.launches`); on CPU
-  tensors it runs `flash_attention_bwd_reference`. Returns f32 (dq, dk, dv)
-  in the layouts of q and k/v.
+  Args as `flash_attention` (float32 or bfloat16), plus `out` (its
+  output), `stats` (f32 [2, b, h, q] from `return_stats`) and `dout` (the
+  output's gradient); q, k, v, out and dout all of one dtype. Bias and mask
+  get no gradient. On CUDA tensors it launches `csrc/flash_bwd.cu`
+  (counted in `flash_attention_bwd.launches`); on CPU tensors it runs
+  `flash_attention_bwd_reference`. Returns (dq, dk, dv) in the inputs'
+  dtype, in the layouts of q and k/v.
   """
   kv_len = _check(query, key, value, bias, kv_mask, kv_transposed)
   batch, q_len, heads, head_dim = query.shape
-  for name, t in (("query", query), ("out", out), ("dout", dout)):
-    if t.dtype != torch.float32:
-      raise TypeError(f"flash_attention_bwd takes float32, {name} is "
+  for name, t in (("out", out), ("dout", dout)):
+    if t.dtype != query.dtype:
+      raise TypeError(f"flash_attention_bwd takes one dtype for q, k, v, "
+                      f"out and dout: q is {query.dtype}, {name} is "
                       f"{t.dtype}")
   for name, t, shape in (("out", out, query.shape),
                          ("dout", dout, query.shape),
@@ -366,9 +378,10 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
                                          kv_transposed=kv_transposed)
   _check_cuda(query, "flash_attention_bwd")
   lib = _library("flash_bwd")
-  # delta = rowsum(dO out), [b, h, q]: computed outside the kernel, as the
-  # JAX package does.
-  delta = torch.einsum("bqhd,bqhd->bhq", dout, out).contiguous()
+  # delta = rowsum(dO out), f32 [b, h, q]: computed outside the kernel, as
+  # the JAX package does, and summed in f32 whatever the inputs' dtype.
+  delta = torch.einsum("bqhd,bqhd->bhq", dout.float(),
+                       out.float()).contiguous()
   dq = torch.empty_like(query)
   dk = torch.empty_like(key)
   dv = torch.empty_like(value)
@@ -379,7 +392,7 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
       stats.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
       dk.data_ptr(), dv.data_ptr(), batch, heads, q_len, kv_len, head_dim,
       int(kv_transposed), bias.shape[1] if bias is not None else 1,
-      _stream(query))
+      _DTYPE_CODES[query.dtype], _stream(query))
   _raise_on(lib, err, "flash_bwd")
   flash_attention_bwd.launches += 1
   return dq, dk, dv
@@ -424,17 +437,18 @@ def flash_attention_diff(query: torch.Tensor,
   pattern) composes from outside: scale the value rows by keep / (1 - rate)
   before the call, which equals dropping the normalized weights.
 
-  On CUDA tensors (float32) the forward and backward kernels run; on CPU
-  tensors it is autograd through `attention_reference`.
+  q, k and v are float32 or bfloat16, of one dtype; the gradients come in
+  it. On CUDA tensors the forward and backward kernels run. On CPU tensors
+  float32 is autograd through `attention_reference`, and bfloat16 runs the
+  kernels' plain versions (the backward rounds p and dS to bf16 as the
+  kernel does, which autograd through the f32 reference would not).
   """
   _check(query, key, value, bias, kv_mask, kv_transposed)
-  if query.device.type == "cpu":
+  if query.device.type == "cpu" and query.dtype == torch.float32:
     return attention_reference(query, key, value, bias, kv_mask,
                                kv_transposed=kv_transposed)
-  _check_cuda(query, "flash_attention_diff")
-  if query.dtype != torch.float32:
-    raise TypeError(f"flash_attention_diff on cuda takes float32 (the "
-                    f"backward kernel's type), got {query.dtype}")
+  if query.device.type != "cpu":
+    _check_cuda(query, "flash_attention_diff")
   return _FlashAttentionFn.apply(query, key, value, bias, kv_mask,
                                  kv_transposed)
 
@@ -463,7 +477,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
 # Pointer arguments, then int arguments, of each kernel's C entry (the
 # stream is the last pointer).
 _SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 9, 10),
-               "flash_bwd": ("msd_flash_bwd", 11, 7)}
+               "flash_bwd": ("msd_flash_bwd", 11, 8)}
 
 
 def _library(name: str) -> ctypes.CDLL:

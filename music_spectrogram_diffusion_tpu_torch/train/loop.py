@@ -2,9 +2,10 @@
 
 Port of music_spectrogram_diffusion_tpu/train/loop.py on one process:
 checkpoint every `checkpoint_period` steps and at the end, log the loss
-and throughput metrics every `log_period` steps, and resume the full state
-(parameters, optimizer state and step) from the latest checkpoint. The
-held-out eval pass is not ported.
+and throughput metrics every `log_period` steps, run the held-out eval
+pass (`eval_fn`, if given) every `eval_period` steps and log its metrics as
+`eval/<name>`, and resume the full state (parameters, optimizer state and
+step) from the latest checkpoint.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -61,6 +62,9 @@ class TrainLoop:
   experiment: cfg_lib.ExperimentConfig
   model_dir: str
   log_period: int = 100
+  # The held-out eval pass: the train state in, scalar metrics out.
+  eval_fn: Optional[Callable[[trainer_lib.TrainState],
+                             Dict[str, float]]] = None
 
   def maybe_resume(self, state: trainer_lib.TrainState
                    ) -> trainer_lib.TrainState:
@@ -121,6 +125,10 @@ class TrainLoop:
             opt_state=state.opt_state,
             config_json=self.experiment.to_json())
         print(f"saved checkpoint: {path}")
+
+      if self.eval_fn is not None and step % train_cfg.eval_period == 0:
+        logger.write(step, {f"eval/{k}": v
+                            for k, v in self.eval_fn(state).items()})
 
     logger.close()
     return state

@@ -9,10 +9,13 @@ warmup-constant LR and, with microbatches, `optax.MultiSteps`. `Adafactor`
 and `MultiSteps` below compute what those do, step for step;
 `torch.optim.Adafactor` is another algorithm (its defaults differ).
 
-Parameters live in the model's module; the optimizer works on a dict of
-its trainable parameters by name. A step's randomness (the diffusion
-draws and dropout) is seeded from (seed, step), as JAX folds the step into
-its key, so a resumed run reproduces the steps it continues.
+Parameters live in the model's module, in float32 whatever the
+experiment's compute dtype (bfloat16 training casts them where they are
+used, as Flax's param_dtype); the optimizer works on a dict of its
+trainable parameters by name. A step's randomness (the diffusion draws and
+dropout) is seeded from (seed, step), as JAX folds the step into its key,
+so a resumed run reproduces the steps it continues. `Trainer.eval_step`
+is JAX's deterministic eval pass.
 """
 
 from __future__ import annotations
@@ -171,22 +174,26 @@ def make_optimizer(train_cfg: cfg_lib.TrainConfig):
 def build_model(experiment: cfg_lib.ExperimentConfig, *, seed: int = 0,
                 device="cuda") -> diffusion_model.ContextDiffusionModel:
   """The context model to train, with random weights from `seed`, on
-  `device` (which must exist: 'cuda' without a card raises)."""
+  `device` (which must exist: 'cuda' without a card raises).
+
+  It computes in the experiment's dtype ('float32' or 'bfloat16') with
+  float32 parameters, and rematerializes every layer when
+  `experiment.remat` (e.g. `dataclasses.replace(experiment,
+  dtype="bfloat16", remat=True)`)."""
   if experiment.model_family != "diffusion" or not experiment.with_context:
     raise NotImplementedError(
         f"{experiment.model_family} (with_context={experiment.with_context})"
         " is not ported; the port trains the context diffusion family")
-  if experiment.dtype != "float32":
-    raise NotImplementedError(
-        f"training in {experiment.dtype} is not ported; the port trains in "
-        "float32")
-  if experiment.remat:
-    raise NotImplementedError("remat is not ported")
   dev = inference.resolve_device(device)
   module = diffusion_network.ContextTransformer(experiment.network())
   return diffusion_model.ContextDiffusionModel(
       module.to(dev).train(), experiment.diffusion,
       codecs.get_codec(experiment.codec_name)).init(seed)
+
+
+# The eval pass's draws (eps, time, the condition drop): one fixed
+# generator seed, so every eval of a batch sees the same draws.
+EVAL_DRAWS_SEED = 0
 
 
 @dataclasses.dataclass
@@ -249,6 +256,18 @@ class Trainer:
     for p in self.params.values():
       p.grad = None
     return metrics, grads
+
+  @torch.no_grad()
+  def eval_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The loss_fn's metrics of one batch with no dropout and fixed draws,
+    the JAX package's `loss_fn(params, batch, None)` ("dropout_rng=None
+    means a deterministic eval pass"). The draws come from a generator
+    seeded EVAL_DRAWS_SEED on the model's device, the same at every call;
+    they are not JAX's threefry draws for its PRNGKey(0)."""
+    batch = batch_to_device(batch, self.device)
+    draws = torch.Generator(device=self.device).manual_seed(EVAL_DRAWS_SEED)
+    _, metrics = self.model.loss_fn(batch, dops.generator_draws(draws), None)
+    return metrics
 
   def train_step(self, state: TrainState, batch: Mapping[str, Any],
                  seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

@@ -1,7 +1,7 @@
 """The port's flash-attention gradients against the JAX package's.
 
-On the CPU `flash_attention_diff` is autograd through the plain version,
-and `flash_attention_bwd` runs `flash_attention_bwd_reference`, the plain
+On the CPU `flash_attention_diff` in float32 is autograd through the plain
+version, and `flash_attention_bwd` runs `flash_attention_bwd_reference`, the plain
 version of the backward kernel's arithmetic (p rebuilt from the forward's
 row max and sum). Both are held against `jax.grad` of the JAX package's
 `attention_reference` and against its fused `flash_attention_diff` (Pallas
@@ -214,10 +214,16 @@ def test_bwd_refuses_what_the_kernel_does_not_take():
   q = torch.zeros(1, 4, 2, 8)
   kv = torch.zeros(1, 6, 2, 8)
   stats = torch.ones(2, 1, 2, 4)
-  with pytest.raises(TypeError, match="float32"):
+  # One dtype for q, k, v, out and dout (float32 or bfloat16).
+  with pytest.raises(TypeError, match="one dtype"):
     attention.flash_attention_bwd(q.bfloat16(), kv.bfloat16(), kv.bfloat16(),
-                                  None, None, q.bfloat16(), stats,
+                                  None, None, q, stats, q.bfloat16())
+  with pytest.raises(TypeError, match="one dtype"):
+    attention.flash_attention_bwd(q, kv, kv, None, None, q, stats,
                                   q.bfloat16())
+  with pytest.raises(TypeError, match="dtypes differ"):
+    attention.flash_attention_bwd(q, kv.bfloat16(), kv, None, None, q, stats,
+                                  q)
   with pytest.raises(ValueError, match="stats"):
     attention.flash_attention_bwd(q, kv, kv, None, None, q, stats[:, :, :1],
                                   q)
