@@ -93,9 +93,31 @@ Phases, each printed on its own line with its seconds:
               largest gradient difference);
  21. main     cli/train.py --remat --eval_batches 2 --eval_period 2
               --cache_root at batch 64 in float32 (2 steps): eval/loss
-              logged, both caches built and read, peak memory.
-Then the vocoder phases' numbers as one JSON line, one JSON line of the
-kernels, the nvidia-smi line again, and last
+              logged, both caches built and read, peak memory;
+ 22. kernel   the attention kernels at the shapes only the notes-only and
+              autoregressive families run (phase 3's and phase 10's checks):
+              the forward at 256x2048 with a key mask (cached K/V) and at
+              an unmasked 2048x2048, at b=2 and b=1, in float32 and bf16;
+              the float32 backward at both shapes at batch 8;
+ 23. main     notes-only diffusion_base in int8 (bf16 network) renders
+              phase 7's MIDI file, 3 independent segments, with the serving
+              sampler and the trained vocoder: both kernels' launch counts
+              must match the config's; s per segment, realtime factor; one
+              float32 decoder step, card vs CPU;
+ 24. main     ar_base in int8 (bf16 network) generates the song's first 2
+              segments, 256 frames each by the cached decode, vocoded by
+              the trained vocoder: the int8 GEMM against its plain version
+              at the decode steps' one-row shapes, both kernels' launch
+              counts against the config's, s per segment and frames/s; the
+              generated frames fed back through the teacher-forced forward
+              reproduce the cached outputs; in float32 the encoder and the
+              first 8 decode steps, card vs CPU;
+ 25. main     cli/train.py --synthetic --preset diffusion_base and --preset
+              ar_base, batch 8, 3 steps each, float32: finite losses, s per
+              step, peak memory, both attention kernels' launch counts.
+Then the vocoder phases' numbers as one JSON line, the families' phases'
+as another, one JSON line of the kernels, the nvidia-smi line again, and
+last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
 """
@@ -161,6 +183,17 @@ SHAPES = (
     ("context_self_256x256", 256, 256, True, False),
     ("decoder_self_256x256", 256, 256, False, False),
     ("cross_256x2304", 256, 2304, True, True),
+)
+# The attention shapes that only the notes-only and autoregressive families
+# run: the notes-only cross-attention over 2048 token keys (cached K/V when
+# serving), and the autoregressive encoder's self-attention, whose mask is
+# all ones (padding attended, as the reference). The autoregressive
+# cross-attention of its teacher-forced pass and of training is the first
+# shape over K/V in [b, l, h, d]; phase 22 runs the forward with cached
+# K/V and the backward with uncached.
+FAMILY_SHAPES = (
+    ("notes_cross_256x2048", 256, 2048, True, True),
+    ("ar_encoder_self_2048x2048_unmasked", 2048, 2048, False, False),
 )
 RUNS = ((2, torch.float32), (2, torch.bfloat16), (1, torch.float32),
         (1, torch.bfloat16))
@@ -369,10 +402,10 @@ def fwd_tolerance(dtype, plain) -> float:
   return TOLERANCE[dtype] * scale
 
 
-def kernel_phase(gen, stream):
+def kernel_phase(gen, stream, shapes=SHAPES):
   rows = []
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  for name, q_len, kv_len, masked, transposed in SHAPES:
+  for name, q_len, kv_len, masked, transposed in shapes:
     for batch, dtype in RUNS:
       q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked,
                                        transposed, dtype, gen)
@@ -604,15 +637,17 @@ def qmm_shapes(experiment, l_in: int) -> list:
   def add(m, k, n, dtype, count, what):
     rows.append((m, k, n, dtype, count, what))
 
-  for m, stack in ((l_in, "token encoder"), (tl.targets_context,
-                                              "context encoder")):
+  stacks = [(l_in, "token encoder")]
+  if experiment.with_context:
+    stacks.append((tl.targets_context, "context encoder"))
+  for m, stack in stacks:
     layers_ = net.num_encoder_layers
     add(m, e, hd, bf16, 3 * layers_, f"{stack} q/k/v")
     add(m, hd, e, bf16, layers_, f"{stack} attention out")
     add(m, e, f, bf16, n_wi * layers_, f"{stack} mlp wi")
     add(m, f, e, bf16, layers_, f"{stack} mlp wo")
-  add(l_in + tl.targets_context, e, hd, bf16, 2 * net.num_decoder_layers,
-      "cross K/V (once a segment)")
+  add(l_in + (tl.targets_context if experiment.with_context else 0), e, hd,
+      bf16, 2 * net.num_decoder_layers, "cross K/V (once a segment)")
   t, dec = tl.targets, net.num_decoder_layers
   for rows_, steps in zip((2, 1), guided_steps(experiment)):
     tag = "CFG pair" if rows_ == 2 else "cond row"
@@ -625,6 +660,12 @@ def qmm_shapes(experiment, l_in: int) -> list:
     add(rows_, c, 2 * e, f32, 2 * dec * steps, f"FiLM, {tag} (f32)")
     add(rows_, e, c, bf16, steps, f"time_emb_dense0, {tag}")
     add(rows_, c, c, bf16, steps, f"time_emb_dense1, {tag}")
+  return merge_qmm_rows(rows)
+
+
+def merge_qmm_rows(rows) -> list:
+  """One row per distinct (M, K, N, dtype), its launches summed, largest M
+  first; every shape must be one quantize_params quantizes."""
   merged = {}
   for m, k, n, dtype, count, what in rows:
     if count == 0:
@@ -791,28 +832,41 @@ def attention_ms_per_segment(rows, experiment, dtype: str) -> dict:
   net = experiment.network()
   sampler = experiment.diffusion.sampler
   paired, single = guided_steps(experiment)
+  context = experiment.with_context
   return {
       "encoders": net.num_encoder_layers * (
-          ms["encoder_self_2048x2048", 1] + ms["context_self_256x256", 1]),
+          ms["encoder_self_2048x2048", 1]
+          + (ms["context_self_256x256", 1] if context else 0.0)),
       "decoder_self": net.num_decoder_layers * (
           paired * ms["decoder_self_256x256", 2]
           + single * ms["decoder_self_256x256", 1]),
       "cross": net.num_decoder_layers * sampler.num_steps
-               * ms["cross_256x2304", 1],
+               * ms["cross_256x2304" if context else "notes_cross_256x2048",
+                    1],
   }
 
 
-def serving_experiment():
+def qmm_ms_per_segment(qmm_rows, shapes) -> float:
+  """Kernel #3's time of one segment: each shape's call time (phase 4's
+  rows, and phase 24's) x its launches a segment."""
+  ms = {shape_key(r): r["ms"] for r in qmm_rows}
+  return sum(ms[shape_key(r)] * r[4] for r in shapes)
+
+
+def serving_experiment(preset: str = "context_base"):
   return inference.with_sampler(
-      config.preset("context_base"), sampler_steps=100,
+      config.preset(preset), sampler_steps=100,
       sampler_name="sde-dpm++", guidance_interval=(0.1, 0.8))
 
 
 def attention_launches(experiment) -> int:
-  """Flash-attention launches of one segment: each encoder's self-attention
-  once a segment, the decoder's self- and cross-attention every step."""
+  """Flash-attention launches of one segment of a diffusion model: each
+  encoder's self-attention once a segment (the token encoder, and the
+  context encoder of the context model), the decoder's self- and
+  cross-attention every step."""
   net = experiment.network()
-  return (2 * net.num_encoder_layers + 2 * net.num_decoder_layers
+  encoders = 2 if experiment.with_context else 1
+  return (encoders * net.num_encoder_layers + 2 * net.num_decoder_layers
           * experiment.diffusion.sampler.num_steps)
 
 
@@ -1089,10 +1143,11 @@ def sdpa_backward_ms(q, k, v, mask, dout, iters: int) -> float:
                                              retain_graph=True), iters)
 
 
-def bwd_kernel_phase(gen, batch: int):
-  """The backward kernel at the four attention shapes of training."""
+def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
+  """The backward kernel at the attention shapes of training (`shapes`;
+  the context model's four by default)."""
   rows = []
-  for name, q_len, kv_len, masked, _ in SHAPES:
+  for name, q_len, kv_len, masked, _ in shapes:
     # Training attends over uncached K/V in [b, l, h, d].
     q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked, False,
                                      torch.float32, gen)
@@ -1155,12 +1210,18 @@ def bwd_kernel_phase(gen, batch: int):
 
 
 def attention_calls_per_step(experiment) -> int:
-  """Attention calls (so backward launches) of one training step: each
-  encoder's self-attention, the decoder's self-attention and its
-  cross-attention modules, once per layer."""
+  """Flash-attention calls (so backward launches) of one training step,
+  once per layer: of a diffusion model each encoder's self-attention, the
+  decoder's self-attention and its cross-attention modules; of the
+  autoregressive model the encoder's self-attention and the decoder's
+  cross-attention (its causal self-attention is plain einsums)."""
   net = experiment.network()
+  if experiment.model_family == "autoregressive":
+    return net.num_encoder_layers + net.num_decoder_layers
+  encoders = 2 if experiment.with_context else 1
   n_cross = 1 if net.cross_attend_style == "concat_encodings" else 2
-  return 2 * net.num_encoder_layers + (1 + n_cross) * net.num_decoder_layers
+  return (encoders * net.num_encoder_layers
+          + (1 + n_cross) * net.num_decoder_layers)
 
 
 def train_phase(seed: int, card: str, bwd_rows):
@@ -2077,6 +2138,322 @@ def cli_train_phase(card: str, seed: int) -> dict:
               seconds_per_step=train_lines[-1]["timing/seconds_per_step"])
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: the notes-only diffusion and autoregressive families.
+# ---------------------------------------------------------------------------
+
+# The autoregressive path's segments (each 256 frames, one decode step a
+# frame), and the steps of each family's training run.
+AR_SEGMENTS, FAMILY_TRAIN_STEPS = 2, 3
+# Decode steps held card vs CPU in float32 (phase 24).
+AR_CHECK_STEPS = 8
+# The autoregressive model's cached decode (phase 24, int8 weights on a
+# bf16 network) fed its own frames back through the teacher-forced forward:
+# max |diff| within 2.5% of the output's max and relative RMS within 2%,
+# the limits of a bf16 network against its reference
+# (tests/test_torch_quantize.py). The two passes compute the same
+# function in other orders and routes: the teacher-forced cross-attention
+# through the flash kernel (p rounded to bf16 before p.v), each decode
+# step's in f32 einsums; the int8 GEMM's tensor-core route at 256 rows
+# against its GEMV route at one; each a bf16 rounding step (2^-8) carried
+# through 24 residual layers.
+AR_TF_MAX_REL, AR_TF_RMS_REL = 2.5e-2, 2e-2
+# Card vs CPU in float32 (phase 24), max |diff| over the output's max: the
+# attention kernels' 3xTF32 products and every sum in another order, no
+# time embedding in this family (the context decoder's card-vs-CPU gap
+# without it was 3.0e-6, PERF.md §6).
+AR_F32_TOLERANCE = 1e-4
+
+
+def ar_qmm_shapes(experiment, l_in: int, rows: int = 1) -> list:
+  """Every int8 GEMM of one segment of the autoregressive int8 path: the
+  encoder at l_in rows, the cross-attention K/V once, then each of the
+  `targets` decode steps at `rows` rows (the batch): self q/k/v and cross
+  q, self and cross out, the MLP. The continuous input projection (128
+  wide) stays bf16 and the output projection f32."""
+  net = experiment.network()
+  e, hd, f = net.emb_dim, net.num_heads * net.head_dim, net.mlp_dim
+  n_wi, enc = len(net.mlp_activations), net.num_encoder_layers
+  dec, steps = net.num_decoder_layers, experiment.task_lengths.targets
+  bf16 = torch.bfloat16
+  return merge_qmm_rows([
+      (l_in, e, hd, bf16, 3 * enc, "AR encoder q/k/v"),
+      (l_in, hd, e, bf16, enc, "AR encoder attention out"),
+      (l_in, e, f, bf16, n_wi * enc, "AR encoder mlp wi"),
+      (l_in, f, e, bf16, enc, "AR encoder mlp wo"),
+      (l_in, e, hd, bf16, 2 * dec, "AR cross K/V (once a segment)"),
+      (rows, e, hd, bf16, 4 * dec * steps,
+       "AR decode step self q/k/v, cross q"),
+      (rows, hd, e, bf16, 2 * dec * steps, "AR decode step self, cross out"),
+      (rows, e, f, bf16, n_wi * dec * steps, "AR decode step mlp wi"),
+      (rows, f, e, bf16, dec * steps, "AR decode step mlp wo")])
+
+
+def shape_key(row) -> tuple:
+  """(M, K, N, dtype) of a qmm_shapes tuple or a qmm_phase row."""
+  return tuple(row[:4]) if isinstance(row, tuple) else (
+      row["m"], row["k"], row["n"], getattr(torch, row["dtype"]))
+
+
+def midi_segments(seed: int, experiment, model) -> list:
+  """Phase 7's MIDI file, cut by segment_midi for `experiment`."""
+  midi = os.path.join("out", f"chip_smoke_seed{seed}.mid")
+  return synthesize_midi.segment_midi(
+      midi_io.read_midi_file(midi),
+      synthesize_midi.SegmentSettings.for_experiment(experiment),
+      model.task_lengths)
+
+
+def notes_only_phase(seed: int, card: str, rows, qmm_rows) -> dict:
+  """diffusion_base (notes only) in int8 renders phase 7's MIDI file: 3
+  independent segments, the serving sampler, the trained vocoder; then one
+  float32 decoder step, card vs CPU."""
+  experiment = serving_experiment("diffusion_base")
+  t0 = time.perf_counter()
+  model = inference.InferenceModel(experiment, seed=seed, device="cuda",
+                                   compute_dtype="int8")
+  total, int8 = quantize.quantized_bytes(model.model.module.state_dict())
+  check(isinstance(model.model, diffusion_model.DiffusionModel),
+        f"diffusion_base built a {type(model.model).__name__}")
+  log(f"  int8 diffusion_base built from seed {seed} on the card "
+      f"({time.perf_counter() - t0:.2f} s): weights {total / 2**30:.3f} GiB, "
+      f"{int8 / 2**30:.3f} GiB of it int8")
+  segments = midi_segments(seed, experiment, model)
+  check(len(segments) == SEGMENTS, f"{len(segments)} segments")
+  synth = model.synthesizer(vocoder.load_trained(
+      vocoder.TRAINED_MAGNITUDE_GL, device="cuda"))
+  check(not synth._uses_context, "the notes-only model chained context")
+  l_in = synth._input_length(max(len(x) for x in segments))
+  check(l_in == experiment.task_lengths.inputs, f"bucket {l_in}")
+  shapes = qmm_shapes(experiment, l_in)
+  held = {shape_key(r) for r in qmm_rows}
+  check(all(shape_key(r) in held for r in shapes),
+        "a notes-only int8 GEMM shape that phase 4 did not hold")
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+  t0 = time.perf_counter()
+  render = synth.render_song(segments)
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              quantize.quantized_matmul.launches)
+  expected = (SEGMENTS * attention_launches(experiment),
+              SEGMENTS * sum(r[4] for r in shapes))
+  n_frames = SEGMENTS * experiment.task_lengths.targets
+  check(render.mel.shape == (n_frames, 128), f"mel {render.mel.shape}")
+  check(bool(np.isfinite(render.mel).all()), "mel finite")
+  check(render.audio.shape == (n_frames * 320,)
+        and bool(np.isfinite(render.audio).all()), "audio finite")
+  check(launches == expected, f"launches flash_attention, quantized_matmul "
+        f"{launches}, expected {expected}")
+  tm = render.timings
+  audio_s = tm["audio_seconds"]
+  summary = dict(launches=launches, realtime_factor=audio_s / wall,
+                 wall_s=wall, prediction_s=tm["prediction_seconds"],
+                 steady_segment_s=tm["steady_segment_seconds"],
+                 vocoder_s=tm["audio_decode_seconds"],
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+  log(f"  mel {render.mel.shape}, audio {render.audio.shape} finite; "
+      f"launches flash_attention {launches[0]} = expected {expected[0]} "
+      f"({SEGMENTS} x ({experiment.network().num_encoder_layers} encoder + "
+      f"2 x {experiment.network().num_decoder_layers} decoder layers x "
+      f"{experiment.diffusion.sampler.num_steps} steps)), quantized_matmul "
+      f"{launches[1]} = expected {expected[1]}")
+  parts = attention_ms_per_segment(rows, experiment, "bfloat16")
+  summary.update(attention_ms_per_segment=sum(parts.values()),
+                 qmm_ms_per_segment=qmm_ms_per_segment(qmm_rows, shapes))
+  log(f"  [{card}] sampler {tm['prediction_seconds']:.3f} s for {SEGMENTS} "
+      f"independent segments (steady {tm['steady_segment_seconds']:.3f} s "
+      f"per 5.12 s segment); vocoder {tm['audio_decode_seconds']:.3f} s; "
+      f"realtime factor {audio_s / wall:.3f} ({wall:.3f} s wall); peak "
+      f"memory {summary['peak_gib']:.2f} GiB; the kernels a segment, from "
+      f"phases 3, 4 and 22's call times x launches: attention "
+      f"{summary['attention_ms_per_segment']:.1f} ms, int8 GEMM "
+      f"{summary['qmm_ms_per_segment']:.1f} ms")
+  del model, synth
+  f32 = inference.InferenceModel(experiment, seed=seed, device="cuda")
+  reference_phase(f32, segments, f32_tolerance)
+  return summary
+
+
+def ar_reference_check(model, tokens: np.ndarray) -> dict:
+  """The float32 autoregressive model's encoder and first AR_CHECK_STEPS
+  decode steps (each fed the previous output), card vs CPU."""
+  cpu = copy.deepcopy(model.model.module).cpu()
+  outs = []
+  for module, dev in ((model.model.module, "cuda"), (cpu, "cpu")):
+    with torch.inference_mode():
+      t = torch.as_tensor(tokens, device=dev)
+      enc = module.encode(t)
+      cache = module.init_cache(enc, t, AR_CHECK_STEPS)
+      frame = torch.zeros(1, 1, 128, device=dev)
+      steps = []
+      for i in range(AR_CHECK_STEPS):
+        frame = module.decode_step(cache, frame, i)
+        steps.append(frame)
+      outs.append((enc.cpu(), torch.cat(steps, dim=1).cpu()))
+  errs = {}
+  for what, got, want in zip(("encoder", "decode steps"), *outs):
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"AR {what} finite")
+    check(err <= AR_F32_TOLERANCE * scale, f"AR f32 {what}, card vs CPU: "
+          f"{err} > {AR_F32_TOLERANCE} x {scale}")
+    errs[what] = err / scale
+  log(f"  ar_base float32, card vs CPU: encoder max |diff| / max "
+      f"{errs['encoder']:.3g}, the first {AR_CHECK_STEPS} decode steps "
+      f"{errs['decode steps']:.3g} (tol {AR_F32_TOLERANCE})")
+  return errs
+
+
+def ar_phase(seed: int, card: str, rows, qmm_rows, gen, stream) -> dict:
+  """ar_base in int8 (bf16 network) generates AR_SEGMENTS segments of phase
+  7's MIDI file by the cached decode, vocoded; the frames fed back through
+  the teacher-forced forward reproduce the cached outputs; the new int8
+  GEMM shapes (the decode steps' one row) against their plain version; in
+  float32 the encoder and the first decode steps, card vs CPU."""
+  experiment = config.preset("ar_base")
+  t0 = time.perf_counter()
+  model = inference.InferenceModel(experiment, seed=seed, device="cuda",
+                                   compute_dtype="int8")
+  check(experiment.ar_output == "deterministic",
+        f"ar_base's head is {experiment.ar_output}")
+  log(f"  int8 ar_base built from seed {seed} on the card "
+      f"({time.perf_counter() - t0:.2f} s)")
+  segments = midi_segments(seed, experiment, model)[:AR_SEGMENTS]
+  synth = model.synthesizer(vocoder.load_trained(
+      vocoder.TRAINED_MAGNITUDE_GL, device="cuda"))
+  check(not synth._uses_context, "the autoregressive model chained context")
+  l_in = synth._input_length(max(len(x) for x in segments))
+  shapes = ar_qmm_shapes(experiment, l_in)
+  held = {shape_key(r) for r in qmm_rows}
+  new_rows = qmm_phase([r for r in shapes if shape_key(r) not in held],
+                       gen, stream)
+  check(bool(new_rows), "the AR path has no int8 GEMM shape of its own")
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+  t0 = time.perf_counter()
+  render = synth.render_song(segments)
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              quantize.quantized_matmul.launches)
+  net = experiment.network()
+  expected = (AR_SEGMENTS * net.num_encoder_layers,
+              AR_SEGMENTS * sum(r[4] for r in shapes))
+  frames = experiment.task_lengths.targets
+  check(render.mel.shape == (AR_SEGMENTS * frames, 128),
+        f"mel {render.mel.shape}")
+  check(bool(np.isfinite(render.mel).all()), "mel finite")
+  check(render.audio.shape == (AR_SEGMENTS * frames * 320,)
+        and bool(np.isfinite(render.audio).all()), "audio finite")
+  check(launches == expected, f"launches flash_attention, quantized_matmul "
+        f"{launches}, expected {expected}")
+  tm = render.timings
+  seg_s = tm["prediction_seconds"] / AR_SEGMENTS
+  encoder_ms = {r["batch"]: r["ms"] for r in rows
+                if r["shape"] == "ar_encoder_self_2048x2048_unmasked"
+                and r["dtype"] == "bfloat16"}[1]
+  summary = dict(launches=launches, wall_s=wall, segment_s=seg_s,
+                 attention_ms_per_segment=net.num_encoder_layers * encoder_ms,
+                 qmm_ms_per_segment=qmm_ms_per_segment(
+                     list(qmm_rows) + new_rows, shapes),
+                 steady_segment_s=tm["steady_segment_seconds"],
+                 frames_per_s=frames / tm["steady_segment_seconds"],
+                 vocoder_s=tm["audio_decode_seconds"],
+                 realtime_factor=tm["audio_seconds"] / wall,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+  log(f"  mel {render.mel.shape}, audio {render.audio.shape} finite; "
+      f"launches flash_attention {launches[0]} = expected {expected[0]} "
+      f"(the encoder's self-attention; the decode steps attend in plain "
+      f"einsums), quantized_matmul {launches[1]} = expected {expected[1]} "
+      f"({AR_SEGMENTS} x {expected[1] // AR_SEGMENTS}: {frames} decode steps "
+      f"x {9 * net.num_decoder_layers} one-row GEMMs, the encoder and the "
+      f"cross K/V)")
+  log(f"  [{card}] {seg_s:.3f} s a segment of {frames} frames "
+      f"({tm['prediction_seconds']:.3f} s for "
+      f"{AR_SEGMENTS}; steady {tm['steady_segment_seconds']:.3f} s, "
+      f"{summary['frames_per_s']:.1f} frames/s); vocoder "
+      f"{tm['audio_decode_seconds']:.3f} s; realtime factor "
+      f"{summary['realtime_factor']:.3f}; peak memory "
+      f"{summary['peak_gib']:.2f} GiB; the kernels a segment, from phases 4, "
+      f"22 and 24's call times x launches: attention "
+      f"{summary['attention_ms_per_segment']:.1f} ms, int8 GEMM "
+      f"{summary['qmm_ms_per_segment']:.1f} ms")
+  # The cached decode against the teacher-forced forward: the generated
+  # frames (the deterministic head's outputs) fed back, shifted by one.
+  tokens = np.zeros((1, l_in), np.int64)
+  tokens[0, :len(segments[0])] = segments[0]
+  mel = torch.as_tensor(render.mel[:frames][None], device="cuda")
+  inputs = torch.cat([torch.zeros_like(mel[:, :1]), mel[:, :-1]], dim=1)
+  with torch.inference_mode():
+    forced = model.model.module(torch.as_tensor(tokens, device="cuda"),
+                                inputs).float()
+  diff = (forced - mel).abs()
+  max_rel = diff.max().item() / mel.abs().max().item()
+  rms = rel_rms(forced, mel)
+  check(max_rel <= AR_TF_MAX_REL and rms <= AR_TF_RMS_REL,
+        f"teacher-forced vs cached: max {max_rel} (tol {AR_TF_MAX_REL}), "
+        f"relative RMS {rms} (tol {AR_TF_RMS_REL})")
+  log(f"  cached decode vs the teacher-forced forward on its frames "
+      f"(bf16 network): max |diff| / max {max_rel:.3g} (tol "
+      f"{AR_TF_MAX_REL}), relative RMS {rms:.3g} (tol {AR_TF_RMS_REL})")
+  summary.update(teacher_forced_max_rel=max_rel, teacher_forced_rms=rms)
+  del model, synth
+  f32 = inference.InferenceModel(experiment, seed=seed, device="cuda")
+  summary["f32_card_vs_cpu"] = ar_reference_check(f32, tokens)
+  return summary, new_rows
+
+
+def family_train_phase(seed: int, card: str, preset: str) -> dict:
+  """cli/train.py --synthetic --preset <preset> at full width, batch 8,
+  FAMILY_TRAIN_STEPS steps in float32: finite losses, s per step, peak
+  memory, both attention kernels' launches."""
+  experiment = config.preset(preset)
+  model_dir = os.path.join("out", f"chip_smoke_train_{preset}")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  argv = ["--synthetic", "--preset", preset, "--model_dir", model_dir,
+          "--steps", str(FAMILY_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+          "--log_period", "1", "--seed", str(seed), "--synthetic_examples",
+          str(TRAIN_SONGS), "--device", "cuda"]
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  t0 = time.perf_counter()
+  state, t = train_cli.main(argv)
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  family = type(t.model).__name__
+  del t
+  expected = FAMILY_TRAIN_STEPS * attention_calls_per_step(experiment)
+  check(launches == (expected, expected), f"{preset} training launched "
+        f"flash_fwd {launches[0]}, flash_bwd {launches[1]}; expected "
+        f"{expected} each")
+  check(state.step == FAMILY_TRAIN_STEPS, f"trained {state.step} steps")
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    lines = [json.loads(l) for l in f]
+  for m in lines:
+    check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+          f"{preset} step {m['step']}: loss {m['loss']}")
+  shutil.rmtree(model_dir, ignore_errors=True)  # the weights; logged above
+  s_per_step = float(np.mean([m["timing/seconds_per_step"]
+                              for m in lines[1:]]))
+  log(f"  {preset} ({family}): " + "; ".join(
+      f"step {m['step']} loss {m['loss']:.6g} grad_norm {m['grad_norm']:.6g}"
+      for m in lines) + f"; launches flash_fwd {launches[0]}, flash_bwd "
+      f"{launches[1]} = expected {expected} ({FAMILY_TRAIN_STEPS} steps x "
+      f"{attention_calls_per_step(experiment)} attention calls)")
+  log(f"  [{card}] {preset}: {s_per_step:.3f} s per step after the first "
+      f"(first {lines[0]['timing/seconds_per_step']:.3f} s), batch "
+      f"{TRAIN_BATCH}, float32; peak memory {peak:.2f} GiB; {wall:.2f} s in "
+      f"all")
+  return dict(launches=launches, seconds_per_step=s_per_step, peak_gib=peak,
+              losses=[m["loss"] for m in lines], wall_s=wall)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -2233,8 +2610,41 @@ def main() -> int:
       f"--eval_period --cache_root at batch {CLI_BATCH} "
       f"({time.perf_counter() - t0:.2f} s)")
 
+  t0 = time.perf_counter()
+  family_rows = kernel_phase(gen, capture, FAMILY_SHAPES)
+  family_bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH, FAMILY_SHAPES)
+  log(f"phase 22 attention kernels at the notes-only and autoregressive "
+      f"shapes: {len(family_rows)} forward and {len(family_bwd_rows)} "
+      f"backward checks passed ({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  notes_summary = notes_only_phase(args.seed, card, rows + family_rows,
+                                   qmm_rows)
+  log(f"phase 23 main path, notes-only diffusion_base int8 from the MIDI "
+      f"file ({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  ar_summary, ar_qmm_rows = ar_phase(args.seed, card, family_rows, qmm_rows,
+                                     gen, capture)
+  log(f"phase 24 main path, autoregressive ar_base int8 from the MIDI file "
+      f"({time.perf_counter() - t0:.2f} s)")
+  torch.cuda.empty_cache()
+
+  t0 = time.perf_counter()
+  family_train = {preset: family_train_phase(args.seed, card, preset)
+                  for preset in ("diffusion_base", "ar_base")}
+  log(f"phase 25 main path, training diffusion_base and ar_base with "
+      f"cli/train.py ({time.perf_counter() - t0:.2f} s)")
+
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
+  # The context model's int8 path, a segment (phase 7).
+  qmm_ms_segment = sum(r["ms"] * r["launches_per_segment"] for r in qmm_rows)
+  rows = rows + family_rows
+  bwd_rows = bwd_rows + family_bwd_rows
+  qmm_rows = qmm_rows + ar_qmm_rows
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
 
   def total(key, rows_):
@@ -2248,14 +2658,21 @@ def main() -> int:
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:441",
       "launches": (f32_launches + int8_launches[0] + train_launches[0]
                    + stream_launches[0] + cli_launches + bf16_launches[0]
-                   + cli_train["launches"][0]),
+                   + cli_train["launches"][0]
+                   + notes_summary["launches"][0]
+                   + ar_summary["launches"][0]
+                   + sum(v["launches"][0] for v in family_train.values())),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
                            "training": train_launches[0],
                            "int8_streamed": stream_launches[0],
                            "cli_float32": cli_launches,
                            "training_bf16_remat": bf16_launches[0],
-                           "cli_training_remat": cli_train["launches"][0]},
+                           "cli_training_remat": cli_train["launches"][0],
+                           "notes_only_int8": notes_summary["launches"][0],
+                           "autoregressive_int8": ar_summary["launches"][0],
+                           **{f"training_{k}": v["launches"][0]
+                              for k, v in family_train.items()}},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -2269,9 +2686,13 @@ def main() -> int:
       "route": "cuda",
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/qmm.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/quantize.py:114",
-      "launches": int8_launches[1] + stream_launches[1],
+      "launches": (int8_launches[1] + stream_launches[1]
+                   + notes_summary["launches"][1]
+                   + ar_summary["launches"][1]),
       "launches_by_path": {"int8": int8_launches[1],
-                           "int8_streamed": stream_launches[1]},
+                           "int8_streamed": stream_launches[1],
+                           "notes_only_int8": notes_summary["launches"][1],
+                           "autoregressive_int8": ar_summary["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
       "ms": total("ms", qmm_rows),
       "plain_ms": total("plain_ms", qmm_rows),
@@ -2279,8 +2700,7 @@ def main() -> int:
       "bound_by": "operations" if all(
           r["bound_by"] == "operations" for r in qmm_rows) else "bytes",
       "library_ms": total("library_ms", qmm_rows),
-      "ms_per_segment": sum(r["ms"] * r["launches_per_segment"]
-                            for r in qmm_rows),
+      "ms_per_segment": qmm_ms_segment,
       "per_shape": qmm_rows,
   }, {
       "name": "flash_attention_bwd",
@@ -2288,10 +2708,13 @@ def main() -> int:
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_bwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:708",
       "launches": (train_launches[1] + bf16_launches[1]
-                   + cli_train["launches"][1]),
+                   + cli_train["launches"][1]
+                   + sum(v["launches"][1] for v in family_train.values())),
       "launches_by_path": {"training": train_launches[1],
                            "training_bf16_remat": bf16_launches[1],
-                           "cli_training_remat": cli_train["launches"][1]},
+                           "cli_training_remat": cli_train["launches"][1],
+                           **{f"training_{k}": v["launches"][1]
+                              for k, v in family_train.items()}},
       "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
       "ms": total("ms", bwd_rows),
       "plain_ms": total("plain_ms", bwd_rows),
@@ -2315,10 +2738,14 @@ def main() -> int:
                "per_shape": bwd_bf16_rows,
                "training": bf16_summary},
       "cli_training_remat": cli_train,
+      "family_training": family_train,
   }]}
   log("vocoder " + json.dumps(dict(vocoder_summary, quality=quality,
                                    soundstream=soundstream,
                                    stream_wall_s=stream_wall)))
+  log("families " + json.dumps(dict(notes_only=notes_summary,
+                                    autoregressive=ar_summary,
+                                    training=family_train)))
   print(json.dumps(kernels))
   print(card)
   print(json.dumps({"ok": True, "device": {

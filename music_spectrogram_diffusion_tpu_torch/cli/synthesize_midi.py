@@ -2,17 +2,20 @@
 
   python -m music_spectrogram_diffusion_tpu_torch.cli.synthesize_midi \
       --midi song.mid --output out.wav [--checkpoint model.npz] \
-      [--vocoder_checkpoint vocoder.npz] [--steps 1000] [--size base] \
-      [--device cpu]
+      [--vocoder_checkpoint vocoder.npz] [--steps 1000] [--size base | \
+      --preset ar_tiny] [--device cpu]
 
 Port of music_spectrogram_diffusion_tpu/cli/synthesize_midi.py: the MIDI
 file is read, cut into per-segment event tokens (`segment_midi`), rendered
-segment by segment with the context diffusion model and vocoded.
+segment by segment (chained through the context for the context diffusion
+model, independently for the notes-only and autoregressive models) and
+vocoded.
 
-`--checkpoint` is a JAX checkpoint exported to `.npz` by
-tools/export_jax_checkpoint.py (or a port training checkpoint); without
-one the weights are random from a fixed seed (a smoke test of the
-pipeline). `--vocoder_checkpoint` is an exported vocoder (`load_trained`:
+`--checkpoint` is a JAX checkpoint of any family exported to `.npz` by
+tools/export_jax_checkpoint.py (its config_json names the family), or a
+port training checkpoint; without one the weights are random from `--seed`
+(a smoke test of the pipeline), of the context model of `--size` or of
+`--preset`'s model (any family). `--vocoder_checkpoint` is an exported vocoder (`load_trained`:
 the trained MagnitudeNet + Griffin-Lim, or a SoundStream decoder of
 `--vocoder_base_channels`); without one, `--vocoder griffin_lim` is the
 weights-free vocoder. Tokenization follows the experiment
@@ -100,6 +103,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                       "(tools/export_jax_checkpoint.py), or a port training "
                       "checkpoint; default: random weights")
   p.add_argument("--size", default="small")
+  p.add_argument("--preset", default=None,
+                 help="a config preset (e.g. diffusion_base, ar_tiny) for "
+                      "random weights; overrides --size")
   p.add_argument("--steps", type=int, default=None,
                  help="sampler steps override (default: the checkpoint's "
                       "configured count; 1000 with random weights)")
@@ -125,7 +131,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def build_model(args: argparse.Namespace):
   """The CLI's InferenceModel on `args.device`: `--checkpoint`'s weights
-  and experiment, else random weights (seed 0)."""
+  and experiment, else random weights from `--seed` for `--preset` (or the
+  context model of `--size`)."""
   from music_spectrogram_diffusion_tpu_torch.infer import inference
   interval = None
   if args.guidance_interval:
@@ -135,11 +142,14 @@ def build_model(args: argparse.Namespace):
     return inference.load_checkpoint(
         args.checkpoint, device=args.device, sampler_steps=args.steps,
         sampler_name=args.sampler, guidance_interval=interval)
+  experiment = (cfg_lib.preset(args.preset) if args.preset else
+                cfg_lib.ExperimentConfig(size=args.size))
   experiment = inference.with_sampler(
-      cfg_lib.ExperimentConfig(size=args.size, dropout_rate=0.0),
+      dataclasses.replace(experiment, dropout_rate=0.0),
       sampler_steps=args.steps or 1000, sampler_name=args.sampler,
       guidance_interval=interval)
-  return inference.InferenceModel(experiment, seed=0, device=args.device)
+  return inference.InferenceModel(experiment, seed=args.seed,
+                                  device=args.device)
 
 
 def build_vocoder(args: argparse.Namespace):

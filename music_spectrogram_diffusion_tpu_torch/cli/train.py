@@ -1,22 +1,25 @@
-"""Train the context model on the synthetic task.
+"""Train a model of any family on the synthetic task.
 
   python -m music_spectrogram_diffusion_tpu_torch.cli.train --synthetic \
       --preset context_base --model_dir /tmp/run1 [--steps 1000] \
       [--batch 8] [--microbatches 2] [--remat] [--eval_batches 2 \
-      --eval_period 1000] [--cache_root /tmp/cache] [--device cpu]
+      --eval_period 1000] [--cache_root /tmp/cache] [--shuffle_buffer 256] \
+      [--data_threads 8] [--device cpu]
 
 Port of music_spectrogram_diffusion_tpu/cli/train.py for `--synthetic`:
-generated songs (data/synthetic.py) are tokenized, chunked with their
-previous frames as context and mel-encoded on the host, and the model
-takes Adafactor steps on the card (`--device`, default cuda; 'cpu' runs
+generated songs (data/synthetic.py) are tokenized, chunked (with their
+previous frames as context, for the context model) and mel-encoded on the
+host, and the model of the preset's family (`context_*`, `diffusion_*`,
+`ismir2021_*` or `ar_*`) takes Adafactor steps on the card (`--device`, default cuda; 'cpu' runs
 the plain versions of the kernels). Checkpoints go to
 <model_dir>/step_<N>/ and metrics to <model_dir>/metrics.jsonl; a run
 resumes from the latest checkpoint there. As in the JAX CLI: `--remat`
 rematerializes every layer; `--eval_batches N` scores N held-out batches
 (synthetic songs from seed 1000) every `--eval_period` steps, logged as
 eval/<metric>; `--cache_root` keeps each task's tokenized chunks there
-(built on the first run, read on the next). The model computes in the
-preset's dtype (the CLI, as JAX's, has no dtype flag).
+(built on the first run, read on the next); `--shuffle_buffer` and
+`--data_threads` set the data pipeline's shuffle and thread pool. The model
+computes in the preset's dtype (the CLI, as JAX's, has no dtype flag).
 
 Not ported, and refused: --dataset (the real datasets), --mesh and
 --distributed.
@@ -32,8 +35,6 @@ from typing import Optional, Sequence
 # Flags of the JAX CLI whose modules the port has not got; any value given
 # is refused.
 NOT_PORTED = ("dataset", "mesh", "distributed")
-# The data pipeline's settings, the JAX CLI's defaults.
-SHUFFLE_BUFFER, DATA_THREADS = 256, 8
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -60,6 +61,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--cache_root", default=None,
                  help="offline tokenization cache root: each task's chunks "
                       "are built there once and read from then on")
+  p.add_argument("--shuffle_buffer", type=int, default=256)
+  p.add_argument("--data_threads", type=int, default=8,
+                 help="post-cache transform thread pool size")
   p.add_argument("--eval_batches", type=int, default=0,
                  help="run a held-out eval pass of N batches every "
                       "eval_period steps (0 = off)")
@@ -115,8 +119,9 @@ def main(argv: Optional[Sequence[str]] = None):
   print(f"device: {model.device}")
 
   tl = experiment.task_lengths
-  lengths = {"inputs": tl.inputs, "targets": tl.targets,
-             "targets_context": tl.targets_context}
+  lengths = {"inputs": tl.inputs, "targets": tl.targets}
+  if experiment.with_context:
+    lengths["targets_context"] = tl.targets_context
   batch_size = experiment.train.batch_size
 
   def synthetic_task(prefix, num_examples, seed):
@@ -138,8 +143,8 @@ def main(argv: Optional[Sequence[str]] = None):
   task = synthetic_task("train", args.synthetic_examples,
                         args.synthetic_seed)
   ds = (task.model_dataset(lengths, seed=args.seed,
-                           shuffle_buffer_size=SHUFFLE_BUFFER,
-                           num_threads=DATA_THREADS)
+                           shuffle_buffer_size=args.shuffle_buffer,
+                           num_threads=args.data_threads)
         .repeat().batch(batch_size).prefetch(4, num_threads=2))
 
   t = trainer.Trainer(model, experiment.train)
@@ -156,7 +161,7 @@ def main(argv: Optional[Sequence[str]] = None):
                                1000)
     eval_set = list(itertools.islice(
         iter(eval_task.model_dataset(lengths, seed=1,
-                                     num_threads=DATA_THREADS)
+                                     num_threads=args.data_threads)
              .repeat().batch(batch_size)), args.eval_batches))
 
     def eval_fn(state):

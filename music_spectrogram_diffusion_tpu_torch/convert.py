@@ -22,8 +22,15 @@ The vocoders' convolutions map with `flax_convs_to_state_dict`: a Flax
 `Conv` / `ConvTranspose` kernel [k, in, out] becomes torch's conv weight
 [out, in, k], its bias is copied as it is.
 
+The trees of all three model families map this way: the context and
+notes-only diffusion networks and the autoregressive one (whose position
+tables are computed, not stored, in both packages).
+
 A JAX checkpoint reaches the port as one `.npz` written by
-`tools/export_jax_checkpoint.py`; `read_export` reads it.
+`tools/export_jax_checkpoint.py`; `read_export` reads it. A published T5X
+checkpoint names its modules as the reference code does; `remap_t5x_params`
+(a copy of the JAX package's, train/checkpoints.py) renames such a tree to
+this repo's names, as the JAX package's `load_t5x_checkpoint` does.
 """
 
 from __future__ import annotations
@@ -53,6 +60,46 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     else:
       out[path] = value
   return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+  """{'a/b/c': leaf} -> nested dicts."""
+  tree: Dict[str, Any] = {}
+  for path, value in flat.items():
+    node = tree
+    parts = path.split("/")
+    for part in parts[:-1]:
+      node = node.setdefault(part, {})
+    node[parts[-1]] = value
+  return tree
+
+
+# The reference module tree -> this repo's (JAX train/checkpoints.py
+# _T5X_RENAMES): the published checkpoints name layer norms
+# `*_layer_norm`, leave cross-attention and FiLM modules unnamed (so Flax
+# numbered them) and create the position encoders inline as `Embed_0`.
+_T5X_RENAMES = (
+    (r"pre_attention_layer_norm", "pre_attention_norm"),
+    (r"pre_mlp_layer_norm", "pre_mlp_norm"),
+    (r"pre_self_attention_layer_norm", "pre_self_attention_norm"),
+    (r"pre_cross_attention_layer_norm", "pre_cross_attention_norm"),
+    (r"MultiHeadDotProductAttention_(\d+)", r"cross_attention_\1"),
+    (r"FiLMLayer_0/DenseGeneral_0", "self_attention_film/DenseGeneral_0"),
+    (r"FiLMLayer_1/DenseGeneral_0", "mlp_film/DenseGeneral_0"),
+    (r"Embed_0", "position_encoder"),
+)
+
+
+def t5x_rename(path: str) -> str:
+  """One '/'-joined path of a reference tree -> this repo's."""
+  for pattern, replacement in _T5X_RENAMES:
+    path = re.sub(pattern, replacement, path)
+  return path
+
+
+def remap_t5x_params(t5x_params: Mapping[str, Any]) -> Dict[str, Any]:
+  """A reference (T5X) params tree in this repo's layout, leaves as given."""
+  return unflatten({t5x_rename(k): v for k, v in flatten(t5x_params).items()})
 
 
 def torch_name(flax_path: str) -> str:
@@ -122,15 +169,8 @@ def read_export(path: str) -> Tuple[Dict[str, Any], str, int]:
   with np.load(path) as z:
     if "config_json" not in z.files or "step" not in z.files:
       raise ValueError(hint)
-    tree: Dict[str, Any] = {}
-    for key in z.files:
-      if not key.startswith("params/"):
-        continue
-      node = tree
-      parts = key.split("/")[1:]
-      for part in parts[:-1]:
-        node = node.setdefault(part, {})
-      node[parts[-1]] = z[key]
+    tree = unflatten({key[len("params/"):]: z[key] for key in z.files
+                      if key.startswith("params/")})
     return tree, str(z["config_json"].item()), int(z["step"])
 
 

@@ -32,12 +32,12 @@ def synthetic_cached_task(prefix: str, *,
                           timbre: str = "sine",
                           drum_fraction: float = 0.0,
                           cache_root: Optional[str] = None) -> tasks.Task:
-  """Synthetic-source Task of the context model (seeds [seed, seed + N)).
-  With `cache_root`, the task reads its cache there, built first if it is
-  not there yet."""
-  if not with_context:
-    raise NotImplementedError(
-        "the port trains the context model only (with_context=True)")
+  """Synthetic-source Task (seeds [seed, seed + N)) of the context model,
+  or with `with_context` False of the notes-only and autoregressive
+  models. The name leaves the family out, as JAX's does: the cache holds
+  the tokenized chunks, which are the same for every family. With
+  `cache_root`, the task reads its cache there, built first if it is not
+  there yet."""
   sig = [prefix, f"{num_examples}ex"]
   if seed:
     sig.append(f"s{seed}")
@@ -65,6 +65,7 @@ def synthetic_cached_task(prefix: str, *,
       audio_codec=audio_codec,
       vocab_config=vocab_config,
       note_rep=note_rep,
+      with_context=with_context,
       program_granularity=program_granularity)
   if cache_root:
     cache_dir = os.path.join(cache_root, name)

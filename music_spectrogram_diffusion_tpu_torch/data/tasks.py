@@ -3,20 +3,23 @@ batch.
 
 The training half of music_spectrogram_diffusion_tpu/data/tasks.py, copied
 (`Task.tokenized`, `build_cache`, `train_dataset`, `_finalize`,
-`model_dataset`) without the full-song eval split and the mixtures:
+`feature_converter`, `model_dataset`) without the full-song eval split and
+the mixtures:
 
   pre-cache:  tokenize -> rekey (transcription->synthesis) -> split into
               <=2000-frame chunks (written once to the offline cache,
               `data/cache.py`, when the task has a `cache_dir`)
-  post-cache: random-chunk-with-context -> slice events + tie prefix ->
-              program map -> RLE shifts -> mel encode -> length guard ->
-              vocab encode + EOS
+  post-cache: random chunk (with the previous frames as context, for the
+              context model) -> slice events + tie prefix -> program map ->
+              RLE shifts -> mel encode -> length guard -> vocab encode + EOS
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Mapping, Optional
+
+import numpy as np
 
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.data import cache as cache_lib
@@ -36,12 +39,14 @@ class NoteRepresentationConfig:
 
 @dataclasses.dataclass
 class Task:
-  """A fully-wired training task of the context model."""
+  """A fully-wired training task (of the context model, or with
+  `with_context` False of the notes-only and autoregressive models)."""
   name: str
   source_fn: Callable[[], core.Dataset]  # yields {'sequence','audio','id'}
   audio_codec: codecs.MelGan
   vocab_config: vocabularies.VocabularyConfig
   note_rep: NoteRepresentationConfig
+  with_context: bool = True
   program_granularity: str = "full"
   # The directory of the offline tokenization cache (reference
   # CacheDatasetPlaceholder, tasks.py:38,325): once the cache exists there,
@@ -91,7 +96,8 @@ class Task:
                     seed: int = 0,
                     shuffle_buffer_size: int = 256,
                     num_threads: int = 1) -> core.Dataset:
-    """Random-chunk training examples with the previous frames as context.
+    """Random-chunk training examples (with the previous frames as
+    context, for the context model).
 
     Chunk starts are drawn fresh every epoch (epoch-mixed seeds) and the
     chunk stream is reservoir-shuffled; shuffle_buffer_size=0 keeps the
@@ -100,16 +106,32 @@ class Task:
     l_tgt = task_feature_lengths["targets"]
     l_ctx = task_feature_lengths.get("targets_context", 0)
 
-    def chunk(ex, ex_seed):
-      return preprocessors.select_random_chunk_with_feature_context(
-          ex, seed=ex_seed, feature_key="targets",
-          feature_context_key="targets_context",
-          max_feature_length=l_tgt, max_context_length=l_ctx,
-          audio_codec=self.audio_codec,
-          additional_feature_keys=[
-              "event_start_indices", "event_end_indices",
-              "state_event_indices"],
-          passthrough_feature_keys=["inputs", "state_events"])
+    if self.with_context:
+      def chunk(ex, ex_seed):
+        return preprocessors.select_random_chunk_with_feature_context(
+            ex, seed=ex_seed, feature_key="targets",
+            feature_context_key="targets_context",
+            max_feature_length=l_tgt, max_context_length=l_ctx,
+            audio_codec=self.audio_codec,
+            additional_feature_keys=[
+                "event_start_indices", "event_end_indices",
+                "state_event_indices"],
+            passthrough_feature_keys=["inputs", "state_events"])
+    else:
+      def chunk(ex, ex_seed):
+        rng = np.random.RandomState(ex_seed)
+        tokens = ex["targets"]
+        n = len(tokens)
+        start = int(rng.randint(0, max(1, n)))
+        end = min(start + l_tgt, n)
+        extra = self.audio_codec.additional_frames_for_encoding
+        out = {"targets": tokens[start:end + extra]}
+        for k in ("event_start_indices", "event_end_indices",
+                  "state_event_indices"):
+          out[k] = ex[k][start:end]
+        for k in ("inputs", "state_events"):
+          out[k] = ex[k]
+        return out
 
     ds = self.tokenized().map_with_seed(chunk, base_seed=seed)
     if shuffle_buffer_size:
@@ -131,7 +153,8 @@ class Task:
           ex, audio_codec=self.audio_codec,
           sequence_lengths=task_feature_lengths,
           targets_keys=["targets"],
-          context_keys=[k for k in ("targets_context",) if k in ex],
+          context_keys=[k for k in ("targets_context",)
+                        if self.with_context and k in ex],
           keys_to_pad=["targets"])
       ex = dict(preprocessors.handle_too_long(
           ex, sequence_lengths=task_feature_lengths,
@@ -152,6 +175,10 @@ class Task:
     ds = self.train_dataset(task_feature_lengths, seed=seed,
                             shuffle_buffer_size=shuffle_buffer_size,
                             num_threads=num_threads)
-    return feature_converters.convert_dataset(
-        ds, feature_converters.ContinuousContextFeatureConverter(),
-        task_feature_lengths)
+    return feature_converters.convert_dataset(ds, self.feature_converter(),
+                                              task_feature_lengths)
+
+  def feature_converter(self):
+    if self.with_context:
+      return feature_converters.ContinuousContextFeatureConverter()
+    return feature_converters.ContinuousOutputsFeatureConverter()

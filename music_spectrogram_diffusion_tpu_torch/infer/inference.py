@@ -5,18 +5,19 @@ come from a port `state_dict`, from a JAX checkpoint exported to `.npz` by
 tools/export_jax_checkpoint.py (`load_export`: the experiment from its
 config_json, the params through `convert.py`), from a port training
 checkpoint (`load_checkpoint`), or are drawn at random from a seed; the
-orbax restore stays in the JAX package. The port serves the context
-diffusion family in
-float32, or with `compute_dtype` in bfloat16 (`cast_params_bf16`) or with
-weight-only int8 kernels on a bfloat16 network (`ops.quantize`), as the
-JAX package's InferenceModel does.
+orbax restore stays in the JAX package. The port serves every model
+family of the JAX package's `build_model`: the context diffusion model, the
+notes-only diffusion model and the autoregressive baseline (with either
+output head), in float32, or with `compute_dtype` in bfloat16
+(`cast_params_bf16`) or with weight-only int8 kernels on a bfloat16 network
+(`ops.quantize`), as the JAX package's InferenceModel does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,12 +27,18 @@ from music_spectrogram_diffusion_tpu_torch import config as cfg_lib
 from music_spectrogram_diffusion_tpu_torch import convert
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.models import layers
+from music_spectrogram_diffusion_tpu_torch.models.autoregressive import (
+    model as ar_model, network as ar_network, output_functions)
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
     model as diffusion_model, network as diffusion_network)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 from music_spectrogram_diffusion_tpu_torch.ops import quantize
 
 COMPUTE_DTYPES = (None, "float32", "bfloat16", "int8")
+
+# What `build_model` returns, by family.
+Model = Union[diffusion_model.DiffusionModelBase,
+              ar_model.AutoregressiveModel]
 
 
 def resolve_device(device) -> torch.device:
@@ -102,14 +109,50 @@ def serving_experiment(experiment: cfg_lib.ExperimentConfig,
       dtype="bfloat16" if compute_dtype == "int8" else compute_dtype)
 
 
+def network(experiment: cfg_lib.ExperimentConfig) -> nn.Module:
+  """The network of the experiment's family, uninitialized, as the JAX
+  package's `build_model` makes it: ContextTransformer, Transformer (notes
+  only) or ARTransformer (whose output width follows its head)."""
+  net_cfg = experiment.network()
+  if experiment.model_family == "autoregressive":
+    n_dims = codecs.get_codec(experiment.codec_name).n_dims
+    head = output_functions.build(experiment.ar_output, n_dims)
+    return ar_network.ARTransformer(ar_network.ARConfig(
+        vocab_size=net_cfg.vocab_size, dtype=net_cfg.dtype,
+        emb_dim=net_cfg.emb_dim, num_heads=net_cfg.num_heads,
+        num_encoder_layers=net_cfg.num_encoder_layers,
+        num_decoder_layers=net_cfg.num_decoder_layers,
+        head_dim=net_cfg.head_dim, mlp_dim=net_cfg.mlp_dim,
+        output_dim=head.expected_num_dims,
+        audio_dim=n_dims,
+        mlp_activations=net_cfg.mlp_activations,
+        dropout_rate=net_cfg.dropout_rate, remat=net_cfg.remat))
+  if experiment.model_family != "diffusion":
+    raise ValueError(f"unknown model_family: {experiment.model_family}")
+  if experiment.with_context:
+    return diffusion_network.ContextTransformer(net_cfg)
+  return diffusion_network.Transformer(net_cfg)
+
+
+def wrap(experiment: cfg_lib.ExperimentConfig, module: nn.Module) -> Model:
+  """The model (loss and predict) around `network(experiment)`'s module."""
+  codec = codecs.get_codec(experiment.codec_name)
+  if experiment.model_family == "autoregressive":
+    return ar_model.AutoregressiveModel(
+        module, output_functions.build(experiment.ar_output, codec.n_dims),
+        codec)
+  cls = (diffusion_model.ContextDiffusionModel if experiment.with_context
+         else diffusion_model.DiffusionModel)
+  return cls(module, experiment.diffusion, codec)
+
+
 def build_model(experiment: cfg_lib.ExperimentConfig,
                 *,
                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                 seed: int = 0,
                 device="cuda",
-                compute_dtype: Optional[str] = None
-                ) -> diffusion_model.ContextDiffusionModel:
-  """The model an ExperimentConfig describes, on `device`.
+                compute_dtype: Optional[str] = None) -> Model:
+  """The model an ExperimentConfig describes, on `device`, of any family.
 
   Weights: `state_dict` if given (float, or an int8 serving state such as
   `convert.py` makes of an int8 Flax tree), else random from `seed` (drawn
@@ -125,15 +168,10 @@ def build_model(experiment: cfg_lib.ExperimentConfig,
 
 
 def _build_served(experiment: cfg_lib.ExperimentConfig, *, state_dict,
-                  seed: int, device, compute_dtype: Optional[str]
-                  ) -> diffusion_model.ContextDiffusionModel:
+                  seed: int, device, compute_dtype: Optional[str]) -> Model:
   """`build_model` on an experiment `serving_experiment` has resolved."""
-  if experiment.model_family != "diffusion" or not experiment.with_context:
-    raise NotImplementedError(
-        f"{experiment.model_family} (with_context={experiment.with_context})"
-        " is not ported yet; the port serves the context diffusion family")
   dev = resolve_device(device)
-  module = diffusion_network.ContextTransformer(experiment.network())
+  module = network(experiment)
   if state_dict is None:
     module.init_weights(torch.Generator().manual_seed(seed))
     state = module.state_dict()
@@ -145,8 +183,7 @@ def _build_served(experiment: cfg_lib.ExperimentConfig, *, state_dict,
     state = quantize.quantize_params(state)
   load_serving_state_(module, state)
   module.to(dev).eval().requires_grad_(False)  # serving never trains
-  return diffusion_model.ContextDiffusionModel(
-      module, experiment.diffusion, codecs.get_codec(experiment.codec_name))
+  return wrap(experiment, module)
 
 
 def with_sampler(experiment: cfg_lib.ExperimentConfig, *,
@@ -198,9 +235,12 @@ class InferenceModel:
 
   @property
   def task_lengths(self) -> Dict[str, int]:
+    """The task's lengths; targets_context only for the context model."""
     tl = self.experiment.task_lengths
-    return {"inputs": tl.inputs, "targets": tl.targets,
-            "targets_context": tl.targets_context}
+    out = {"inputs": tl.inputs, "targets": tl.targets}
+    if self.experiment.with_context:
+      out["targets_context"] = tl.targets_context
+    return out
 
   @property
   def audio_codec(self) -> codecs.MelGan:
@@ -209,14 +249,15 @@ class InferenceModel:
   def predict(self, batch: Mapping[str, np.ndarray], seed: int = 0,
               noise: Optional[dops.NoiseFn] = None) -> np.ndarray:
     """One batched segment prediction, numpy in and out: mel features
-    [B, L_tgt, n_dims]. `batch` as `ContextDiffusionModel.predict` takes
-    it. The noise is `noise` if given (e.g. replayed draws), else row i's
+    [B, L_tgt, n_dims]. `batch` as the model's `predict` takes it. The
+    noise is `noise` if given (e.g. replayed draws), else row i's
     generator seeded from (seed, i, 0), as `synthesize.seeded_noise`
     draws a song's first segment."""
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize
     device = self.model.device
     dtypes = {"encoder_input_tokens": torch.int64,
-              "encoder_continuous_mask": torch.bool}
+              "encoder_continuous_mask": torch.bool,
+              "decoder_target_mask": torch.bool}
     tensors = {k: torch.as_tensor(np.asarray(v), device=device,
                                   dtype=dtypes.get(k, torch.float32))
                for k, v in batch.items()}
@@ -238,7 +279,7 @@ def load_export(path: str, *, device="cuda",
                 sampler_name: Optional[str] = None,
                 guidance_interval: Optional[Tuple[float, float]] = None
                 ) -> InferenceModel:
-  """An InferenceModel from a JAX diffusion checkpoint exported to `.npz`
+  """An InferenceModel from a JAX checkpoint (any family) exported to `.npz`
   (tools/export_jax_checkpoint.py): the experiment from its config_json
   (`ExperimentConfig.from_json`), the sampler overrides of
   `with_sampler`, the params through `convert.flax_to_state_dict`.
@@ -250,8 +291,7 @@ def load_export(path: str, *, device="cuda",
                             sampler_steps=sampler_steps,
                             sampler_name=sampler_name,
                             guidance_interval=guidance_interval)
-  module = diffusion_network.ContextTransformer(experiment.network())
-  state = convert.flax_to_state_dict(params, module)
+  state = convert.flax_to_state_dict(params, network(experiment))
   return InferenceModel(experiment, state_dict=state, device=device,
                         compute_dtype=compute_dtype, step=step)
 

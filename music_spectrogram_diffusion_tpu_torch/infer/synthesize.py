@@ -6,7 +6,8 @@ prediction as its context (the first segment's context is masked out),
 songs are batched so the sequential dependency is only along segments, and
 the concatenated spectrogram is vocoded at the end (`render_songs`); or
 one song is streamed, each segment vocoded as soon as it is denoised
-(`stream_song`).
+(`stream_song`). The notes-only diffusion model and the autoregressive
+model take no context: their segments render independently.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def _sync(device: torch.device):
 
 
 class Synthesizer:
-  """Segment-chained renderer for the context diffusion model."""
+  """Segment-by-segment renderer for every model family (context chained
+  for the context diffusion model)."""
 
   # Smallest bucket that fits the longest segment: padding is masked out
   # of every attention, so a shorter bucket gives the same result faster.
@@ -60,19 +62,22 @@ class Synthesizer:
   def __init__(self, model, task_feature_lengths: Mapping[str, int],
                vocoder=None, bucket_inputs: bool = True):
     """Args:
-      model: ContextDiffusionModel (or anything with its .predict).
-      task_feature_lengths: {'inputs', 'targets', 'targets_context'}.
+      model: a diffusion or autoregressive model (anything with their
+        .predict, .device, .audio_codec and USES_CONTEXT).
+      task_feature_lengths: {'inputs', 'targets'} and, for the context
+        model, 'targets_context'.
       vocoder: optional callable [B, T, D] mel -> [B, T*hop] audio.
       bucket_inputs: pad the tokens to the smallest of INPUT_BUCKETS that
         fits the longest segment (False: always to the task's inputs).
     """
     self.model = model
     self.lengths = dict(task_feature_lengths)
-    if self.lengths["targets_context"] > self.lengths["targets"]:
+    l_ctx = self.lengths.get("targets_context")
+    if l_ctx is not None and l_ctx > self.lengths["targets"]:
       raise ValueError(
-          f"targets_context ({self.lengths['targets_context']}) > targets "
-          f"({self.lengths['targets']}) is unsupported: segment chaining "
-          "uses the previous segment's prediction as context")
+          f"targets_context ({l_ctx}) > targets ({self.lengths['targets']}) "
+          "is unsupported: segment chaining uses the previous segment's "
+          "prediction as context")
     self.vocoder = vocoder
     self.bucket_inputs = bucket_inputs
 
@@ -85,17 +90,32 @@ class Synthesizer:
         return bucket
     return cap
 
+  @property
+  def _uses_context(self) -> bool:
+    """Chaining applies to the context model only; the notes-only and
+    autoregressive models render each segment on its own."""
+    return ("targets_context" in self.lengths
+            and getattr(self.model, "USES_CONTEXT", False))
+
+  def _context_length(self) -> int:
+    return self.lengths.get("targets_context", self.lengths["targets"])
+
   def _segment_batch(self, tokens: np.ndarray, context: torch.Tensor,
                      context_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
     device = self.model.device
-    return {
+    shape = (tokens.shape[0], self.lengths["targets"],
+             self.model.audio_codec.n_dims)
+    out = {
         "encoder_input_tokens": torch.as_tensor(tokens, device=device),
-        "encoder_continuous_inputs": context,
-        "encoder_continuous_mask": context_mask,
-        "decoder_target_tokens": torch.zeros(
-            (tokens.shape[0], self.lengths["targets"],
-             self.model.audio_codec.n_dims), device=device),
+        "decoder_target_tokens": torch.zeros(shape, device=device),
     }
+    if self._uses_context:
+      out["encoder_continuous_inputs"] = context
+      out["encoder_continuous_mask"] = context_mask
+    else:
+      # The autoregressive model's teacher-forcing placeholder.
+      out["decoder_input_tokens"] = torch.zeros(shape, device=device)
+    return out
 
   def render_songs(self,
                    songs: Sequence[Sequence[np.ndarray]],
@@ -120,7 +140,7 @@ class Synthesizer:
     max_segments = max(len(s) for s in songs)
     max_tokens = max((len(seg) for s in songs for seg in s), default=1)
     l_in = self._input_length(max_tokens)
-    l_ctx = self.lengths["targets_context"]
+    l_ctx = self._context_length()
     l_tgt = self.lengths["targets"]
 
     tokens = np.zeros((max_segments, n_songs, l_in), np.int64)
@@ -203,7 +223,7 @@ class Synthesizer:
     if noise is None:
       noise = seeded_noise(0, device)
     codec = self.model.audio_codec
-    l_ctx = self.lengths["targets_context"]
+    l_ctx = self._context_length()
     l_in = self._input_length(max((len(s) for s in segments), default=1))
     context = torch.full((1, l_ctx, codec.n_dims), codec.pad_value,
                          dtype=torch.float32, device=device)

@@ -1,17 +1,19 @@
-"""Context diffusion model: the training loss and the sampler's predict
-path in PyTorch.
+"""Diffusion models: the training loss and the sampler's predict path in
+PyTorch.
 
-Port of music_spectrogram_diffusion_tpu/models/diffusion/model.py
-(`ContextDiffusionModel`: `loss_fn` with the condition drop of
-`_apply_train`, and `predict`). In `predict` the encoders run once per
-segment and the cross-attention K/V are projected once; every sampler step
-then runs the fused CFG pair as one 2B-row decoder forward whose
-unconditional rows skip cross-attention.
+Port of music_spectrogram_diffusion_tpu/models/diffusion/model.py:
+`DiffusionModelBase` (`loss_fn`, `predict`), `DiffusionModel` (notes only)
+and `ContextDiffusionModel` (notes and the previous segment's context). In
+`loss_fn` a row whose condition is dropped sees no tokens (and no context);
+its all-masked cross-attention is exactly zero (`zero_if_all_masked`). In
+`predict` the encoders run once per segment and the cross-attention K/V are
+projected once; every sampler step then runs the fused CFG pair as one
+2B-row decoder forward whose unconditional rows skip cross-attention.
 
 Batch schema:
   encoder_input_tokens      int   [B, L_in]
-  encoder_continuous_inputs f32   [B, L_ctx, n_dims]
-  encoder_continuous_mask   bool  [B, L_ctx]
+  encoder_continuous_inputs f32   [B, L_ctx, n_dims]  (context model only)
+  encoder_continuous_mask   bool  [B, L_ctx]          (context model only)
   decoder_target_tokens     f32   [B, L_tgt, n_dims]  (shape only in predict)
   decoder_target_mask       bool  [B, L_tgt]          (loss_fn only)
 """
@@ -21,16 +23,20 @@ from __future__ import annotations
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch import nn
 
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import network
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 
 
-class ContextDiffusionModel:
-  """Dual-encoder model with previous-segment context."""
+class DiffusionModelBase:
+  """The training loss and the sampler, shared by both diffusion models."""
 
-  def __init__(self, module: network.ContextTransformer,
+  # Whether predict() takes the previous segment's features as context.
+  USES_CONTEXT = False
+
+  def __init__(self, module: nn.Module,
                diffusion_config: dops.DiffusionConfig,
                audio_codec: codecs.MelGan):
     self.module = module
@@ -41,7 +47,7 @@ class ContextDiffusionModel:
   def device(self) -> torch.device:
     return self.module.decoder.spec_out_dense.kernel.device
 
-  def init(self, seed: int) -> "ContextDiffusionModel":
+  def init(self, seed: int) -> "DiffusionModelBase":
     """Random weights from `seed`, drawn on the CPU in float32 (so a seed
     gives the same weights on every device), then moved to the module's
     device."""
@@ -52,6 +58,15 @@ class ContextDiffusionModel:
       for name, t in self.module.state_dict().items():
         t.copy_(cpu.state_dict()[name].to(device))
     return self
+
+  def encode(self, batch: Mapping[str, torch.Tensor]):
+    raise NotImplementedError
+
+  def _apply_train(self, batch: Mapping[str, torch.Tensor], z_t, time,
+                   include: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The training forward, the condition dropped where `include` is 0."""
+    raise NotImplementedError
 
   def loss_fn(self, batch: Mapping[str, torch.Tensor], draws: dops.DrawsFn,
               dropout_generator: Optional[torch.Generator] = None
@@ -67,16 +82,8 @@ class ContextDiffusionModel:
         batch["decoder_target_tokens"], output_range=(-1.0, 1.0), clip=True)
     z_t, eps, time, include = dops.training_input(draws, targets,
                                                   self.diffusion_config)
-    tokens = batch["encoder_input_tokens"]
-    tokens = tokens * dops.bcast_left(include, tokens.shape).to(tokens.dtype)
-    ctx_mask = batch["encoder_continuous_mask"]
-    ctx_mask = ctx_mask * dops.bcast_left(include, ctx_mask.shape).to(
-        ctx_mask.dtype)
-    context = self.audio_codec.scale_features(
-        batch["encoder_continuous_inputs"], output_range=(-1.0, 1.0),
-        clip=True)
-    model_output = self.module(tokens, context, ctx_mask, z_t, time,
-                               generator=dropout_generator)
+    model_output = self._apply_train(batch, z_t, time, include,
+                                     dropout_generator)
     loss = dops.training_loss(targets, eps, z_t, time, model_output,
                               self.diffusion_config)
     mask = batch["decoder_target_mask"]
@@ -87,17 +94,8 @@ class ContextDiffusionModel:
         "loss_per_frame": loss / torch.clamp(n_frames, min=1.0),
         "n_frames": n_frames,
         "n_seqs": torch.tensor(float(targets.shape[0]), device=loss.device),
-        "context_frames": batch["encoder_continuous_mask"].sum(
-            dim=-1).float().mean(),
     }
     return loss, metrics
-
-  def encode(self, batch: Mapping[str, torch.Tensor]):
-    context = self.audio_codec.scale_features(
-        batch["encoder_continuous_inputs"], output_range=(-1.0, 1.0),
-        clip=True)
-    return self.module.encode(batch["encoder_input_tokens"], context,
-                              batch["encoder_continuous_mask"])
 
   @torch.inference_mode()
   def predict(self, batch: Mapping[str, torch.Tensor],
@@ -129,3 +127,50 @@ class ContextDiffusionModel:
                           device=self.device)
     return self.audio_codec.scale_to_features(pred_x0,
                                               input_range=(-1.0, 1.0))
+
+
+def _drop_tokens(tokens: torch.Tensor, include: torch.Tensor) -> torch.Tensor:
+  return tokens * dops.bcast_left(include, tokens.shape).to(tokens.dtype)
+
+
+class DiffusionModel(DiffusionModelBase):
+  """Notes-only model (JAX `DiffusionModel`): a dropped condition zeroes the
+  tokens, so the whole key mask is 0 and cross-attention returns zero."""
+
+  def encode(self, batch: Mapping[str, torch.Tensor]):
+    return self.module.encode(batch["encoder_input_tokens"])
+
+  def _apply_train(self, batch, z_t, time, include, generator):
+    return self.module(_drop_tokens(batch["encoder_input_tokens"], include),
+                       z_t, time, generator=generator)
+
+
+class ContextDiffusionModel(DiffusionModelBase):
+  """Dual-encoder model with previous-segment context; a dropped condition
+  zeroes the tokens and the context mask."""
+
+  USES_CONTEXT = True
+
+  def _context(self, batch):
+    return self.audio_codec.scale_features(
+        batch["encoder_continuous_inputs"], output_range=(-1.0, 1.0),
+        clip=True)
+
+  def encode(self, batch: Mapping[str, torch.Tensor]):
+    return self.module.encode(batch["encoder_input_tokens"],
+                              self._context(batch),
+                              batch["encoder_continuous_mask"])
+
+  def _apply_train(self, batch, z_t, time, include, generator):
+    ctx_mask = batch["encoder_continuous_mask"]
+    ctx_mask = ctx_mask * dops.bcast_left(include, ctx_mask.shape).to(
+        ctx_mask.dtype)
+    return self.module(_drop_tokens(batch["encoder_input_tokens"], include),
+                       self._context(batch), ctx_mask, z_t, time,
+                       generator=generator)
+
+  def loss_fn(self, batch, draws, dropout_generator=None):
+    loss, metrics = super().loss_fn(batch, draws, dropout_generator)
+    metrics["context_frames"] = batch["encoder_continuous_mask"].sum(
+        dim=-1).float().mean()
+    return loss, metrics

@@ -1,9 +1,10 @@
-"""Spectrogram-diffusion transformer (context model) in PyTorch.
+"""Spectrogram-diffusion transformers (notes-only and context) in PyTorch.
 
 Port of music_spectrogram_diffusion_tpu/models/diffusion/network.py: a
-T5.1.1 token encoder and a context encoder over the previous segment's
-spectrogram, and a FiLM-conditioned non-causal decoder that denoises a
-whole segment at once.
+T5.1.1 token encoder (`Transformer`, the notes-only model) or a token
+encoder and a context encoder over the previous segment's spectrogram
+(`ContextTransformer`), and a FiLM-conditioned non-causal decoder that
+denoises a whole segment at once.
 
 As in the JAX module, `precompute_cross_kv` projects the cross-attention
 K/V once per segment, and `decode(..., cond_rows=B)` runs the fused CFG
@@ -56,8 +57,9 @@ class NetworkConfig:
   dropout_rate: float = 0.1
   max_decoder_noise_time: float = 2e4
   cross_attend_style: str = "sum_cross_attends"  # | 'concat_encodings'
-  # Decides only how a fresh model's position tables are initialized.
-  position_encoding: str = "fixed"  # | 'fixed_permuted_offset'
+  # 'fixed' | 'fixed_permuted_offset' (frozen tables) |
+  # 'learnable_permuted_offset' | 'random' (trained tables)
+  position_encoding: str = "fixed"
   context_positions: str = "regular"  # | 'terminal_relative'
   max_input_length: int = 2048
   max_context_length: int = 256
@@ -85,21 +87,42 @@ def terminal_relative_positions(positions: torch.Tensor,
   return torch.gather(positions, -1, src)
 
 
+# position_encoding -> (sinusoidal table with permuted bands and random
+# phases, or not; a normal table, or not; trained), as JAX's
+# `position_encoder`.
+_POSITION_ENCODINGS = {
+    "fixed": (False, False, False),
+    "fixed_permuted_offset": (True, False, False),
+    "learnable_permuted_offset": (True, False, True),
+    "random": (False, True, True),
+}
+
+
 class PositionEncoder(layers.Embed):
-  """Position table, a parameter ('fixed' or 'fixed_permuted_offset')."""
+  """Position table, a parameter. 'fixed' and 'fixed_permuted_offset' are
+  sinusoidal and never trained; 'learnable_permuted_offset' starts as the
+  permuted table and is trained; 'random' starts as a normal of std
+  features^-0.5 (Flax's variance scaling, fan in) and is trained."""
 
   def __init__(self, cfg: NetworkConfig, max_length: int):
-    super().__init__(max_length, cfg.emb_dim, dtype=cfg.dtype, fixed=True)
-    self.position_encoding = cfg.position_encoding
-    if cfg.position_encoding not in ("fixed", "fixed_permuted_offset"):
+    if cfg.position_encoding not in _POSITION_ENCODINGS:
       raise ValueError(
           f"Unknown position_encoding: {cfg.position_encoding}")
+    permuted, self.normal_init, trained = _POSITION_ENCODINGS[
+        cfg.position_encoding]
+    super().__init__(max_length, cfg.emb_dim, dtype=cfg.dtype,
+                     fixed=not trained)
+    self.permuted = permuted
 
   def init_weights(self, generator):
-    permuted = self.position_encoding == "fixed_permuted_offset"
     with torch.no_grad():
-      self.embedding.copy_(layers.sinusoidal_table(
-          *self.embedding.shape, generator=generator if permuted else None))
+      if self.normal_init:
+        self.embedding.normal_(std=self.embedding.shape[1] ** -0.5,
+                               generator=generator)
+      else:
+        self.embedding.copy_(layers.sinusoidal_table(
+            *self.embedding.shape,
+            generator=generator if self.permuted else None))
 
 
 def _dropout(x, rate, generator, broadcast: bool = True):
@@ -399,6 +422,50 @@ class Decoder(nn.Module):
                      cond_rows)
     y = _dropout(self.decoder_norm(y), cfg.dropout_rate, generator)
     return self.spec_out_dense(y)
+
+
+class Transformer(nn.Module):
+  """Single-encoder (notes only) diffusion transformer; the decoder's one
+  cross-attention attends the token encoding (`concat_encodings` over one
+  encoding)."""
+
+  def __init__(self, cfg: NetworkConfig):
+    super().__init__()
+    self.config = cfg
+    self.encoder = TokenEncoder(cfg)
+    self.decoder = Decoder(cfg)
+
+  def init_weights(self, generator: torch.Generator) -> "Transformer":
+    """Random weights drawn as Flax draws them (its initializers and
+    scales, not its random numbers)."""
+    _init_children(self, generator)
+    return self
+
+  def encode(self, input_tokens: torch.Tensor,
+             generator: Optional[torch.Generator] = None
+             ) -> EncodingsAndMasks:
+    return [self.encoder(input_tokens, input_tokens > 0, generator)]
+
+  def precompute_cross_kv(self, encodings_and_masks) -> CrossKVCache:
+    return self.decoder.precompute_cross_kv(encodings_and_masks)
+
+  def decode(self, encodings_and_masks: EncodingsAndMasks,
+             input_tokens: torch.Tensor, noise_time: torch.Tensor,
+             cross_kv: Optional[CrossKVCache] = None,
+             cond_rows: Optional[int] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return self.decoder(encodings_and_masks, input_tokens, noise_time,
+                        cross_kv=cross_kv, cond_rows=cond_rows,
+                        generator=generator).to(self.config.dtype)
+
+  def forward(self, encoder_input_tokens, decoder_input_tokens,
+              decoder_noise_time,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The training forward (JAX `__call__`): dropout when `generator` is
+    given, none without."""
+    encodings = self.encode(encoder_input_tokens, generator)
+    return self.decode(encodings, decoder_input_tokens, decoder_noise_time,
+                       generator=generator)
 
 
 class ContextTransformer(nn.Module):

@@ -6,11 +6,15 @@ so `convert.py` moves a Flax tree over leaf for leaf. Parameters are
 trainable, except the fixed position tables (JAX stops their gradient) and
 an int8 `DenseGeneral`, which serves only.
 
-Every attention goes through `ops.attention`: `flash_attention_diff` when
-grad mode is on and its query, key or value needs a gradient (training),
-else `flash_attention` (serving, whose modules are frozen); every int8 `DenseGeneral` goes through
+Every `MultiHeadAttention` goes through `ops.attention`:
+`flash_attention_diff` when grad mode is on and its query, key or value
+needs a gradient (training), else `flash_attention` (serving, whose modules
+are frozen); every int8 `DenseGeneral` goes through
 `ops.quantize.quantized_matmul`. Those are the CUDA kernels on the card and
-their plain versions on the CPU.
+their plain versions on the CPU. The autoregressive decoder's causal
+self-attention and its single-frame decode steps (`DecodeCacheAttention`,
+and the cross-attention of a decode step) run `dot_product_attention`, plain
+einsums, as the JAX package runs them in einsums outside its kernels.
 
 Dropout draws from an explicit `torch.Generator` passed to `forward`; with
 none (or rate 0) it is off. It cannot reproduce `jax.random`'s bits, only
@@ -251,6 +255,76 @@ class MultiHeadAttention(nn.Module):
     return self.out(x)
 
 
+def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
+                          value: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None, *,
+                          dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None,
+                          kv_transposed: bool = False) -> torch.Tensor:
+  """Plain softmax attention (the JAX package's `dot_product_attention`):
+  q [b, q, h, d], k and v [b, kv, h, d] ([b, h, kv, d] if `kv_transposed`),
+  an additive bias broadcast to [b, h, q, kv]; out [b, q, h, d] in the
+  query's dtype.
+
+  Scores and softmax are float32 in every dtype; JAX's bf16 path rounds
+  them to bf16 (a known deviation, stated in the tests). Dropout, with a
+  generator and a positive rate, keeps or drops each key for every query
+  of a head at once, as JAX draws it.
+  """
+  k_sub = "bhkd" if kv_transposed else "bkhd"
+  weights = torch.einsum(f"bqhd,{k_sub}->bhqk", query.float(), key.float())
+  if bias is not None:
+    weights = weights + bias.float()
+  weights = torch.softmax(weights, dim=-1)
+  if generator is not None and dropout_rate > 0.0:
+    b, h, _, k = weights.shape
+    keep = torch.rand(b, h, 1, k, generator=generator,
+                      device=weights.device) < 1.0 - dropout_rate
+    weights = weights * (keep.float() / (1.0 - dropout_rate))
+  return torch.einsum(f"bhqk,{k_sub}->bqhd", weights,
+                      value.float()).to(query.dtype)
+
+
+class DecodeCacheAttention(MultiHeadAttention):
+  """The autoregressive decoder's self-attention (JAX `DecodeCacheAttention`,
+  the same parameters as `MultiHeadAttention`), in plain einsums.
+
+  `forward` attends over the whole target under an additive bias (the
+  teacher-forced pass, with the causal mask). `step` takes one frame
+  [b, 1, emb], writes its key and value at position `index` of a
+  `KVCache` and attends over positions 0..index: what JAX's decode step
+  computes, where the later positions are masked out.
+  """
+
+  def forward(self, inputs: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    x = dot_product_attention(
+        self.query(inputs), self.key(inputs), self.value(inputs), bias,
+        dropout_rate=self.dropout_rate, generator=generator)
+    return self.out(x)
+
+  def step(self, inputs: torch.Tensor, cache: "KVCache",
+           index: int) -> torch.Tensor:
+    cache.key[:, :, index] = self.key(inputs)[:, 0]
+    cache.value[:, :, index] = self.value(inputs)[:, 0]
+    x = dot_product_attention(self.query(inputs),
+                              cache.key[:, :, :index + 1],
+                              cache.value[:, :, :index + 1],
+                              kv_transposed=True)
+    return self.out(x)
+
+
+class KVCache:
+  """One decoder layer's self-attention cache: key and value, each
+  [b, h, length, d], written one position a decode step."""
+
+  def __init__(self, batch: int, heads: int, length: int, head_dim: int, *,
+               dtype, device):
+    shape = (batch, heads, length, head_dim)
+    self.key = torch.zeros(shape, dtype=dtype, device=device)
+    self.value = torch.zeros(shape, dtype=dtype, device=device)
+
+
 class Embed(nn.Module):
   """Integer-id embedding table [num_embeddings, features]; a `fixed` table
   is never trained (JAX stops its gradient)."""
@@ -268,14 +342,29 @@ class Embed(nn.Module):
     return F.embedding(ids.long(), self.embedding).to(self.dtype)
 
 
-class FixedEmbed(Embed):
-  """A fixed sinusoidal table (position ids -> rows), never trained."""
+class FixedEmbed(nn.Module):
+  """A fixed sinusoidal table (position ids -> rows), never trained.
 
-  def __init__(self, features: int, max_length: int = 2048, *,
-               dtype=torch.float32):
-    super().__init__(max_length, features, dtype=dtype, fixed=True)
-    with torch.no_grad():
-      self.embedding.copy_(sinusoidal_table(max_length, features))
+  As in Flax, where the table is computed and is no parameter, it is a
+  buffer that no state_dict carries. `step(i)` is the decode position: the
+  row of the i-th single-frame decode step (JAX counts the steps in its
+  decode cache, starting at uint32 max so that the cache-init pass takes
+  one; the port's caller passes i).
+  """
+
+  def __init__(self, features: int, max_length: int = 2048):
+    super().__init__()
+    self.register_buffer("embedding", sinusoidal_table(max_length, features),
+                         persistent=False)
+
+  def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    if ids.dtype.is_floating_point:
+      raise ValueError("FixedEmbed inputs must be integers.")
+    return F.embedding(ids.long(), self.embedding)
+
+  def step(self, index: int) -> torch.Tensor:
+    """Row `index` as [1, features]."""
+    return self.embedding[index:index + 1]
 
 
 class RMSNorm(nn.Module):
@@ -334,6 +423,45 @@ def combine_masks(*masks: Optional[torch.Tensor],
   for other in masks[1:]:
     mask = torch.logical_and(mask, other > 0)
   return mask.to(dtype)
+
+
+def make_causal_mask(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+  """[b, len] -> [b, 1, len, len], 1 where the key is at or before the
+  query."""
+  idxs = torch.arange(x.shape[-1], device=x.device).expand(x.shape)
+  return make_attention_mask(idxs, idxs, torch.greater_equal, dtype=dtype)
+
+
+def combine_biases(*biases: Optional[torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+  """The sum of the given biases (None entries skipped)."""
+  biases = [b for b in biases if b is not None]
+  if not biases:
+    return None
+  out = biases[0]
+  for other in biases[1:]:
+    out = out + other
+  return out
+
+
+def make_decoder_mask(decoder_target_tokens: torch.Tensor, dtype,
+                      decoder_causal_attention: Optional[torch.Tensor] = None,
+                      decoder_segment_ids: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+  """Causal and padding (and optional prefix-LM and packing) decoder
+  self-attention mask [b, 1, len, len]."""
+  causal = make_causal_mask(decoder_target_tokens, dtype=dtype)
+  if decoder_causal_attention is not None:
+    inputs_mask = make_attention_mask(
+        decoder_causal_attention, decoder_causal_attention,
+        torch.logical_and, dtype=dtype)
+    causal = torch.logical_or(causal > 0, inputs_mask > 0).to(dtype)
+  valid = decoder_target_tokens > 0
+  masks = [causal, make_attention_mask(valid, valid, dtype=dtype)]
+  if decoder_segment_ids is not None:
+    masks.append(make_attention_mask(decoder_segment_ids, decoder_segment_ids,
+                                     torch.eq, dtype=dtype))
+  return combine_masks(*masks, dtype=dtype)
 
 
 def zero_if_all_masked(y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

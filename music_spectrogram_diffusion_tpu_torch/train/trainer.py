@@ -1,5 +1,6 @@
 """The train step: Adafactor written out by hand, the warmup-constant LR,
-MultiSteps accumulation, and one step of the context model.
+MultiSteps accumulation, and one step of a model of any family (context or
+notes-only diffusion, or autoregressive).
 
 Port of music_spectrogram_diffusion_tpu/train/trainer.py on one device
 (the mesh waits for the port's parallelism). The JAX package trains with
@@ -13,7 +14,8 @@ Parameters live in the model's module, in float32 whatever the
 experiment's compute dtype (bfloat16 training casts them where they are
 used, as Flax's param_dtype); the optimizer works on a dict of its
 trainable parameters by name. A step's randomness (the diffusion draws and
-dropout) is seeded from (seed, step), as JAX folds the step into its key,
+dropout; the autoregressive loss takes no draws) is seeded from (seed,
+step), as JAX folds the step into its key,
 so a resumed run reproduces the steps it continues. `Trainer.eval_step`
 is JAX's deterministic eval pass.
 """
@@ -27,11 +29,10 @@ import numpy as np
 import torch
 
 from music_spectrogram_diffusion_tpu_torch import config as cfg_lib
-from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.data import core
 from music_spectrogram_diffusion_tpu_torch.infer import inference
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
-    model as diffusion_model, network as diffusion_network)
+    model as diffusion_model)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 
 Tensors = Dict[str, torch.Tensor]
@@ -172,23 +173,18 @@ def make_optimizer(train_cfg: cfg_lib.TrainConfig):
 
 
 def build_model(experiment: cfg_lib.ExperimentConfig, *, seed: int = 0,
-                device="cuda") -> diffusion_model.ContextDiffusionModel:
-  """The context model to train, with random weights from `seed`, on
-  `device` (which must exist: 'cuda' without a card raises).
+                device="cuda") -> inference.Model:
+  """The model to train, of the experiment's family, with random weights
+  from `seed`, on `device` (which must exist: 'cuda' without a card
+  raises).
 
   It computes in the experiment's dtype ('float32' or 'bfloat16') with
   float32 parameters, and rematerializes every layer when
   `experiment.remat` (e.g. `dataclasses.replace(experiment,
   dtype="bfloat16", remat=True)`)."""
-  if experiment.model_family != "diffusion" or not experiment.with_context:
-    raise NotImplementedError(
-        f"{experiment.model_family} (with_context={experiment.with_context})"
-        " is not ported; the port trains the context diffusion family")
   dev = inference.resolve_device(device)
-  module = diffusion_network.ContextTransformer(experiment.network())
-  return diffusion_model.ContextDiffusionModel(
-      module.to(dev).train(), experiment.diffusion,
-      codecs.get_codec(experiment.codec_name)).init(seed)
+  module = inference.network(experiment)
+  return inference.wrap(experiment, module.to(dev).train()).init(seed)
 
 
 # The eval pass's draws (eps, time, the condition drop): one fixed
@@ -227,9 +223,12 @@ class Trainer:
     state, metrics = trainer.train_step(state, batch, seed)
   """
 
-  def __init__(self, model: diffusion_model.ContextDiffusionModel,
+  def __init__(self, model: inference.Model,
                train_cfg: cfg_lib.TrainConfig):
     self.model = model
+    # The diffusion loss takes the step's draws; the autoregressive one
+    # takes none (JAX's trainer calls either signature).
+    self.takes_draws = isinstance(model, diffusion_model.DiffusionModelBase)
     self.train_cfg = train_cfg
     self.optimizer = make_optimizer(train_cfg)
     self.params: Tensors = {n: p for n, p in model.module.named_parameters()
@@ -249,7 +248,7 @@ class Trainer:
     the loss does not reach gets a zero gradient, as in JAX."""
     for p in self.params.values():
       p.grad = None
-    loss, metrics = self.model.loss_fn(batch, draws, dropout_generator)
+    loss, metrics = self._loss_fn(batch, draws, dropout_generator)
     loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in self.params.items()}
@@ -266,8 +265,13 @@ class Trainer:
     they are not JAX's threefry draws for its PRNGKey(0)."""
     batch = batch_to_device(batch, self.device)
     draws = torch.Generator(device=self.device).manual_seed(EVAL_DRAWS_SEED)
-    _, metrics = self.model.loss_fn(batch, dops.generator_draws(draws), None)
+    _, metrics = self._loss_fn(batch, dops.generator_draws(draws), None)
     return metrics
+
+  def _loss_fn(self, batch, draws, dropout_generator):
+    if self.takes_draws:
+      return self.model.loss_fn(batch, draws, dropout_generator)
+    return self.model.loss_fn(batch, dropout_generator)
 
   def train_step(self, state: TrainState, batch: Mapping[str, Any],
                  seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

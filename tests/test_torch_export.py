@@ -254,3 +254,76 @@ def test_export_tool_writes_params_config_and_step(exported):
     keys = [k for k in z.files if k not in ("step", "config_json")]
   assert keys and all(k.startswith("params/") for k in keys)
   assert "params/decoder/spec_out_dense/kernel" in keys
+
+
+# ---------------------------------------------------------------------------
+# A T5X directory (the published checkpoints' format) through the tool.
+# ---------------------------------------------------------------------------
+
+# This repo's module names -> the reference's, the inverse of
+# checkpoints.remap_t5x_params for an autoregressive tree.
+_TO_REFERENCE = (("pre_attention_norm", "pre_attention_layer_norm"),
+                 ("pre_self_attention_norm", "pre_self_attention_layer_norm"),
+                 ("pre_cross_attention_norm",
+                  "pre_cross_attention_layer_norm"),
+                 ("pre_mlp_norm", "pre_mlp_layer_norm"))
+
+
+def write_t5x(directory: str, params) -> None:
+  """A T5X checkpoint directory as T5X writes one: a msgpack `checkpoint`
+  index whose optimizer target holds a TensorStore (zarr) spec for each
+  leaf, the arrays in zarr directories beside it."""
+  import tensorstore as ts
+  os.makedirs(directory)
+  specs = {}
+  for path, leaf in convert.flatten(params).items():
+    for ours, theirs in _TO_REFERENCE:
+      path = path.replace(ours, theirs)
+    arr = np.asarray(leaf)
+    rel = "target." + path.replace("/", ".")
+    spec = {"driver": "zarr", "kvstore": {"driver": "file", "path": rel}}
+    ts.open(dict(spec, kvstore={"driver": "file",
+                                "path": os.path.join(directory, rel)},
+                 metadata={"shape": list(arr.shape),
+                           "dtype": arr.dtype.str}),
+            create=True).result().write(arr).result()
+    specs[path] = spec
+  index = {"optimizer": {"target": convert.unflatten(specs)}}
+  with open(os.path.join(directory, "checkpoint"), "wb") as f:
+    f.write(flax.serialization.msgpack_serialize(index))
+
+
+def test_t5x_directory_exports_and_serves_as_jax(tmp_path):
+  experiment = dataclasses.replace(jax_config.preset("ar_tiny"),
+                                   dropout_rate=0.0)
+  model = jax_inference.build_model(experiment)
+  r = np.random.RandomState(0)
+  tokens = r.randint(1, 1000, (2, 32)).astype(np.int32)
+  tokens[1, 20:] = 0
+  frames = r.randn(2, 8, 128).astype(np.float32)
+  params = jax.jit(lambda key: model.init_variables(key, {
+      "encoder_input_tokens": tokens.shape,
+      "decoder_target_tokens": frames.shape}))(
+          jax.random.PRNGKey(0))["params"]
+  t5x_dir = str(tmp_path / "checkpoint_7")
+  write_t5x(t5x_dir, jax.device_get(params))
+  loaded = jax_ckpt.load_t5x_checkpoint(t5x_dir)
+  want = model.module.apply({"params": loaded}, jnp.asarray(tokens),
+                            jnp.asarray(frames), jnp.asarray(frames),
+                            enable_dropout=False)
+
+  npz = str(tmp_path / "ar.npz")
+  arrays = export_tool().export(t5x_dir, npz, preset="ar_tiny")
+  assert int(arrays["step"]) == 7
+  assert "params/encoder/layers_0/pre_attention_norm/scale" in arrays
+  served = inference.load_export(npz, device="cpu")
+  assert served.step == 7
+  assert served.experiment.model_family == "autoregressive"
+  with torch.no_grad():
+    got = served.model.module(torch.from_numpy(tokens),
+                              torch.from_numpy(frames))
+  np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                             atol=1e-5)
+  with pytest.raises(ValueError, match="--preset is for T5X"):
+    export_tool().export(t5x_dir.replace("checkpoint_7", "nothing"),
+                         npz, preset="ar_tiny")

@@ -1,9 +1,9 @@
 """The port stands alone: importing every module of it (and chip_smoke.py
 and the port's card tools, tools/torch_*.py) pulls in neither JAX nor the
 JAX package, and a request for the card on a
-machine without one raises instead of running on the CPU: serving, the
-MIDI CLI, the vocoders (weights-free and trained), and training (the
-trainer and cli/train.py)."""
+machine without one raises instead of running on the CPU: serving (every
+model family), the MIDI CLI, the vocoders (weights-free and trained), and
+training (the trainer and cli/train.py)."""
 
 import os
 import subprocess
@@ -41,6 +41,11 @@ import tempfile
 never_written = tempfile.mkdtemp()
 for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
              lambda: inference.build_model(config.preset("context_tiny")),
+             lambda: inference.InferenceModel(config.preset("ar_tiny")),
+             lambda: inference.InferenceModel(config.preset("diffusion_tiny"),
+                                              compute_dtype="int8"),
+             lambda: trainer.build_model(config.preset("ar_tiny")),
+             lambda: trainer.build_model(config.preset("diffusion_tiny")),
              lambda: inference.InferenceModel(config.preset("context_tiny"),
                                               compute_dtype="int8"),
              lambda: synthesize_midi.build_model(synthesize_midi.parse_args(

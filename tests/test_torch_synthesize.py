@@ -3,6 +3,16 @@ song of two chained segments through `Synthesizer.render_song` in the JAX
 package and in the port, with the same params (moved by convert.py) and
 the same noise (JAX's draws replayed through the port's provider), with
 the serving sampler (sde-dpm++, CFG weight 5 in the interval [0.1, 0.8]).
+The other two families render as JAX's tests/test_synthesize.py renders
+them: a notes-only model a song of 2 independent segments (the limit and
+the output scaling below, the sampler at 20 steps: at 10, the untrained
+network's gain took 23 of 8192 values of one frame up to 1.7e-2 from
+JAX's, measured, where 20 steps give at most 1.4e-3), an autoregressive
+model (deterministic head) a
+song of 1 segment of 32 frames, within 3e-4 (nothing is random; the limit
+tests/test_torch_network.py gives a decoder, float32 sums in other orders
+fed back frame by frame). Batched with another song, a song's mel is the
+same as alone, within the same limits.
 
 The random init's output projection is scaled by 0.1, the same on both
 sides. At Flax's init scale the untrained network's eps is so large that
@@ -23,6 +33,7 @@ import torch
 
 from music_spectrogram_diffusion_tpu import config as jax_config
 from music_spectrogram_diffusion_tpu.audio import codecs as jax_codecs
+from music_spectrogram_diffusion_tpu.infer import inference as jax_inference
 from music_spectrogram_diffusion_tpu.infer import synthesize as jax_synth
 from music_spectrogram_diffusion_tpu.models.diffusion import (
     model as jax_model, network as jax_network)
@@ -157,3 +168,81 @@ def test_wav_round_trip(renders, tmp_path):
   rate, back = wav_io.decode_wav(path.read_bytes())
   assert rate == 16000 and back.shape == audio.shape
   np.testing.assert_allclose(back, audio, atol=1 / 16384)
+
+
+NOTES_LENGTHS = {"inputs": 64, "targets": 32}
+NOTES_STEPS = 20
+
+
+def _scaled_init(model, shapes):
+  params = flax.core.unfreeze(jax.jit(
+      lambda key: model.init_variables(key, shapes))(
+          jax.random.PRNGKey(0))["params"])
+  out = params["decoder"]["spec_out_dense"]
+  out["kernel"] = out["kernel"] * 0.1
+  return params
+
+
+def _port_model(preset, params, steps=None):
+  experiment = dataclasses.replace(
+      config.preset(preset), dropout_rate=0.0,
+      task_lengths=config.TaskLengths(inputs=64, targets=32))
+  if steps:
+    experiment = inference.with_sampler(
+        experiment, sampler_steps=steps, sampler_name="sde-dpm++",
+        guidance_interval=INTERVAL)
+  module = inference.build_model(experiment, device="cpu").module
+  return inference.InferenceModel(
+      experiment, state_dict=convert.flax_to_state_dict(params, module),
+      device="cpu")
+
+
+def _other_song():
+  return [np.arange(3, 40, 2, dtype=np.int64), np.arange(1, 9)]
+
+
+def test_notes_only_song_matches_jax_and_the_batch():
+  segments = _segments()
+  jax_cfg = jd.DiffusionConfig(
+      guidance=jd.GuidanceConfig(interval=INTERVAL),
+      sampler=jd.SamplerConfig(name="sde-dpm++", num_steps=NOTES_STEPS))
+  net = jax_network.Transformer(config=jax_config.network_config(
+      "tiny", with_context=False, dropout_rate=0.0))
+  model = jax_model.DiffusionModel(net, jax_cfg, jax_codecs.MelGan())
+  params = _scaled_init(model, {
+      "encoder_input_tokens": (1, 64), "decoder_target_tokens": (1, 32, 128)})
+  rng = jax.random.PRNGKey(5)
+  want = jax_synth.Synthesizer(model, params, NOTES_LENGTHS).render_song(
+      segments, rng=rng, vocode=False)
+
+  port = _port_model("diffusion_tiny", params, NOTES_STEPS)
+  assert port.task_lengths == NOTES_LENGTHS
+  synth = port.synthesizer()
+  assert not synth._uses_context
+  got = synth.render_song(segments, noise=_jax_noise(rng), vocode=False)
+  assert got.mel.shape == want.mel.shape == (64, 128)
+  np.testing.assert_allclose(got.mel, want.mel, rtol=0, atol=2e-3)
+  both = synth.render_songs([segments, _other_song()], noise=_jax_noise(rng),
+                            vocode=False)
+  np.testing.assert_allclose(both[0].mel, got.mel, rtol=0, atol=2e-3)
+
+
+def test_autoregressive_song_matches_jax_and_the_batch():
+  exp = dataclasses.replace(jax_config.preset("ar_tiny"), dropout_rate=0.0)
+  model = jax_inference.build_model(exp)
+  params = _scaled_init(model, {
+      "encoder_input_tokens": (1, 64), "decoder_target_tokens": (1, 32, 128)})
+  segment = _segments()[:1]
+  want = jax_synth.Synthesizer(model, params, NOTES_LENGTHS).render_song(
+      segment, rng=jax.random.PRNGKey(0), vocode=False)
+
+  port = _port_model("ar_tiny", params)
+  synth = port.synthesizer()
+  assert not synth._uses_context
+  got = synth.render_song(segment, vocode=False)
+  assert got.mel.shape == want.mel.shape == (32, 128)
+  assert np.isfinite(got.mel).all()
+  np.testing.assert_allclose(got.mel, want.mel, rtol=3e-4, atol=3e-4)
+  both = synth.render_songs([segment, _other_song()], vocode=False)
+  np.testing.assert_allclose(both[0].mel, got.mel, rtol=3e-4, atol=3e-4)
+  assert both[1].mel.shape == (64, 128)

@@ -43,6 +43,8 @@ from music_spectrogram_diffusion_tpu_torch.data import synthetic, tasks
 from music_spectrogram_diffusion_tpu_torch.infer import inference
 from music_spectrogram_diffusion_tpu_torch.midi import vocabularies
 from music_spectrogram_diffusion_tpu_torch.models import layers
+from music_spectrogram_diffusion_tpu_torch.models.autoregressive import (
+    model as ar_model)
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
     model, network)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as d
@@ -498,3 +500,70 @@ def test_cli_refuses_what_is_not_ported(flags, tmp_path):
     argv.append("--synthetic")
   with pytest.raises(SystemExit):
     train_cli.parse_args(argv + flags)
+
+
+# ---------------------------------------------------------------------------
+# The notes-only and autoregressive families, and the data flags.
+# ---------------------------------------------------------------------------
+
+
+def test_notes_only_batches_equal_jax():
+  """The task without context (notes-only and autoregressive models):
+  chunks without context frames, and the teacher-forcing shift."""
+  lengths = {"inputs": 64, "targets": 16}
+  jt, pt = _jax_task(), _port_task()
+  jt.with_context = pt.with_context = False
+  want = iter(jt.model_dataset(lengths, training=True, seed=7).repeat()
+              .batch(2))
+  got = iter(pt.model_dataset(lengths, seed=7).repeat().batch(2))
+  for _ in range(3):
+    w, g = next(want), next(got)
+    assert set(g) == set(w) == {"encoder_input_tokens",
+                                "decoder_target_tokens",
+                                "decoder_input_tokens", "decoder_target_mask"}
+    for k in w:
+      np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+  np.testing.assert_array_equal(g["decoder_input_tokens"][:, 1:],
+                                g["decoder_target_tokens"][:, :-1])
+
+
+@pytest.mark.parametrize("preset,family", [
+    ("diffusion_tiny", model.DiffusionModel),
+    ("ar_tiny", ar_model.AutoregressiveModel)])
+def test_cli_trains_each_family_on_the_cpu(preset, family, tmp_path):
+  state, t = train_cli.main([
+      "--synthetic", "--preset", preset, "--model_dir", str(tmp_path),
+      "--batch", "2", "--synthetic_examples", "2", "--log_period", "1",
+      "--steps", "2", "--device", "cpu"])
+  assert state.step == 2 and isinstance(t.model, family)
+  lines = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
+  assert [m["step"] for m in lines] == [1, 2]
+  for m in lines:
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+  served = inference.load_checkpoint(str(tmp_path), device="cpu")
+  assert isinstance(served.model, family)
+
+
+def test_cli_takes_the_jax_data_flags(tmp_path, monkeypatch):
+  """A JAX command line with --shuffle_buffer and --data_threads parses
+  and its values reach model_dataset."""
+  argv = ["--synthetic", "--preset", "context_tiny", "--model_dir",
+          str(tmp_path), "--shuffle_buffer", "0", "--data_threads", "1"]
+  args = train_cli.parse_args(argv + ["--device", "cpu"])
+  assert (args.shuffle_buffer, args.data_threads) == (0, 1)
+  defaults = train_cli.parse_args(argv[:5])
+  assert (defaults.shuffle_buffer, defaults.data_threads) == (256, 8)
+  seen = []
+
+  class Reached(Exception):
+    pass
+
+  def model_dataset(self, lengths, seed=0, shuffle_buffer_size=256,
+                    num_threads=1):
+    seen.append((shuffle_buffer_size, num_threads))
+    raise Reached
+
+  monkeypatch.setattr(tasks.Task, "model_dataset", model_dataset)
+  with pytest.raises(Reached):
+    train_cli.main(argv + ["--device", "cpu"])
+  assert seen == [(0, 1)]
