@@ -67,7 +67,7 @@
 #include <atomic>
 #include <cstring>
 
-#include "attention_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -370,96 +370,6 @@ int launch_gemv(const Params& p, cudaStream_t stream) {
 
 constexpr int kBK = 64;  // K a pipeline stage
 
-// A shared-memory matrix descriptor of a K-major bf16 tile in the 128-byte
-// swizzle: rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored at
-// chunk c ^ (r % 8), groups of 8 rows 1024 bytes apart (the stride byte
-// offset), the tile on a 1024-byte boundary. Adding 2 (32 bytes) to the
-// descriptor steps k by 16.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = msd::smem_addr(tile);
-  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// Byte offset of 16-byte chunk c of row r in such a tile.
-__device__ __forceinline__ int sw128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d += a b for one m64n64k16 step: a K-major and b N-major (transposed)
-// bf16 tiles in shared memory, d 32 f32 accumulators a thread.
-__device__ __forceinline__ void wgmma_m64n64_tb(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// The descriptor of an N-major bf16 tile in the 128-byte swizzle: atoms of
-// 8 k rows x 64 columns (128 bytes a row, 16-byte chunk j of row r at
-// j ^ r), 1024 bytes each; `n_stride` bytes between atoms along N (the
-// leading byte offset), 1024 bytes between the 8-row groups along K (the
-// stride byte offset).
-__device__ __forceinline__ uint64_t sw128_n_desc(const void* tile, int n_stride) {
-  const uint64_t addr = msd::smem_addr(tile);
-  return ((addr & 0x3FFFFull) >> 4) | (static_cast<uint64_t>(n_stride >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(msd::smem_addr(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   msd::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(msd::smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-// A 2-D box of `map` at (c0 innermost, c1) into shared memory; completion
-// counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%2, %3}], [%4];\n" ::"r"(msd::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(msd::smem_addr(bar))
-      : "memory");
-}
-
 // The tile: WGS warpgroups, each 64 rows of a (64 WGS) x 64 output tile,
 // a ring of STAGES stages.
 template <int WGS, int STAGES, typename TIn_>
@@ -500,10 +410,10 @@ __global__ void __launch_bounds__(Cfg::kThreads)
     const int stage = kt % kStages, k0 = k_begin + kt * kBK;
     unsigned char* dx = s_x + stage * Cfg::kXStage;
     if (tid == 0) {
-      fence_async_smem();
-      mbar_expect_tx(bar + stage, Cfg::kQStage + (Cfg::kTmaX ? Cfg::kXStage : 0));
-      tma_load(s_q + stage * Cfg::kQStage, &map_q, n0, k0, bar + stage);
-      if constexpr (Cfg::kTmaX) tma_load(dx, &map_x, k0, m0, bar + stage);
+      msd::fence_async_smem();
+      msd::mbar_expect_tx(bar + stage, Cfg::kQStage + (Cfg::kTmaX ? Cfg::kXStage : 0));
+      msd::tma_load(s_q + stage * Cfg::kQStage, &map_q, n0, k0, bar + stage);
+      if constexpr (Cfg::kTmaX) msd::tma_load(dx, &map_x, k0, m0, bar + stage);
     }
     if constexpr (!Cfg::kTmaX) {
       const float* x = static_cast<const float*>(p.x);
@@ -518,7 +428,7 @@ __global__ void __launch_bounds__(Cfg::kThreads)
           h = make_uint4(msd::pack_bf16(a.x, a.y), msd::pack_bf16(a.z, a.w),
                          msd::pack_bf16(b.x, b.y), msd::pack_bf16(b.z, b.w));
         }
-        *reinterpret_cast<uint4*>(dx + sw128(r, c)) = h;
+        *reinterpret_cast<uint4*>(dx + msd::sw128(r, c)) = h;
       }
     }
   };
@@ -539,15 +449,15 @@ __global__ void __launch_bounds__(Cfg::kThreads)
       widen4(v.y, hi);
       // atom nc / 8 (columns 64 a), 8-row group k / 8, row k % 8, chunk nc % 8.
       *reinterpret_cast<uint4*>(sb + (nc / 8) * (kBK * 128) + (k / 8) * 1024 +
-                                sw128(k % 8, nc % 8)) =
+                                msd::sw128(k % 8, nc % 8)) =
           make_uint4(msd::pack_bf16(lo[0], lo[1]), msd::pack_bf16(lo[2], lo[3]),
                      msd::pack_bf16(hi[0], hi[1]), msd::pack_bf16(hi[2], hi[3]));
     }
   };
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(bar + s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages; ++s) msd::mbar_init(bar + s, 1);
+    msd::fence_mbar_init();
   }
   __syncthreads();
 
@@ -557,25 +467,25 @@ __global__ void __launch_bounds__(Cfg::kThreads)
   const int wg = tid / 128;
 
   for (int s = 0; s < kStages - 1 && s < num_k; ++s) load_stage(s);
-  mbar_wait(bar, 0);
+  msd::mbar_wait(bar, 0);
   widen(0);
 
   for (int kt = 0; kt < num_k; ++kt) {
     // Step kt + 1 has landed; step kt's widened weights (and f32 x) go to
     // the tensor cores' proxy; every thread is done with step kt - 1.
-    if (kt + 1 < num_k) mbar_wait(bar + (kt + 1) % kStages, ((kt + 1) / kStages) & 1);
-    fence_async_smem();
+    if (kt + 1 < num_k) msd::mbar_wait(bar + (kt + 1) % kStages, ((kt + 1) / kStages) & 1);
+    msd::fence_async_smem();
     __syncthreads();
     if (kt + kStages - 1 < num_k) load_stage(kt + kStages - 1);
 
-    const uint64_t a = sw128_desc(s_x + (kt % kStages) * Cfg::kXStage + wg * 64 * 128);
-    const uint64_t b = sw128_n_desc(s_b + (kt % 2) * Cfg::kBBuf, kBK * 128);
-    wgmma_fence();
+    const uint64_t a = msd::sw128_desc(s_x + (kt % kStages) * Cfg::kXStage + wg * 64 * 128);
+    const uint64_t b = msd::sw128_n_desc(s_b + (kt % 2) * Cfg::kBBuf, kBK * 128);
+    msd::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_m64n64_tb(acc, a + 2 * kk, b + 128 * kk);
-    wgmma_commit();
+    for (int kk = 0; kk < kBK / 16; ++kk) msd::wgmma_m64n64_tb(acc, a + 2 * kk, b + 128 * kk);
+    msd::wgmma_commit();
     if (kt + 1 < num_k) widen(kt + 1);  // while the tensor cores run
-    wgmma_wait_all();
+    msd::wgmma_wait_all();
   }
 
   if (p.splits > 1) {
@@ -636,51 +546,14 @@ __global__ void __launch_bounds__(Cfg::kThreads)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess) {
-      f = nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A 2-D map of a row-major [rows, cols] tensor, boxes of box_rows x
-// box_cols elements.
-bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem_bytes,
-              int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int WGS, int STAGES, typename TIn>
 int launch_wgmma(const Params& p, cudaStream_t stream) {
   using Cfg = Wgmma<WGS, STAGES, TIn>;
   CUtensorMap map_x, map_q;
   std::memset(&map_x, 0, sizeof(map_x));
-  if (!make_map(&map_q, p.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.K, p.N, kBK, Cfg::kBN,
+  if (!msd::make_map_2d(&map_q, p.q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.K, p.N, kBK, Cfg::kBN,
                 CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      (Cfg::kTmaX && !make_map(&map_x, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.M, p.K,
+      (Cfg::kTmaX && !msd::make_map_2d(&map_x, p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.M, p.K,
                                Cfg::kBM, kBK, CU_TENSOR_MAP_SWIZZLE_128B))) {
     return (int)cudaErrorInvalidValue;
   }

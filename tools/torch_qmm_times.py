@@ -52,12 +52,12 @@ from pathlib import Path
 
 FAULTS = {
     "fault_skip_tile": {
-        "    const uint64_t a = sw128_desc(":
+        "    const uint64_t a = msd::sw128_desc(":
         "    if (split == 0 && kt == 1) {\n"
         "      if (kt + 1 < num_k) widen(kt + 1);\n"
         "      continue;\n"
         "    }\n"
-        "    const uint64_t a = sw128_desc(",
+        "    const uint64_t a = msd::sw128_desc(",
         "      const bool ok = k0 + kl + j * kGemvLanes < kps;":
         "      const bool ok = k0 + kl + j * kGemvLanes < kps &&\n"
         "                      !(split == 0 && k0 + kl + j * kGemvLanes >= 64 &&\n"
