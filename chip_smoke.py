@@ -257,6 +257,9 @@ BF16_GRAD_RMS_TOLERANCE = 0.02
 # The remat check's batch (phase 20), and the CLI's batch with remat (phase
 # 21): without remat, float32 activations take about 1.9 GiB an example.
 REMAT_BATCH, CLI_BATCH = 2, 64
+# Phase 20's second bf16 run: a batch whose step the host does not bound
+# (bf16 with remat takes about 0.6 GiB an example), for a few steps.
+BF16_LARGE_BATCH, BF16_LARGE_STEPS = 32, 3
 # One training step, card vs CPU (phase 12). The timing embedding takes
 # sin/cos of arguments up to 2e4 rad (0.37 x 2e4 = 7400 in the check, where
 # one ulp is 4.9e-4 rad), so the card's and the CPU's float32 exp move it
@@ -331,8 +334,14 @@ def card_line() -> str:
 def ptxas_usage(name: str) -> list:
   """Registers and spills of each compiled kernel of `csrc/<name>.cu`, from
   its `-Xptxas -v` report, one line per entry function."""
+  return ptxas_lines(_build.compiler_report(name))
+
+
+def ptxas_lines(report: str) -> list:
+  """Registers and spills of each entry function of an `-Xptxas -v`
+  report, one line each."""
   lines, entry, stack = [], None, ""
-  for line in _build.compiler_report(name).splitlines():
+  for line in report.splitlines():
     m = re.search(r"Compiling entry function '(\w+)'", line)
     if m:
       # Drop the anonymous namespace and the Params argument; name the
@@ -344,6 +353,7 @@ def ptxas_usage(name: str) -> list:
           ", " if t.group(1) == ">" else "<") + (
               "f32" if t.group(2) == "f" else "bf16") + ">", entry)
       entry = re.sub(r"^(\w+_kernel)E\w*$", r"\1", entry)  # no template
+      entry = re.sub(r"^_ZN9bwd_wgmma\d+", "bwd_wgmma::", entry)
     elif entry and "spill" in line:
       stack = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
     elif entry and "registers" in line:
@@ -1288,11 +1298,12 @@ def train_phase(seed: int, card: str, bwd_rows):
   return t, launches, summary
 
 
-def profile_step(t, state, experiment, seed: int, card: str) -> dict:
+def profile_step(t, state, experiment, seed: int, card: str,
+                 batch_size: int = TRAIN_BATCH) -> dict:
   """One more training step under torch.profiler: the card's busy time by
   kernel, summed into groups, against the step's wall time."""
   from torch.profiler import ProfilerActivity, profile
-  batch = training_batches(experiment, TRAIN_BATCH, 1, seed)[0]
+  batch = training_batches(experiment, batch_size, 1, seed)[0]
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -1721,24 +1732,27 @@ def soundstream_phase(card: str, seed: int, mel: np.ndarray) -> dict:
   return dict(ms=ms, max_abs_err=err)
 
 
-# The planted fault of phase 19: the dq pass leaves out its second K/V tile
-# (keys 32-63 at d = 64), built from a copy of the sources in phase 2.
-BWD_FAULT_AT = "const int k0 = it * kTK;"
+# The planted fault of phase 19: the wgmma route's dq pass leaves out the
+# second key tile of each of its key ranges (keys 64-127 of the range),
+# built from a copy of the sources in phase 2.
+BWD_FAULT_AT = "const int key0 = (tile0 + it) * kTile;"
 BWD_FAULT = BWD_FAULT_AT + " if (it == 1) continue;"
+BWD_FAULT_FILE = "flash_bwd_wgmma.cuh"
 
 
 def start_fault_build(work: str):
-  """nvcc on a copy of csrc/ whose flash_bwd.cu carries BWD_FAULT, started
+  """nvcc on a copy of csrc/ whose wgmma route carries BWD_FAULT, started
   now and joined by `finish_fault_build`: (library path, process)."""
   shutil.rmtree(work, ignore_errors=True)
   shutil.copytree(_build.CSRC, work, ignore=shutil.ignore_patterns("build"))
-  src = os.path.join(work, "flash_bwd.cu")
-  with open(src) as f:
+  path = os.path.join(work, BWD_FAULT_FILE)
+  with open(path) as f:
     text = f.read()
-  check(text.count(BWD_FAULT_AT) == 1, "the fault's line is not in "
-        "flash_bwd.cu once")
-  with open(src, "w") as f:
+  check(text.count(BWD_FAULT_AT) == 1, f"the fault's line is not in "
+        f"{BWD_FAULT_FILE} once")
+  with open(path, "w") as f:
     f.write(text.replace(BWD_FAULT_AT, BWD_FAULT))
+  src = os.path.join(work, "flash_bwd.cu")
   out = os.path.join(work, "libflash_bwd_fault.so")
   return out, subprocess.Popen(
       [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
@@ -1759,11 +1773,40 @@ def bwd_bf16_tolerance(plain) -> float:
   return BWD_BF16_TOLERANCE * plain.float().abs().max().item()
 
 
+def route_rule_check() -> str:
+  """The backward's route rule as the built library applies it
+  (msd_flash_bwd_route) against its mirror `attention.bwd_route`, over
+  every dtype, head_dim 1-128 and alignment; and the key-split plan's
+  tile against the library's."""
+  lib = attention._library("flash_bwd")  # pylint: disable=protected-access
+  cases = 0
+  for dtype, code in attention._DTYPE_CODES.items():  # pylint: disable=protected-access
+    for head_dim in range(1, attention.MAX_HEAD_DIM + 1):
+      for aligned in (False, True):
+        built = ("wgmma" if lib.msd_flash_bwd_route(code, head_dim,
+                                                     int(aligned))
+                 else "mma_sync")
+        check(built == attention.bwd_route(dtype, head_dim, aligned),
+              f"route of {dtype} d={head_dim} aligned={aligned}: the "
+              f"library's {built}, bwd_route's "
+              f"{attention.bwd_route(dtype, head_dim, aligned)}")
+        cases += 1
+  check(attention.bwd_tile()[1] == attention.WGMMA_HEAD_DIM,
+        f"the wgmma route's tile {attention.bwd_tile()}")
+  return (f"{cases} (dtype, head_dim, alignment) cases route as bwd_route "
+          f"says; block shape {attention.bwd_tile()}")
+
+
 def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
   """Kernel #2's bf16 configuration at the four attention shapes of
   training, against its plain bf16 version; the planted fault against the
   same limit."""
   rows = []
+  log(f"  route rule: {route_rule_check()}")
+  kernels = [line for line in ptxas_usage("flash_bwd") if "wgmma" in line
+             or "prologue" in line or "combine" in line]
+  log("  the wgmma route's kernels (ptxas): " + " | ".join(kernels))
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
   for name, q_len, kv_len, masked, _ in SHAPES:
     q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked, False,
                                      torch.bfloat16, gen)
@@ -1772,6 +1815,10 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
     dout = torch.randn(out.shape, device="cuda",
                        generator=gen).to(torch.bfloat16)
     args = (q, k, v, None, mask, out, stats, dout)
+    route = attention.bwd_route(q.dtype, HEAD_DIM)
+    check(route == "wgmma", f"{name}: bf16 training takes the {route} route")
+    splits = attention.dq_key_split(batch, HEADS, q_len, kv_len, sms,
+                                    *attention.bwd_tile())
 
     def kernel():
       return attention.flash_attention_bwd(*args)
@@ -1806,14 +1853,16 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
       attention.flash_attention_bwd.launches = launches
     fault_err = (faulty.float() - want[0].float()).abs().max().item()
     fault_ratio = fault_err / bwd_bf16_tolerance(want[0])
-    check(fault_ratio > 1.0, f"{name}: the planted fault (dq without keys "
-          f"32-63) within the limit, {fault_ratio:.3g} of it")
+    check(fault_ratio > 1.0, f"{name}: the planted fault (dq without the "
+          f"second key tile of each range) within the limit, "
+          f"{fault_ratio:.3g} of it")
     del want, faulty
     iters = 3 if q_len > 256 else 20
     ms, plain_ms, lib_ms = (cuda_ms(kernel, iters), cuda_ms(plain, iters),
                             sdpa_backward_ms(q, k, v, mask, dout, iters))
     bound, bound_by, _ = bwd_bound_ms(batch, q_len, kv_len, torch.bfloat16)
-    log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} bfloat16: max_abs_err "
+    log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} bfloat16, {route} "
+        f"route, dq key split {splits[0]} x {splits[1]} keys: max_abs_err "
         f"dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
         f"{BWD_BF16_TOLERANCE:.6g} x max |plain|; at worst {worst:.3g} of "
         f"it), relative RMS {max(rmss):.3g}, finite"
@@ -1822,6 +1871,7 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} "
         f"ms; bound {bound:.4f} ms ({bound_by}, bf16 peak)")
     rows.append(dict(shape=name, batch=batch, q_len=q_len, kv_len=kv_len,
+                     route=route, dq_splits=splits[0],
                      max_abs_err=max(errs), worst_of_tolerance=worst,
                      rel_rms=max(rmss), fault_of_tolerance=fault_ratio,
                      ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1835,15 +1885,18 @@ def bf16_training_experiment():
                              remat=True)
 
 
-def bf16_train_phase(seed: int, card: str, f32_peak: float):
+def bf16_train_phase(seed: int, card: str, f32_peak: float,
+                     batch_size: int = TRAIN_BATCH, steps: int = TRAIN_STEPS,
+                     checks: bool = True):
   """build_model, Trainer and TrainLoop on context_base in bf16 with remat
-  and dropout 0.1: TRAIN_STEPS steps at TRAIN_BATCH."""
+  and dropout 0.1: `steps` steps at `batch_size`; with `checks` also the
+  one-step check against the plain versions and the remat check."""
   experiment = dataclasses.replace(
       bf16_training_experiment(), train=dataclasses.replace(
-          training_experiment().train, batch_size=TRAIN_BATCH,
-          train_steps=TRAIN_STEPS, checkpoint_period=10 * TRAIN_STEPS))
-  batches = training_batches(experiment, TRAIN_BATCH, TRAIN_STEPS, seed)
-  model_dir = os.path.join("out", "chip_smoke_train_bf16")
+          training_experiment().train, batch_size=batch_size,
+          train_steps=steps, checkpoint_period=10 * steps))
+  batches = training_batches(experiment, batch_size, steps, seed)
+  model_dir = os.path.join("out", f"chip_smoke_train_bf16_b{batch_size}")
   shutil.rmtree(model_dir, ignore_errors=True)
   model = trainer.build_model(experiment, seed=seed, device="cuda")
   check(all(p.dtype == torch.float32 for p in model.module.parameters()),
@@ -1863,11 +1916,11 @@ def bf16_train_phase(seed: int, card: str, f32_peak: float):
   calls = attention_calls_per_step(experiment)
   check(quantize.quantized_matmul.launches == 0,
         "bf16 training launched the int8 GEMM")
-  check(launches == (2 * calls * TRAIN_STEPS, calls * TRAIN_STEPS),
+  check(launches == (2 * calls * steps, calls * steps),
         f"bf16 training with remat launched flash_fwd {launches[0]} and "
-        f"flash_bwd {launches[1]} times, expected {2 * calls * TRAIN_STEPS} "
-        f"({calls} and their recompute a step) and {calls * TRAIN_STEPS}")
-  check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
+        f"flash_bwd {launches[1]} times, expected {2 * calls * steps} "
+        f"({calls} and their recompute a step) and {calls * steps}")
+  check(state.step == steps, f"trained {state.step} steps")
   with open(os.path.join(model_dir, "metrics.jsonl")) as f:
     lines = [json.loads(l) for l in f]
   for m in lines:
@@ -1887,15 +1940,17 @@ def bf16_train_phase(seed: int, card: str, f32_peak: float):
       f"bf16)")
   log(f"  [{card}] {s_per_step:.3f} s per step after the first (first "
       f"{lines[0]['timing/seconds_per_step']:.3f} s), {frames_per_s:.1f} "
-      f"target frames/s, batch {TRAIN_BATCH}; peak memory {peak:.2f} GiB "
+      f"target frames/s, batch {batch_size}; peak memory {peak:.2f} GiB "
       f"(phase 11, float32 without remat: {f32_peak:.2f} GiB)")
   summary = dict(seconds_per_step=s_per_step,
                  target_frames_per_second=frames_per_s, peak_gib=peak,
                  losses=[m["loss"] for m in lines],
                  grad_norms=[m["grad_norm"] for m in lines])
-  summary["profile"] = profile_step(t, state, experiment, seed, card)
-  summary["step_check"] = bf16_step_check(t, experiment, seed)
-  summary["remat_check"] = remat_check(t, experiment, seed)
+  summary["profile"] = profile_step(t, state, experiment, seed, card,
+                                    batch_size)
+  if checks:
+    summary["step_check"] = bf16_step_check(t, experiment, seed)
+    summary["remat_check"] = remat_check(t, experiment, seed)
   return launches, summary
 
 
@@ -2600,8 +2655,13 @@ def main() -> int:
   t0 = time.perf_counter()
   bf16_launches, bf16_summary = bf16_train_phase(args.seed, card,
                                                  train_summary["peak_gib"])
+  torch.cuda.empty_cache()
+  bf16_large_launches, bf16_summary["batch_32"] = bf16_train_phase(
+      args.seed, card, train_summary["peak_gib"], BF16_LARGE_BATCH,
+      BF16_LARGE_STEPS, checks=False)
   log(f"phase 20 main path, training bfloat16 with remat through "
-      f"build_model, Trainer and TrainLoop ({time.perf_counter() - t0:.2f} s)")
+      f"build_model, Trainer and TrainLoop at batch {TRAIN_BATCH} and "
+      f"{BF16_LARGE_BATCH} ({time.perf_counter() - t0:.2f} s)")
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
@@ -2658,7 +2718,7 @@ def main() -> int:
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:441",
       "launches": (f32_launches + int8_launches[0] + train_launches[0]
                    + stream_launches[0] + cli_launches + bf16_launches[0]
-                   + cli_train["launches"][0]
+                   + bf16_large_launches[0] + cli_train["launches"][0]
                    + notes_summary["launches"][0]
                    + ar_summary["launches"][0]
                    + sum(v["launches"][0] for v in family_train.values())),
@@ -2668,6 +2728,8 @@ def main() -> int:
                            "int8_streamed": stream_launches[0],
                            "cli_float32": cli_launches,
                            "training_bf16_remat": bf16_launches[0],
+                           "training_bf16_remat_batch_32":
+                               bf16_large_launches[0],
                            "cli_training_remat": cli_train["launches"][0],
                            "notes_only_int8": notes_summary["launches"][0],
                            "autoregressive_int8": ar_summary["launches"][0],
@@ -2708,10 +2770,12 @@ def main() -> int:
       "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/flash_bwd.cu",
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:708",
       "launches": (train_launches[1] + bf16_launches[1]
-                   + cli_train["launches"][1]
+                   + bf16_large_launches[1] + cli_train["launches"][1]
                    + sum(v["launches"][1] for v in family_train.values())),
       "launches_by_path": {"training": train_launches[1],
                            "training_bf16_remat": bf16_launches[1],
+                           "training_bf16_remat_batch_32":
+                               bf16_large_launches[1],
                            "cli_training_remat": cli_train["launches"][1],
                            **{f"training_{k}": v["launches"][1]
                               for k, v in family_train.items()}},
@@ -2726,7 +2790,7 @@ def main() -> int:
       "training": dict(train_summary, step_check=step_check,
                        resume=resume),
       # The bf16 configuration (phases 19-20), summed as above.
-      "bf16": {"launches": bf16_launches[1],
+      "bf16": {"launches": bf16_launches[1] + bf16_large_launches[1],
                "max_abs_err": max(r["max_abs_err"] for r in bwd_bf16_rows),
                "ms": total("ms", bwd_bf16_rows),
                "plain_ms": total("plain_ms", bwd_bf16_rows),

@@ -20,7 +20,11 @@ plain version).
 the JAX package's `flash_attention_diff`: its forward is the forward kernel,
 which also writes each row's softmax max and sum, and its backward
 `flash_attention_bwd` launches `csrc/flash_bwd.cu` (TPU kernel
-`_flash_bwd_pallas`), in float32 or bfloat16. On CPU tensors
+`_flash_bwd_pallas`), in float32 or bfloat16, by one of two routes
+(`bwd_route`): bf16 at head_dim 64 on wgmma and TMA
+(`csrc/flash_bwd_wgmma.cuh`, its dq pass split along the keys by
+`dq_key_split` where the queries are few), every other call on mma.sync.
+On CPU tensors
 `flash_attention_bwd` runs `flash_attention_bwd_reference`, and
 `flash_attention_diff` is autograd through `attention_reference` in
 float32 and, in bfloat16, the plain versions of both kernels (so that p and
@@ -142,6 +146,55 @@ def kv_split(batch: int, heads: int, q_len: int, kv_len: int, sm_count: int,
     return 1, kv_len
   per = -(-tiles // min(tiles, -(-2 * sm_count // blocks)))  # tiles a split
   return -(-tiles // per), per * keys
+
+
+# The backward's wgmma route (csrc/flash_bwd_wgmma.cuh): the head_dim it
+# takes, and the alignment (bytes) of q, k, v, out and dO that its TMA and
+# prologue loads need.
+WGMMA_HEAD_DIM = 64
+WGMMA_ALIGN = 16
+# The dq key split: splits until the dq pass has about this many blocks an
+# SM (one block of 384 threads fits an SM), at most DQ_MAX_SPLITS.
+DQ_SPLIT_WAVES = 4
+DQ_MAX_SPLITS = 8
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
+  """The backward kernel's route for a call, as `csrc/flash_bwd.cu`
+  `wgmma_route` chooses it: "wgmma" for bfloat16 at head_dim 64 with q, k,
+  v, out and dO 16-byte aligned (`aligned`; every training call of the
+  model), else "mma_sync" (float32, another head_dim, a misaligned
+  tensor). A route, not a fallback."""
+  if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and aligned:
+    return "wgmma"
+  return "mma_sync"
+
+
+def dq_key_split(batch: int, heads: int, q_len: int, kv_len: int,
+                 sm_count: int, rows: int, keys: int) -> Tuple[int, int]:
+  """(splits, keys_per_split) of the wgmma route's dq pass.
+
+  The pass runs b h ceil(q / rows) blocks (`rows` queries a block, `keys`
+  keys a streamed tile: the route's block shape, `bwd_tile`), each walking
+  its keys in order. Where that is fewer than DQ_SPLIT_WAVES blocks an SM
+  (the 256-query shapes), the keys are cut into ranges of whole tiles, one
+  block each, whose f32 partials are summed in range order; else 1 split
+  of every tile. Ranges cover [0, kv_len) once, in order, and each starts
+  below kv_len.
+  """
+  blocks = batch * heads * -(-q_len // rows)
+  tiles = -(-kv_len // keys)
+  if blocks >= DQ_SPLIT_WAVES * sm_count or tiles == 1:
+    return 1, tiles * keys
+  want = min(tiles, DQ_MAX_SPLITS, -(-DQ_SPLIT_WAVES * sm_count // blocks))
+  per = -(-tiles // want)  # tiles a split
+  return -(-tiles // per), per * keys
+
+
+def bwd_tile() -> Tuple[int, int]:
+  """(rows a block owns, rows a streamed tile) of the backward's wgmma
+  route, as `csrc/flash_bwd.cu` is built (loads it; needs the card)."""
+  return _library("flash_bwd").msd_bwd_tile
 
 
 def fwd_tile(dtype: torch.dtype) -> Tuple[int, int]:
@@ -351,7 +404,12 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
   output), `stats` (f32 [2, b, h, q] from `return_stats`) and `dout` (the
   output's gradient); q, k, v, out and dout all of one dtype. Bias and mask
   get no gradient. On CUDA tensors it launches `csrc/flash_bwd.cu`
-  (counted in `flash_attention_bwd.launches`); on CPU tensors it runs
+  (counted in `flash_attention_bwd.launches`) by the route its
+  `wgmma_route` picks (`bwd_route` here): bfloat16 at head_dim 64 with q,
+  k, v, out and dout 16-byte aligned takes the wgmma route, which computes
+  delta = rowsum(dO out) itself and splits its dq pass along the keys as
+  `dq_key_split` plans; every other call takes the mma.sync route, with
+  delta computed here in f32. On CPU tensors it runs
   `flash_attention_bwd_reference`. Returns (dq, dk, dv) in the inputs'
   dtype, in the layouts of q and k/v.
   """
@@ -378,21 +436,43 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
                                          kv_transposed=kv_transposed)
   _check_cuda(query, "flash_attention_bwd")
   lib = _library("flash_bwd")
-  # delta = rowsum(dO out), f32 [b, h, q]: computed outside the kernel, as
-  # the JAX package does, and summed in f32 whatever the inputs' dtype.
-  delta = torch.einsum("bqhd,bqhd->bhq", dout.float(),
-                       out.float()).contiguous()
+  code = _DTYPE_CODES[query.dtype]
+  aligned = all(t.data_ptr() % WGMMA_ALIGN == 0
+                for t in (query, key, value, out, dout))
+  f32 = dict(dtype=torch.float32, device=query.device)
+  delta = rowstat = kterm = dq_part = None
+  splits, keys_per_split = 1, kv_len
+  if lib.msd_flash_bwd_route(code, head_dim, int(aligned)):
+    # The wgmma route's f32 scratch: each row's m, 1 / l and delta, each
+    # key's mask term (lengths padded to whole blocks), the dq partials.
+    rows, keys = lib.msd_bwd_tile
+    rowstat = torch.empty(batch, heads, -(-q_len // rows) * rows // keys, 3,
+                          keys, **f32)
+    kterm = torch.empty(batch, -(-kv_len // rows) * rows, **f32)
+    splits, keys_per_split = dq_key_split(
+        batch, heads, q_len, kv_len, _sm_count(query.device.index), rows,
+        keys)
+    if splits > 1:
+      dq_part = torch.empty(splits, *query.shape, **f32)
+  else:
+    # delta = rowsum(dO out), f32 [b, h, q]: computed outside the kernel, as
+    # the JAX package does, and summed in f32 whatever the inputs' dtype.
+    delta = torch.einsum("bqhd,bqhd->bhq", dout.float(),
+                         out.float()).contiguous()
   dq = torch.empty_like(query)
   dk = torch.empty_like(key)
   dv = torch.empty_like(value)
+
+  def ptr(t):
+    return t.data_ptr() if t is not None else None
+
   err = lib.msd_flash_bwd(
-      query.data_ptr(), key.data_ptr(), value.data_ptr(),
-      bias.data_ptr() if bias is not None else None,
-      kv_mask.data_ptr() if kv_mask is not None else None,
-      stats.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-      dk.data_ptr(), dv.data_ptr(), batch, heads, q_len, kv_len, head_dim,
-      int(kv_transposed), bias.shape[1] if bias is not None else 1,
-      _DTYPE_CODES[query.dtype], _stream(query))
+      query.data_ptr(), key.data_ptr(), value.data_ptr(), ptr(bias),
+      ptr(kv_mask), stats.data_ptr(), ptr(delta), out.data_ptr(),
+      dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+      ptr(rowstat), ptr(kterm), ptr(dq_part), batch, heads, q_len, kv_len,
+      head_dim, int(kv_transposed), bias.shape[1] if bias is not None else 1,
+      code, splits, keys_per_split, _stream(query))
   _raise_on(lib, err, "flash_bwd")
   flash_attention_bwd.launches += 1
   return dq, dk, dv
@@ -477,7 +557,7 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
 # Pointer arguments, then int arguments, of each kernel's C entry (the
 # stream is the last pointer).
 _SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 9, 10),
-               "flash_bwd": ("msd_flash_bwd", 11, 8)}
+               "flash_bwd": ("msd_flash_bwd", 15, 10)}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -501,5 +581,12 @@ def _library(name: str) -> ctypes.CDLL:
       lib.msd_fwd_tile = {
           dtype: (lib.msd_flash_fwd_rows(code), lib.msd_flash_fwd_keys())
           for dtype, code in _DTYPE_CODES.items()}
+    if name == "flash_bwd":
+      lib.msd_flash_bwd_route.argtypes = [i32, i32, i32]
+      lib.msd_flash_bwd_route.restype = i32
+      lib.msd_flash_bwd_tile.argtypes = [i32]
+      lib.msd_flash_bwd_tile.restype = i32
+      # The wgmma route's block shape, asked once: dq_key_split plans by it.
+      lib.msd_bwd_tile = (lib.msd_flash_bwd_tile(0), lib.msd_flash_bwd_tile(1))
     lib._msd_typed = True
   return lib

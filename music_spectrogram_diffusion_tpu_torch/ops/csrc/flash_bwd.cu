@@ -15,11 +15,10 @@
 //     dV = p^T dO,  dP = dO V^T,  dS = p (dP - delta),  delta = rowsum(dO out)
 //     dK = dS^T q,  dQ = dS k
 //
-// Bias and mask are not differentiated. delta is an input (the wrapper
-// computes it in f32, as the JAX package does outside its kernel). Rebuilding
-// p from m and l, not from lse = m + log l, gives an all-masked row exactly
-// the forward's even 1 / kv_len (its scores all round to -1e10, and so would
-// lse), finite, with no special case.
+// Bias and mask are not differentiated. Rebuilding p from m and l, not
+// from lse = m + log l, gives an all-masked row exactly the forward's even
+// 1 / kv_len (its scores all round to -1e10, and so would lse), finite,
+// with no special case.
 //
 // Layouts as the forward: q, dO and dQ [b, q, h, d]; k, v, dK, dV
 // [b, kv, h, d], or [b, h, kv, d] when kv_transposed; bias an optional f32
@@ -27,7 +26,17 @@
 // [b, h, q]. q, k, v, dO and the three gradients are all f32 or all bf16
 // (the training path's type: bf16 when the model trains in bfloat16).
 //
-// The two types, as the TPU kernel computes them (mxu_bf16 on bf16 inputs):
+// Two routes, chosen per call by `wgmma_route` (mirrored by
+// ops/attention.py `bwd_route`, which the CPU tests hold):
+// - bf16 at head_dim 64 with 16-byte-aligned q, k, v, out and dO (every
+//   training call of the model): the wgmma route of flash_bwd_wgmma.cuh,
+//   TMA-fed warpgroup products, which computes delta itself;
+// - every other call (f32; bf16 at another head_dim or misaligned): the
+//   mma.sync route below, with delta from the wrapper.
+// A route, not a fallback: nothing retries a call that fails on the other.
+//
+// The mma.sync route, as the TPU kernel computes it (mxu_bf16 on bf16
+// inputs):
 // - f32: every product is 3xTF32 mma.sync m16n8k8 (attention_mma.cuh),
 //   accurate to f32's tolerance where plain TF32 is not;
 // - bf16: S = q k^T and dP = dO V^T are mma.sync m16n8k16 on the bf16
@@ -61,10 +70,9 @@
 // The streamed tiles (q and dO, or k and v) arrive by 16-byte cp.async into a
 // two-stage ring, so the next tile loads while this one multiplies; the
 // block's own rows are staged once. Every output is summed in a fixed order.
-// A simple first bf16 route: mma.sync and cp.async, as the f32 one; wgmma
-// and TMA are for a later redesign.
 
 #include "attention_mma.cuh"
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -571,20 +579,41 @@ int dispatch(const Params& p, int batch, cudaStream_t stream) {
   return launch<128, T>(p, batch, stream);
 }
 
+// Whether bf16 calls at head_dim 64 take the wgmma route (false: every
+// call takes the mma.sync route, as before that route existed;
+// tools/torch_attention_variants.py bwd_old_route times the two).
+constexpr bool kWgmmaRoute = true;
+
+// The rule: the wgmma route takes bf16 at head_dim 64 with q, k, v, out and
+// dO 16-byte aligned (TMA's and the prologue's loads); the mma.sync route
+// every other call.
+bool wgmma_route(int dtype, int head_dim, bool aligned) {
+  return kWgmmaRoute && dtype == 1 && head_dim == bwd_wgmma::kTile && aligned;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). Pointers are device pointers to contiguous tensors in the
-// layouts named above; bias and mask may be null. q, k, v, dout, dq, dk and
-// dv are all of `dtype` (0 = float32, 1 = bfloat16); stats is f32 [2, b, h,
-// q] (row max, then row sum) as flash_fwd.cu writes it, delta f32 [b, h, q];
-// bias_heads is 1 or `heads` (ignored without a bias).
+// Launches the route's kernels on `stream` and returns cudaGetLastError()
+// (0 on success). Pointers are device pointers to contiguous tensors in
+// the layouts named above; bias and mask may be null. q, k, v, out, dout,
+// dq, dk and dv are all of `dtype` (0 = float32, 1 = bfloat16); stats is
+// f32 [2, b, h, q] (row max, then row sum) as flash_fwd.cu writes it;
+// bias_heads is 1 or `heads` (ignored without a bias). The mma.sync route
+// reads delta, f32 [b, h, q], and ignores out, rowstat, kterm, dq_part,
+// splits and keys_per_split. The wgmma route ignores delta and takes f32
+// scratch: rowstat [b, h, q_pad / 64, 3, 64] and kterm [b, kv_pad] (lengths padded
+// to msd_flash_bwd_tile(0) rows), and with splits > 1 dq_part [splits, b,
+// q, h, d]; its dq pass cuts the keys into `splits` ranges of
+// keys_per_split (a multiple of msd_flash_bwd_tile(1)) that cover kv_len,
+// each starting below it.
 int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
-                  const void* mask, const void* stats, const void* delta, const void* dout,
-                  void* dq, void* dk, void* dv, int batch, int heads, int q_len, int kv_len,
-                  int head_dim, int kv_transposed, int bias_heads, int dtype, void* stream) {
+                  const void* mask, const void* stats, const void* delta, const void* out,
+                  const void* dout, void* dq, void* dk, void* dv, void* rowstat, void* kterm,
+                  void* dq_part, int batch, int heads, int q_len, int kv_len, int head_dim,
+                  int kv_transposed, int bias_heads, int dtype, int splits, int keys_per_split,
+                  void* stream) {
   if (batch < 1 || heads < 1 || q_len < 1 || kv_len < 1 || head_dim < 1 || head_dim > 128 ||
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -623,7 +652,54 @@ int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
   p.bias_sh = bias_heads == 1 ? 0 : (long long)q_len * kv_len;
   p.bias_sb = (long long)bias_heads * q_len * kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = msd::aligned16(q) && msd::aligned16(k) && msd::aligned16(v) &&
+                       msd::aligned16(out) && msd::aligned16(dout);
+  if (wgmma_route(dtype, head_dim, aligned)) {
+    if (rowstat == nullptr || kterm == nullptr || splits < 1 || keys_per_split < 1 ||
+        keys_per_split % bwd_wgmma::kTile != 0 || (long long)splits * keys_per_split < kv_len ||
+        (long long)(splits - 1) * keys_per_split >= kv_len || (splits > 1 && dq_part == nullptr)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    bwd_wgmma::Params w;
+    w.bias = p.bias;
+    w.dq = splits > 1 ? dq_part : dq;
+    w.dk = dk;
+    w.dv = dv;
+    w.q_len = q_len;
+    w.kv_len = kv_len;
+    w.heads = heads;
+    w.q_tiles = bwd_wgmma::padded(q_len) / bwd_wgmma::kTile;
+    w.kv_pad = bwd_wgmma::padded(kv_len);
+    w.splits = splits;
+    w.tiles_per_split = keys_per_split / bwd_wgmma::kTile;
+    w.q_sb = p.q_sb;
+    w.q_sl = p.q_sl;
+    w.q_sh = p.q_sh;
+    w.kv_sb = p.kv_sb;
+    w.kv_sl = p.kv_sl;
+    w.kv_sh = p.kv_sh;
+    w.bias_sb = p.bias_sb;
+    w.bias_sh = p.bias_sh;
+    w.part_stride = (long long)batch * q_len * heads * head_dim;
+    return bwd_wgmma::launch(w, q, k, v, out, dout, p.m, p.mask, static_cast<float*>(rowstat),
+                             static_cast<float*>(kterm), dq, batch, s);
+  }
+  if (delta == nullptr) return (int)cudaErrorInvalidValue;
   return dtype == 0 ? dispatch<float>(p, batch, s) : dispatch<bf16>(p, batch, s);
+}
+
+// 1 when a call of this dtype code and head_dim, with q, k, v, out and dO
+// 16-byte aligned (`aligned`), takes the wgmma route; 0 for the mma.sync
+// route.
+int msd_flash_bwd_route(int dtype, int head_dim, int aligned) {
+  return wgmma_route(dtype, head_dim, aligned != 0) ? 1 : 0;
+}
+
+// The wgmma route's block shape: 0, the rows a block owns (the padding of
+// q and kv for the scratch); 1, the rows of a streamed tile (the unit of
+// the dq key split).
+int msd_flash_bwd_tile(int which) {
+  return which == 0 ? bwd_wgmma::kBlockRows : bwd_wgmma::kTile;
 }
 
 const char* msd_cuda_error_string(int code) {

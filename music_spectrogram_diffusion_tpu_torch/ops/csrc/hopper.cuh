@@ -68,6 +68,24 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Waits until at most N committed wgmma groups of this warpgroup are in
+// flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The warpgroup's registers a thread, raised or lowered (a multiple of 8 in
+// 24..256; every warp of the warpgroup executes it).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // Keeps the compiler from moving accesses to an accumulator across a
 // wgmma issue or wait (the asm reads and writes every register).
 template <int N>

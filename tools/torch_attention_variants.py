@@ -4,29 +4,38 @@ faults planted in them, caught by chip_smoke.py's tolerances.
     python3 tools/torch_attention_variants.py [variant ...]
 
 Builds `ops/csrc/flash_fwd.cu` and `flash_bwd.cu` as they are, and variants
-of them made by replacing one line of the sources in a temporary copy, and
+of them made by replacing lines of the sources in a temporary copy, and
 times each in turns (base, variants, variants reversed, base) at the
-inputs of chip_smoke.py phases 3 (forward, 16 runs) and 10 (backward, 4
-training shapes at b=8), all of them or those named. Each variant's
-results are held against the plain versions at chip_smoke's tolerances; a
-variant marked `same_bits` must also give the base's output bit for bit.
-Prints the nvidia-smi name and power limit, each variant's ptxas registers
-and spills, and a table of the best of its two times per run (a variant
-that changes the forward's rows a block also changes its split-KV counts,
-and so its bits), then each variant's worst error over its tolerance,
-forward and backward, and the backward's worst relative RMS against its
-plain version. A fault (`fault_*`) is not timed: at each forward run where
-it changes the output, its error against the plain version and chip_smoke's
-limit there are printed, and the tool fails unless the limit catches it.
-The variants:
+inputs of chip_smoke.py phases 3 (forward, 16 runs; only when a chosen
+variant touches the forward), 10 (backward in float32, 4 training shapes at
+b=8) and 19 (backward in bfloat16, the same shapes), all of them or those
+named. Each variant's results are held against the plain versions at
+chip_smoke's tolerances; a variant marked `same_bits` must also give the
+base's output bit for bit. Prints the nvidia-smi name and power limit,
+each variant's ptxas registers and spills, and a table of the best of its
+two times per run (a variant that changes the forward's rows a block also
+changes its split-KV counts, and so its bits), then each variant's worst
+error over its tolerance (forward, f32 backward, bf16 backward) and the
+backward's worst relative RMS against its plain version. A fault
+(`fault_*`) is not timed: at each forward run where it changes the output,
+its error against the plain version and chip_smoke's limit there are
+printed, and the tool fails unless the limit catches it. The variants:
 
   fwd_f32_4warps   f32 blocks of 4 warps (64 rows) instead of 8;
   fwd_bf16_8warps  bf16 blocks of 8 warps (128 rows) instead of 4;
   fwd_f32_3stages  a third f32 K/V stage;
   bwd_dkdv_16rows  dkdv streams 16 query rows a tile instead of 32 (d = 64);
+  bwd_dkdv_64rows  dkdv streams 64 query rows a tile instead of 32 (d = 64);
   bwd_dq_64rows    dq streams 64 key rows a tile instead of 32 (d = 64);
-  bwd_straight_sums  the backward sums each output straight on the tensor
-                   cores instead of per tile and then in f32 (other bits);
+  bwd_3stages, bwd_4stages  the mma.sync backward's cp.async ring of 3 or 4
+                   stages instead of 2, each step waiting only for its own
+                   tile (same bits);
+  bwd_straight_sums  the mma.sync backward sums each output straight on the
+                   tensor cores instead of per tile and then in f32 (other
+                   bits);
+  bwd_old_route    bf16 calls that the wgmma route takes go to the mma.sync
+                   route, as before it existed (the before of a
+                   before-and-after, other bits);
   cvt_rna          the TF32 rounding by cvt.rna.tf32.f32 instead of the
                    integer add-and-mask (same bits);
   nan_unkept       the split without the clamp that keeps a NaN operand's
@@ -55,6 +64,24 @@ from music_spectrogram_diffusion_tpu_torch.ops import _build, attention
 
 ROUND = "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
 SKIP_AT = "const int k0 = k_begin + it * kBlockK;"
+
+
+def ring(stages):
+  """The mma.sync backward's cp.async ring with `stages` stages: the first
+  stages - 1 tiles in flight before the loop, each step waiting for its own
+  tile only."""
+  edits = {"constexpr int kStages = 2;": f"constexpr int kStages = {stages};",
+           "msd::cp_async_wait<0>();": "msd::cp_async_wait<kStages - 2>();"}
+  for fn in ("load_q", "load_kv"):
+    edits[f"if (it + 1 < n_tiles) {fn}(it + 1, (it + 1) % kStages);"] = (
+        f"if (it + kStages - 1 < n_tiles) {fn}(it + kStages - 1, "
+        f"(it + kStages - 1) % kStages);")
+    edits[f"  {fn}(0, 0);\n  msd::cp_async_commit();"] = (
+        f"  for (int s = 0; s < kStages - 1; ++s) {{\n"
+        f"    if (s < n_tiles) {fn}(s, s);\n    msd::cp_async_commit();\n  }}")
+  return edits
+
+
 # name: (source, {old text: new text}, same bits)
 VARIANTS = {
     "fwd_f32_4warps": ("flash_fwd", {"kWarps = kF32 ? 8 : 4;":
@@ -65,13 +92,24 @@ VARIANTS = {
                                       "kStages = kF32 ? 3 : 3;"}, True),
     "bwd_dkdv_16rows": ("flash_bwd", {
         "kDkdvRows = D <= 64 ? 32 : 16;": "kDkdvRows = 16;"}, False),
+    "bwd_dkdv_64rows": ("flash_bwd", {
+        "kDkdvRows = D <= 64 ? 32 : 16;": "kDkdvRows = D <= 64 ? 64 : 16;"},
+                        False),
     "bwd_dq_64rows": ("flash_bwd", {
         "kDqRows = D <= 32 ? 64 : (D <= 64 ? 32 : 16);":
         "kDqRows = D <= 64 ? 64 : 16;"}, False),
     "bwd_straight_sums": ("flash_bwd", {
         "kTileSums = D <= 64;": "kTileSums = false;",
         "msd::mma_3xtf32(dq_t[n],": "msd::mma_3xtf32(dq[n],",
+        "msd::mma_bf16(dq_t[2 * n2], a,": "msd::mma_bf16(dq[2 * n2], a,",
+        "msd::mma_bf16(dq_t[2 * n2 + 1], a,":
+        "msd::mma_bf16(dq[2 * n2 + 1], a,",
         "msd::add_to(dq, dq_t);": ""}, False),
+    "bwd_3stages": ("flash_bwd", ring(3), True),
+    "bwd_4stages": ("flash_bwd", ring(4), True),
+    "bwd_old_route": ("flash_bwd", {"constexpr bool kWgmmaRoute = true;":
+                                    "constexpr bool kWgmmaRoute = false;"},
+                      False),
     "cvt_rna": (None, {ROUND: 'uint32_t r; asm("cvt.rna.tf32.f32 %0, %1;" '
                               ': "=r"(r) : "f"(x)); return r;'}, True),
     "nan_unkept": (None, {"min(rest, 0x7fffefff)": "rest"}, True),
@@ -118,10 +156,8 @@ def finish_build(name, procs):
     stdout, stderr = proc.communicate()
     if proc.returncode:
       raise RuntimeError(f"{name} {lib}: nvcc failed\n{stdout}{stderr}")
-    regs = [l.split(":", 1)[-1].strip() for l in (stdout + stderr).splitlines()
-            if "registers" in l or "spill" in l]
-    print(f"  {name or 'base'} {lib}.cu ptxas: {' | '.join(regs)}",
-          flush=True)
+    for line in cs.ptxas_lines(stdout + stderr):
+      print(f"  {name or 'base'} {lib}.cu ptxas: {line}", flush=True)
     libs[lib] = ctypes.CDLL(str(out))
   return libs
 
@@ -146,20 +182,22 @@ def main() -> int:
     libs = {name: finish_build(name, procs) for name, procs in started.items()}
     gen = torch.Generator("cuda").manual_seed(0)
     fwd_runs = []
-    for shape, q_len, kv_len, masked, tr in cs.SHAPES:
-      for batch, dtype in cs.RUNS:
-        fwd_runs.append((f"{shape} b={batch} {str(dtype)[6:]}", tr, dtype,
-                         cs.attention_inputs(batch, q_len, kv_len, masked, tr,
-                                             dtype, gen)))
+    if any(VARIANTS[n][0] != "flash_bwd" for n in chosen):
+      for shape, q_len, kv_len, masked, tr in cs.SHAPES:
+        for batch, dtype in cs.RUNS:
+          fwd_runs.append((f"{shape} b={batch} {str(dtype)[6:]}", tr, dtype,
+                           cs.attention_inputs(batch, q_len, kv_len, masked,
+                                               tr, dtype, gen)))
     bwd_runs = []
-    for shape, q_len, kv_len, masked, _ in cs.SHAPES:
-      q, k, v, mask = cs.attention_inputs(8, q_len, kv_len, masked, False,
-                                          torch.float32, gen)
-      out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
-                                             return_stats=True)
-      dout = torch.randn(out.shape, device="cuda", generator=gen)
-      bwd_runs.append((f"bwd {shape} b=8", (q, k, v, None, mask, out, stats,
-                                            dout)))
+    for dtype in (torch.float32, torch.bfloat16):
+      for shape, q_len, kv_len, masked, _ in cs.SHAPES:
+        q, k, v, mask = cs.attention_inputs(8, q_len, kv_len, masked, False,
+                                            dtype, gen)
+        out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
+                                               return_stats=True)
+        dout = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+        bwd_runs.append((f"bwd {shape} b=8 {str(dtype)[6:]}",
+                         (q, k, v, None, mask, out, stats, dout)))
 
     def use(name):
       for lib, handle in {**libs[None], **libs[name]}.items():
@@ -172,11 +210,22 @@ def main() -> int:
       return got, (got.float() - want.float()).abs().max().item(), \
           cs.fwd_tolerance(got.dtype, want)
 
+    def bwd_error(got, want):
+      """(error over its tolerance, relative RMS) of one gradient: f32 as
+      phase 10 holds it, bf16 as phase 19 does."""
+      g, w = got.float(), want.float()
+      err = (g - w).abs().max().item()
+      tol = (cs.bwd_bf16_tolerance(want) if got.dtype == torch.bfloat16
+             else cs.BWD_TOLERANCE * max(1.0, w.abs().max().item()))
+      cs.check(err <= tol, f"{name} {label}: {err} > {tol}")
+      return err / tol, ((g - w).pow(2).mean() / w.pow(2).mean()).sqrt().item()
+
     order = [None, *timed, *reversed(timed), None]
     times, base, worst = {}, {}, {}
     for name in order:
       use(name)
       same_bits = VARIANTS[name][2] if name else True
+      w = worst.setdefault(name, [0.0] * 5)
       for label, tr, dtype, (q, k, v, mask) in fwd_runs:
 
         def fn():
@@ -185,7 +234,6 @@ def main() -> int:
 
         got, err, tol = forward(label, tr, q, k, v, mask)
         cs.check(err <= tol, f"{name} {label}: {err} > {tol}")
-        w = worst.setdefault(name, [0.0, 0.0, 0.0])
         w[0] = max(w[0], err / tol)
         if same_bits:
           cs.check(torch.equal(base.setdefault(label, got), got),
@@ -197,14 +245,12 @@ def main() -> int:
           return attention.flash_attention_bwd(*args)
 
         got = fn()
+        low = got[0].dtype == torch.bfloat16
         for g, ref in zip(got,
                           attention.flash_attention_bwd_reference(*args)):
-          err = (g - ref).abs().max().item()
-          tol = cs.BWD_TOLERANCE * max(1.0, ref.abs().max().item())
-          cs.check(err <= tol, f"{name} {label}: {err}")
-          rms = ((g - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item()
-          w = worst[name]
-          w[1], w[2] = max(w[1], err / tol), max(w[2], rms)
+          ratio, rms = bwd_error(g, ref)
+          w[2 if low else 1] = max(w[2 if low else 1], ratio)
+          w[4 if low else 3] = max(w[4 if low else 3], rms)
         if same_bits:
           cs.check(all(torch.equal(a, b) for a, b in zip(
               base.setdefault(label, got), got)),
@@ -216,9 +262,10 @@ def main() -> int:
       print(f"{label} | " + " | ".join(
           f"{min(times[(label, n)]):.4f}" for n in names), flush=True)
     for n in names:
-      fwd, bwd, rms = worst[n]
+      fwd, bwd, bwd_bf16, rms, rms_bf16 = worst[n]
       print(f"{n or 'base'}: worst error / tolerance {fwd:.3g} forward, "
-            f"{bwd:.3g} backward; backward relative RMS {rms:.3g}")
+            f"{bwd:.3g} backward f32, {bwd_bf16:.3g} backward bf16; backward "
+            f"relative RMS {rms:.3g} f32, {rms_bf16:.3g} bf16")
     missed = []
     for name in faults:
       use(name)
