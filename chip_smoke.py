@@ -5,9 +5,10 @@
 Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
   2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu,
-              qmm.cu and flash_bwd.cu, three compilers started together) and
-              reports ptxas's registers and spills of every instantiation;
-              no kernel may spill;
+              qmm.cu and flash_bwd.cu with its wgmma route, and phase 19's
+              planted fault: four compilers started together) and reports
+              ptxas's registers and spills of every instantiation; no
+              kernel may spill;
   3. kernel   flash attention against its plain PyTorch version at the
               four attention shapes of the serving path, at b=2 and b=1, in
               float32 and bfloat16: error and tolerance, in float32 the
@@ -78,19 +79,25 @@ Phases, each printed on its own line with its seconds:
               on random weights from --seed: card vs CPU, timed;
  19. kernel   the flash-attention backward in bfloat16 against its plain
               bf16 version at the four training shapes at batch 8 (key
-              masks with an all-masked row): error against 2^-6 x max
+              masks with an all-masked row): the route rule as the built
+              library applies it against `attention.bwd_route`, the wgmma
+              route's kernels (ptxas), and at each shape the route taken
+              (wgmma) and its dq key split, error against 2^-6 x max
               |plain| and relative RMS of dq, dk, dv, finite, two launches
               bitwise equal, kernel / plain / SDPA bf16 backward (yardstick
-              only) times and the bound; a planted fault (dq without one
-              K/V tile, built in phase 2) must exceed the limit;
+              only) times and the bound; a planted fault in the wgmma
+              route (dq without the second key tile of each key range,
+              built in phase 2) must exceed the limit;
  20. main     context_base trains 5 steps in bfloat16 with remat and
               dropout 0.1 at batch 8 through build_model, Trainer and
               TrainLoop: finite losses, s per step, frames/s, peak memory
               beside phase 11's, 96 forward (48 and their recompute) and 48
-              bf16 backward launches a step; one bf16 step at batch 1
-              (injected draws, no dropout), kernels vs plain attention on
-              the card; remat on vs off at batch 2 with dropout (the
-              largest gradient difference);
+              bf16 backward launches a step, one profiled step; one bf16
+              step at batch 1 (injected draws, no dropout), kernels vs
+              plain attention on the card; remat on vs off at batch 2 with
+              dropout (the largest gradient difference); then 3 steps at
+              batch 32 (launches, s per step, frames/s, peak memory, one
+              profiled step);
  21. main     cli/train.py --remat --eval_batches 2 --eval_period 2
               --cache_root at batch 64 in float32 (2 steps): eval/loss
               logged, both caches built and read, peak memory;
@@ -354,6 +361,8 @@ def ptxas_lines(report: str) -> list:
               "f32" if t.group(2) == "f" else "bf16") + ">", entry)
       entry = re.sub(r"^(\w+_kernel)E\w*$", r"\1", entry)  # no template
       entry = re.sub(r"^_ZN9bwd_wgmma\d+", "bwd_wgmma::", entry)
+      entry = re.sub(r"ILb([01])EEEv\w*$", lambda t: "<" + (
+          "bias" if t.group(1) == "1" else "no bias") + ">", entry)
     elif entry and "spill" in line:
       stack = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
     elif entry and "registers" in line:
@@ -1733,10 +1742,10 @@ def soundstream_phase(card: str, seed: int, mel: np.ndarray) -> dict:
 
 
 # The planted fault of phase 19: the wgmma route's dq pass leaves out the
-# second key tile of each of its key ranges (keys 64-127 of the range),
-# built from a copy of the sources in phase 2.
-BWD_FAULT_AT = "const int key0 = (tile0 + it) * kTile;"
-BWD_FAULT = BWD_FAULT_AT + " if (it == 1) continue;"
+# second key tile of each of its key ranges (keys 64-127 of the range: their
+# dS taken as 0), built from a copy of the sources in phase 2.
+BWD_FAULT_AT = "sc[i] = pv * (dp[i] - dl[r]);"
+BWD_FAULT = "sc[i] = it == 1 ? 0.f : pv * (dp[i] - dl[r]);"
 BWD_FAULT_FILE = "flash_bwd_wgmma.cuh"
 
 

@@ -121,6 +121,38 @@ __device__ __forceinline__ void init_barriers(uint64_t* bar) {
   __syncthreads();
 }
 
+// The two consumer warpgroups take turns to issue their products (named
+// barriers kTurnBar + wg), so that one's exps and scaling run while the
+// tensor cores run the other's products; otherwise both wait for the same
+// tile and reach their exps together while the tensor cores idle.
+constexpr bool kTurns = false;
+constexpr int kTurnBar = 1;
+
+// A barrier that only ever sees one warpgroup's arrivals, where a turn is
+// given to nobody; selected, not branched to, so that no wgmma code sits on
+// a divergent path (ptxas would serialize it).
+constexpr int kNoTurnBar = 3;
+
+// Warpgroup 0 has the first turn.
+__device__ __forceinline__ void take_turns_first(int wg) {
+  msd::named_bar_arrive(wg == 1 ? kTurnBar : kNoTurnBar, wg == 1 ? kConsumers : 128);
+}
+
+// Gives the turn to the other warpgroup after step `it` of n; warpgroup 1
+// gives none after its last step, so each barrier sees as many arrivals as
+// waits.
+__device__ __forceinline__ void pass_turn(int wg, int it, int n) {
+  const bool give = wg == 0 || it + 1 < n;
+  msd::named_bar_arrive(give ? kTurnBar + 1 - wg : kNoTurnBar, give ? kConsumers : 128);
+}
+
+// 2^x by the special-function unit alone; results below 2^-126 flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The producer: the block's own rows (two tiles of each of two tensors at
 // rows row0, row0 + 64), then `n` streamed tiles of two tensors at rows
 // (tile0 + i) 64 with `stat_bytes` of per-row terms each from `stat_src`
@@ -149,7 +181,9 @@ __device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* own_a
   }
 }
 
-// dK and dV of one block of 128 keys, walking the query tiles.
+// dK and dV of one block of 128 keys, walking the query tiles (with the
+// f32 bias when BIAS).
+template <bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dkdv_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
@@ -174,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
     const int key0 = k0 + wg * 64 + 16 * warp + g;  // the thread's keys: key0 and key0 + 8
     const float* kterm = p.kterm + (long long)b * p.kv_pad;
-    const float kt[2] = {kterm[key0], kterm[key0 + 8]};
+    const float kt[2] = {kterm[key0], kterm[key0 + 8]};  // times log2 e
     const float* bias = p.bias != nullptr ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
     const uint64_t a_k = msd::sw128_desc(sm.own + wg * 64 * 128);
     const uint64_t a_v = msd::sw128_desc(sm.own + (kBlockRows + wg * 64) * 128);
@@ -183,14 +217,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
     msd::mbar_wait(sm.bar, 0);
 
+    // dV += p^T dO and dK += dS^T q for the tile in `pa`, `da` (its q and dO
+    // at `qt`, `dot`).
+    uint32_t pa[4][4], da[4][4];
+    auto dkdv_products = [&](const unsigned char* qt, const unsigned char* dot) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        msd::wgmma_m64n64_rs<1>(dv, pa[kk], msd::sw128_n_desc(dot, kTileBytes) + 128 * kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        msd::wgmma_m64n64_rs<1>(dk, da[kk], msd::sw128_n_desc(qt, kTileBytes) + 128 * kk);
+      }
+    };
+    if (kTurns) take_turns_first(wg);
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
+      const int s = it % kStages, prev = (it + kStages - 1) % kStages;
       const unsigned char* qt = sm.ring + s * 2 * kTileBytes;
       const unsigned char* dot = qt + kTileBytes;
       msd::mbar_wait(sm.bar + 1 + s, (it / kStages) & 1);
 
-      // S^T = K q^T and dP^T = V dO^T: the warpgroup's 64 keys by 64 queries.
+      // This tile's S^T = K q^T and dP^T = V dO^T (64 keys by 64 queries),
+      // then the last tile's dV and dK, which run on the tensor cores while
+      // this tile's exps run on the CUDA cores.
       float sc[32], dp[32];
+      if (kTurns) msd::named_bar_sync(kTurnBar + wg, kConsumers);
       msd::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -201,14 +252,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         msd::wgmma_m64n64_ss<0>(dp, a_v + 2 * kk, msd::sw128_desc(dot) + 2 * kk, kk);
       }
       msd::wgmma_commit();
-      msd::wgmma_wait<0>();  // this tile's S, dP and the last tile's dV, dK
+      if (it > 0) {
+        const unsigned char* qp = sm.ring + prev * 2 * kTileBytes;
+        dkdv_products(qp, qp + kTileBytes);
+      }
+      msd::wgmma_commit();
+      if (kTurns) pass_turn(wg, it, n_tiles);
+      msd::wgmma_wait<1>();  // this tile's S and dP
       msd::fence_regs(sc);
       msd::fence_regs(dp);
-      msd::fence_regs(dk);
-      msd::fence_regs(dv);
-      if (it > 0) msd::mbar_arrive(sm.bar + 1 + kStages + (it - 1) % kStages);
 
-      // p^T and dS^T in place. Element 4 j + 2 r + e is key key0 + 8 r,
+      // p^T and dS^T in place: p = 2^((s + bias) log2 e + kt - m) / l with
+      // kt and m in log2 units. Element 4 j + 2 r + e is key key0 + 8 r,
       // query q0 + 8 j + 2 t + e; padded queries have 1 / l = 0.
       const float* st = sm.stat + s * kStatFloats;
       const int q0 = it * kTile;
@@ -224,35 +279,31 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * r + e;
             float x = sc[i];
-            if (bias != nullptr && q0 + c + e < p.q_len && key0 + 8 * r < p.kv_len) {
+            if (BIAS && q0 + c + e < p.q_len && key0 + 8 * r < p.kv_len) {
               x += bias[(long long)(q0 + c + e) * p.kv_len + key0 + 8 * r];
             }
-            x += kt[r];
-            const float pv = msd::exp_diff(x - (e ? m.y : m.x)) * (e ? il.y : il.x);
+            const float y = fmaf(x, msd::kLog2e, kt[r]) - (e ? m.y : m.x);
+            const float pv = exp2_ftz(y) * (e ? il.y : il.x);
             sc[i] = pv;
             dp[i] = pv * (dp[i] - (e ? dl.y : dl.x));
           }
         }
       }
-
-      // dV += p^T dO and dK += dS^T q over the tile's queries.
-      uint32_t pa[4][4], da[4][4];
+      msd::wgmma_wait<0>();  // the last tile's dV and dK, which read pa, da
+      msd::fence_regs(dk);
+      msd::fence_regs(dv);
+      if (it > 0) msd::mbar_arrive(sm.bar + 1 + kStages + prev);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         msd::acc_to_a(pa[kk], sc, kk);
         msd::acc_to_a(da[kk], dp, kk);
       }
-      msd::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_rs<1>(dv, pa[kk], msd::sw128_n_desc(dot, kTileBytes) + 128 * kk);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_rs<1>(dk, da[kk], msd::sw128_n_desc(qt, kTileBytes) + 128 * kk);
-      }
-      msd::wgmma_commit();
     }
+    // The last tile's dV and dK.
+    const unsigned char* ql = sm.ring + ((n_tiles - 1) % kStages) * 2 * kTileBytes;
+    msd::wgmma_fence();
+    dkdv_products(ql, ql + kTileBytes);
+    msd::wgmma_commit();
     msd::wgmma_wait<0>();
     msd::fence_regs(dk);
     msd::fence_regs(dv);
@@ -277,7 +328,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // dQ of one block of 128 queries over one range of key tiles (the whole of
-// kv when p.splits == 1), walking its key tiles in order.
+// kv when p.splits == 1), walking its key tiles in order (with the f32 bias
+// when BIAS).
+template <bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
@@ -322,14 +375,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 32; ++i) dq[i] = 0.f;
     msd::mbar_wait(sm.bar, 0);
 
+    // dQ += dS k for the tile in `da` (its keys at `kt`).
+    uint32_t da[4][4];
+    auto dq_product = [&](const unsigned char* kt) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        msd::wgmma_m64n64_rs<1>(dq, da[kk], msd::sw128_n_desc(kt, kTileBytes) + 128 * kk);
+      }
+    };
+    if (kTurns) take_turns_first(wg);
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
+      const int s = it % kStages, prev = (it + kStages - 1) % kStages;
       const unsigned char* kt = sm.ring + s * 2 * kTileBytes;
       const unsigned char* vt = kt + kTileBytes;
       msd::mbar_wait(sm.bar + 1 + s, (it / kStages) & 1);
 
-      // S = q K^T and dP = dO V^T: the warpgroup's 64 queries by 64 keys.
+      // This tile's S = q K^T and dP = dO V^T (64 queries by 64 keys), then
+      // the last tile's dQ, which runs on the tensor cores while this
+      // tile's exps run on the CUDA cores.
       float sc[32], dp[32];
+      if (kTurns) msd::named_bar_sync(kTurnBar + wg, kConsumers);
       msd::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -340,15 +405,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         msd::wgmma_m64n64_ss<0>(dp, a_do + 2 * kk, msd::sw128_desc(vt) + 2 * kk, kk);
       }
       msd::wgmma_commit();
-      msd::wgmma_wait<0>();  // this tile's S, dP and the last tile's dQ
+      if (it > 0) dq_product(sm.ring + prev * 2 * kTileBytes);
+      msd::wgmma_commit();
+      if (kTurns) pass_turn(wg, it, n_tiles);
+      msd::wgmma_wait<1>();  // this tile's S and dP
       msd::fence_regs(sc);
       msd::fence_regs(dp);
-      msd::fence_regs(dq);
-      if (it > 0) msd::mbar_arrive(sm.bar + 1 + kStages + (it - 1) % kStages);
       const int key0 = (tile0 + it) * kTile;
 
-      // dS in place of S. Element 4 j + 2 r + e is query row0 + 8 r, key
-      // key0 + 8 j + 2 t + e; keys past kv_len have the term -inf.
+      // dS in place of S (p as in dkdv). Element 4 j + 2 r + e is query
+      // row0 + 8 r, key key0 + 8 j + 2 t + e; keys past kv_len have the term
+      // -inf.
       const float* kts = sm.stat + s * kStatFloats;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -360,27 +427,24 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * r + e;
             float x = sc[i];
-            if (bias != nullptr && row0 + 8 * r < p.q_len && key0 + c + e < p.kv_len) {
+            if (BIAS && row0 + 8 * r < p.q_len && key0 + c + e < p.kv_len) {
               x += bias[(long long)(row0 + 8 * r) * p.kv_len + key0 + c + e];
             }
-            x += e ? ktc.y : ktc.x;
-            const float pv = msd::exp_diff(x - m[r]) * il[r];
+            const float pv = exp2_ftz(fmaf(x, msd::kLog2e, e ? ktc.y : ktc.x) - m[r]) * il[r];
             sc[i] = pv * (dp[i] - dl[r]);
           }
         }
       }
-
-      // dQ += dS k over the tile's keys.
-      uint32_t da[4][4];
+      msd::wgmma_wait<0>();  // the last tile's dQ, which reads da
+      msd::fence_regs(dq);
+      if (it > 0) msd::mbar_arrive(sm.bar + 1 + kStages + prev);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) msd::acc_to_a(da[kk], sc, kk);
-      msd::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_rs<1>(dq, da[kk], msd::sw128_n_desc(kt, kTileBytes) + 128 * kk);
-      }
-      msd::wgmma_commit();
     }
+    // The last tile's dQ.
+    msd::wgmma_fence();
+    dq_product(sm.ring + ((n_tiles - 1) % kStages) * 2 * kTileBytes);
+    msd::wgmma_commit();
     msd::wgmma_wait<0>();
     msd::fence_regs(dq);
 
@@ -404,10 +468,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// Per row of q: m, 1 / l and delta = rowsum(dO out) (f32 products of the
-// bf16 values, summed in order), each 64-row tile's three rows of 64 in a
-// row (rows past q_len 0); per key: its mask term. Threads run over (b,
-// q_pad, h) so that neighbours read neighbouring rows of out and dO.
+// Per row of q: m log2 e, 1 / l and delta = rowsum(dO out) (f32 products
+// of the bf16 values, summed in order), each 64-row tile's three rows of 64
+// in a row (rows past q_len 0); per key: its mask term times log2 e (0,
+// -1e10 log2 e, or -inf past kv_len). An all-masked row's m is -1e10
+// exactly, so there m log2 e equals every key's term and p = 1 / l, as the
+// forward's. Threads run over (b, h, q_pad), q fastest.
 __global__ void bwd_prologue_kernel(const Params p, const bf16* out, const bf16* dout,
                                     const float* stats, const uint8_t* mask, int batch,
                                     float* rowstat, float* kterm) {
@@ -415,14 +481,14 @@ __global__ void bwd_prologue_kernel(const Params p, const bf16* out, const bf16*
   const int q_pad = p.q_tiles * kTile;
   const long long n_rows = (long long)batch * q_pad * p.heads;
   if (idx < n_rows) {
-    const int h = idx % p.heads, qi = (idx / p.heads) % q_pad;
-    const int b = idx / ((long long)p.heads * q_pad);
-    const long long bh = (long long)b * p.heads + h;
+    const int qi = idx % q_pad;
+    const long long bh = idx / q_pad;
+    const int b = bh / p.heads, h = bh % p.heads;
     float mv = 0.f, ilv = 0.f, dl = 0.f;
     if (qi < p.q_len) {
       const float* m = stats;
       const float* l = stats + (long long)batch * p.heads * p.q_len;
-      mv = m[bh * p.q_len + qi];
+      mv = m[bh * p.q_len + qi] * msd::kLog2e;
       ilv = 1.f / l[bh * p.q_len + qi];
       const long long at = b * p.q_sb + qi * p.q_sl + h * p.q_sh;
       const uint4* o = reinterpret_cast<const uint4*>(out + at);
@@ -448,7 +514,9 @@ __global__ void bwd_prologue_kernel(const Params p, const bf16* out, const bf16*
     const long long i = idx - n_rows;
     const int b = i / p.kv_pad, c = i % p.kv_pad;
     kterm[i] = c >= p.kv_len ? -INFINITY
-                             : (mask != nullptr && !mask[(long long)b * p.kv_len + c] ? -1e10f : 0.f);
+                             : (mask != nullptr && !mask[(long long)b * p.kv_len + c]
+                                    ? -1e10f * msd::kLog2e
+                                    : 0.f);
   }
 }
 
@@ -501,17 +569,19 @@ inline int launch(Params p, const void* q, const void* k, const void* v, const v
       rowstat, kterm);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  for (auto kernel : {bwd_dkdv_wgmma_kernel, bwd_dq_wgmma_kernel}) {
+  const bool bias = p.bias != nullptr;
+  const auto dkdv = bias ? bwd_dkdv_wgmma_kernel<true> : bwd_dkdv_wgmma_kernel<false>;
+  const auto dq = bias ? bwd_dq_wgmma_kernel<true> : bwd_dq_wgmma_kernel<false>;
+  for (auto kernel : {dkdv, dq}) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid_kv(p.kv_pad / kBlockRows, p.heads, batch);
-  bwd_dkdv_wgmma_kernel<<<grid_kv, kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v,
-                                                                   map_do);
+  dkdv<<<grid_kv, kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q(padded(p.q_len) / kBlockRows, p.heads, batch * p.splits);
-  bwd_dq_wgmma_kernel<<<grid_q, kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do);
+  dq<<<grid_q, kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return (int)err;
   const long long n = p.part_stride;
