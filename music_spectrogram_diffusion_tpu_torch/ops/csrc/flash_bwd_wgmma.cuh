@@ -27,12 +27,23 @@
 //   N-major by wgmma's transposed B, so no product needs a transpose in
 //   memory and one TMA copy of a tile serves both of its products.
 // - Small tiles and one tile in flight, with a block-wide barrier each step:
-//   a block here owns 128 rows (two consumer warpgroups of 64) and streams
-//   64-row tiles through a ring of kStages = 4 stages that one producer
-//   thread keeps full with TMA loads, tracked by mbarriers (a full and an
-//   empty barrier a stage); the consumers never wait on each other. The
-//   producer warpgroup gives its registers to the consumers (setmaxnreg),
-//   which keep S, dP and two output accumulators (128 floats) a thread.
+//   here a work item owns 128 rows (two consumer warpgroups of 64) and
+//   streams 64-row tiles through a ring of kStages = 4 stages that one
+//   producer thread keeps full with TMA loads, tracked by mbarriers (a full
+//   and an empty barrier a stage); the consumers never wait on each other.
+//   The producer warpgroup gives its registers to the consumers
+//   (setmaxnreg), which keep S, dP, two output accumulators and the last
+//   tile's p and dS (160 registers a thread).
+// - The exps and the products in turn: each warpgroup issues a tile's S and
+//   dP, then the last tile's register-A products, and waits only for S and
+//   dP, so the tensor cores run those products while the CUDA cores compute
+//   this tile's p and dS. p = 2^(s log2 e + kt - m) / l takes one FFMA, one
+//   subtraction and ex2.approx.ftz (m and the key terms kt arrive in log2
+//   units; an all-masked row keeps p = 1 / l exactly, see the prologue).
+// - A block's start (own rows in, the ring filled) cost as much as its few
+//   tiles at q = 256: the grid is persistent, at most one block an SM, each
+//   taking work items in a fixed order, with two buffers of own rows so the
+//   next item's arrive while this one's products run.
 // - TMA's zero fill covers the ragged ends (rows past q or kv), and a 4-D
 //   tensor map [b, h, len, d] with the layout's strides covers both K/V
 //   layouts without a copy.
@@ -42,8 +53,9 @@
 //   here every output sums straight on the tensor cores.
 // - delta = rowsum(dO out) took three eager launches and ~250 MB of f32
 //   copies in the wrapper; a prologue kernel here computes it from the bf16
-//   tensors in f32, beside each row's m and 1 / l (laid out per 64-row tile
-//   for one bulk copy a stage) and each key's mask term.
+//   tensors in f32 with coalesced reads, beside each row's m and 1 / l
+//   (laid out per 64-row tile for one bulk copy a stage) and each key's
+//   mask term.
 // - The dq pass at q = 256 had 192 blocks for 132 SMs walking 36 key tiles
 //   each; the wrapper's plan (ops/attention.py `dq_key_split`) cuts the
 //   keys into ranges whose f32 partials a last kernel sums in range order.
@@ -64,21 +76,25 @@ namespace bwd_wgmma {
 using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;        // rows of a streamed tile; the head_dim taken
-constexpr int kBlockRows = 128;  // a block's own rows: two consumer warpgroups
-constexpr int kStages = 4;       // the TMA ring
+constexpr int kBlockRows = 128;  // a work item's own rows: two consumer warpgroups
+constexpr int kStages = 4;       // the TMA ring of streamed tiles
 constexpr int kThreads = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int kConsumers = 256;
-constexpr int kTileBytes = kTile * 128;  // a 64 x 64 bf16 tile in the 128-byte swizzle
-constexpr int kStatFloats = 3 * kTile;   // a stage's row statistics (or key terms)
-// Own rows, the ring (two tiles a stage), the statistics, the barriers (own,
-// full[kStages], empty[kStages]), and 1024 bytes to align the tiles.
-constexpr int kSmemBytes = 1024 + 2 * kBlockRows * 128 + kStages * 2 * kTileBytes +
-                           kStages * kStatFloats * 4 + (1 + 2 * kStages) * 8;
+constexpr int kTileBytes = kTile * 128;    // a 64 x 64 bf16 tile in the 128-byte swizzle
+constexpr int kOwnBytes = 4 * kTileBytes;  // a work item's own rows of two tensors
+constexpr int kStatFloats = 3 * kTile;     // a stage's row statistics (or key terms)
+// own_full[2], own_empty[2], full[kStages], empty[kStages].
+constexpr int kBars = 4 + 2 * kStages;
+// Two buffers of own rows (the next work item's arrive while this one's
+// products run), the ring (two tiles a stage), the statistics, the
+// barriers, and 1024 bytes to align the tiles.
+constexpr int kSmemBytes = 1024 + 2 * kOwnBytes + kStages * 2 * kTileBytes +
+                           kStages * kStatFloats * 4 + kBars * 8;
 
 struct Params {
   const float* bias;     // optional f32 [b, 1|h, q, kv]
-  const float* rowstat;  // [b h][q_pad / 64][3][64]: m, 1 / l, delta (prologue)
-  const float* kterm;    // [b][kv_pad]: 0, -1e10 (masked) or -inf (past kv_len)
+  const float* rowstat;  // [b h][q_pad / 64][3][64]: m log2 e, 1 / l, delta (prologue)
+  const float* kterm;    // [b][kv_pad]: 0, -1e10 log2 e (masked) or -inf (past kv_len)
   void* dq;              // bf16 like q, or f32 partials [splits][like q]
   void* dk;              // bf16 like k
   void* dv;              // bf16 like v
@@ -89,61 +105,92 @@ struct Params {
   long long part_stride;          // elements between two splits' dQ partials
 };
 
-// Rows padded to whole blocks: q_pad and kv_pad.
+// Rows padded to whole work items: q_pad and kv_pad.
 inline int padded(int len) { return (len + kBlockRows - 1) / kBlockRows * kBlockRows; }
 
-struct Smem {
-  unsigned char* own;  // [2][kBlockRows rows of 128 bytes]
-  unsigned char* ring; // [kStages][2][kTileBytes]
-  float* stat;         // [kStages][kStatFloats]
-  uint64_t* bar;       // own, full[kStages], empty[kStages]
+// A work item: kBlockRows own rows from row0 of one (batch, head), and for
+// the dq pass one range of key tiles. A pass's items are numbered with the
+// row blocks fastest, then the key range, the head and the batch, and block
+// i of the grid takes items i, i + gridDim.x, ... (a persistent grid of at
+// most one block an SM).
+struct Item {
+  int row0, split, h, b;
 };
 
-__device__ __forceinline__ Smem carve(unsigned char* raw) {
-  unsigned char* base = raw + ((1024 - (msd::smem_addr(raw) & 1023)) & 1023);
-  Smem s;
-  s.own = base;
-  s.ring = base + 2 * kBlockRows * 128;
-  s.stat = reinterpret_cast<float*>(s.ring + kStages * 2 * kTileBytes);
-  s.bar = reinterpret_cast<uint64_t*>(s.stat + kStages * kStatFloats);
-  return s;
+__device__ __forceinline__ Item item_of(int item, int row_blocks, int splits, int heads) {
+  Item w;
+  w.row0 = item % row_blocks * kBlockRows;
+  const int rest = item / row_blocks;
+  w.split = rest % splits;
+  w.h = rest / splits % heads;
+  w.b = rest / splits / heads;
+  return w;
 }
 
-__device__ __forceinline__ void init_barriers(uint64_t* bar) {
+struct Smem {
+  unsigned char* own;   // [2][kOwnBytes]: two tensors' own rows, two buffers
+  unsigned char* ring;  // [kStages][2][kTileBytes]
+  float* stat;          // [kStages][kStatFloats]
+  uint64_t* bar;        // [kBars]
+
+  __device__ uint64_t* own_full(int buf) const { return bar + buf; }
+  __device__ uint64_t* own_empty(int buf) const { return bar + 2 + buf; }
+  __device__ uint64_t* full(int s) const { return bar + 4 + s; }
+  __device__ uint64_t* empty(int s) const { return bar + 4 + kStages + s; }
+  __device__ unsigned char* stage(int s) const { return ring + s * 2 * kTileBytes; }
+};
+
+// The block's shared memory, its barriers initialized.
+__device__ __forceinline__ Smem setup(unsigned char* raw) {
+  unsigned char* base = raw + ((1024 - (msd::smem_addr(raw) & 1023)) & 1023);
+  Smem sm;
+  sm.own = base;
+  sm.ring = base + 2 * kOwnBytes;
+  sm.stat = reinterpret_cast<float*>(sm.ring + kStages * 2 * kTileBytes);
+  sm.bar = reinterpret_cast<uint64_t*>(sm.stat + kStages * kStatFloats);
   if (threadIdx.x == 0) {
-    msd::mbar_init(bar, 1);
+    for (int i = 0; i < 2; ++i) {
+      msd::mbar_init(sm.own_full(i), 1);
+      msd::mbar_init(sm.own_empty(i), kConsumers);
+    }
     for (int s = 0; s < kStages; ++s) {
-      msd::mbar_init(bar + 1 + s, 1);
-      msd::mbar_init(bar + 1 + kStages + s, kConsumers);
+      msd::mbar_init(sm.full(s), 1);
+      msd::mbar_init(sm.empty(s), kConsumers);
     }
     msd::fence_mbar_init();
   }
   __syncthreads();
+  return sm;
 }
 
-// The two consumer warpgroups take turns to issue their products (named
-// barriers kTurnBar + wg), so that one's exps and scaling run while the
-// tensor cores run the other's products; otherwise both wait for the same
-// tile and reach their exps together while the tensor cores idle.
-constexpr bool kTurns = false;
-constexpr int kTurnBar = 1;
-
-// A barrier that only ever sees one warpgroup's arrivals, where a turn is
-// given to nobody; selected, not branched to, so that no wgmma code sits on
-// a divergent path (ptxas would serialize it).
-constexpr int kNoTurnBar = 3;
-
-// Warpgroup 0 has the first turn.
-__device__ __forceinline__ void take_turns_first(int wg) {
-  msd::named_bar_arrive(wg == 1 ? kTurnBar : kNoTurnBar, wg == 1 ? kConsumers : 128);
+// The producer's loads (one thread). Work item n's own rows (two 64-row
+// tiles of each of two tensors from row0) into buffer n % 2, once the
+// consumers are done with item n - 2.
+__device__ __forceinline__ void load_own(const Smem& sm, int n, const CUtensorMap* a,
+                                         const CUtensorMap* b_, int row0, int h, int b) {
+  const int buf = n % 2;
+  msd::mbar_wait(sm.own_empty(buf), ((n / 2) & 1) ^ 1);
+  msd::mbar_expect_tx(sm.own_full(buf), kOwnBytes);
+  unsigned char* own = sm.own + buf * kOwnBytes;
+  for (int half = 0; half < 2; ++half) {
+    msd::tma_load_4d(own + half * kTileBytes, a, 0, row0 + half * kTile, h, b, sm.own_full(buf));
+    msd::tma_load_4d(own + (2 + half) * kTileBytes, b_, 0, row0 + half * kTile, h, b,
+                     sm.own_full(buf));
+  }
 }
 
-// Gives the turn to the other warpgroup after step `it` of n; warpgroup 1
-// gives none after its last step, so each barrier sees as many arrivals as
-// waits.
-__device__ __forceinline__ void pass_turn(int wg, int it, int n) {
-  const bool give = wg == 0 || it + 1 < n;
-  msd::named_bar_arrive(give ? kTurnBar + 1 - wg : kNoTurnBar, give ? kConsumers : 128);
+// Streamed tile number `ring_it` of the block (rows `row` of two tensors,
+// and `stat_bytes` of per-row terms from `stat_src`) into stage
+// ring_it % kStages, once the consumers have freed it.
+__device__ __forceinline__ void load_tile(const Smem& sm, int ring_it, const CUtensorMap* a,
+                                          const CUtensorMap* b_, int row, int h, int b,
+                                          const float* stat_src, int stat_bytes) {
+  const int s = ring_it % kStages;
+  msd::mbar_wait(sm.empty(s), ((ring_it / kStages) & 1) ^ 1);
+  msd::mbar_expect_tx(sm.full(s), 2 * kTileBytes + stat_bytes);
+  msd::tma_load_4d(sm.stage(s), a, 0, row, h, b, sm.full(s));
+  msd::tma_load_4d(sm.stage(s) + kTileBytes, b_, 0, row, h, b, sm.full(s));
+  msd::bulk_load(sm.stat + s * kStatFloats, stat_src, stat_bytes, sm.full(s));
 }
 
 // 2^x by the special-function unit alone; results below 2^-126 flush to 0.
@@ -153,95 +200,76 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The producer: the block's own rows (two tiles of each of two tensors at
-// rows row0, row0 + 64), then `n` streamed tiles of two tensors at rows
-// (tile0 + i) 64 with `stat_bytes` of per-row terms each from `stat_src`
-// (+ i kStatFloats), into the ring as the consumers free its stages.
-__device__ __forceinline__ void produce(const Smem& sm, const CUtensorMap* own_a,
-                                        const CUtensorMap* own_b, const CUtensorMap* str_a,
-                                        const CUtensorMap* str_b, int row0, int tile0, int n,
-                                        const float* stat_src, int stat_stride, int stat_bytes,
-                                        int h, int b) {
-  msd::mbar_expect_tx(sm.bar, 4 * kTileBytes);
-  for (int half = 0; half < 2; ++half) {
-    msd::tma_load_4d(sm.own + half * kTileBytes, own_a, 0, row0 + half * kTile, h, b, sm.bar);
-    msd::tma_load_4d(sm.own + (2 + half) * kTileBytes, own_b, 0, row0 + half * kTile, h, b,
-                     sm.bar);
-  }
-  for (int i = 0; i < n; ++i) {
-    const int s = i % kStages;
-    uint64_t* full = sm.bar + 1 + s;
-    msd::mbar_wait(sm.bar + 1 + kStages + s, ((i / kStages) & 1) ^ 1);
-    msd::mbar_expect_tx(full, 2 * kTileBytes + stat_bytes);
-    unsigned char* st = sm.ring + s * 2 * kTileBytes;
-    msd::tma_load_4d(st, str_a, 0, (tile0 + i) * kTile, h, b, full);
-    msd::tma_load_4d(st + kTileBytes, str_b, 0, (tile0 + i) * kTile, h, b, full);
-    msd::bulk_load(sm.stat + s * kStatFloats, stat_src + (long long)i * stat_stride, stat_bytes,
-                   full);
-  }
-}
-
-// dK and dV of one block of 128 keys, walking the query tiles (with the
-// f32 bias when BIAS).
+// dK and dV of work items of 128 keys, each walking the query tiles (with
+// the f32 bias when BIAS).
 template <bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dkdv_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
-                          const __grid_constant__ CUtensorMap map_do) {
+                          const __grid_constant__ CUtensorMap map_do, int batch) {
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw);
-  const int k0 = blockIdx.x * kBlockRows, h = blockIdx.y, b = blockIdx.z;
+  const Smem sm = setup(smem_raw);
   const int n_tiles = (p.q_len + kTile - 1) / kTile;
-  init_barriers(sm.bar);
+  const int row_blocks = p.kv_pad / kBlockRows, items = row_blocks * p.heads * batch;
   const int wg = threadIdx.x / 128;
 
   if (wg == 2) {
     msd::setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      const float* rs = p.rowstat + ((long long)b * p.heads + h) * p.q_tiles * kStatFloats;
-      produce(sm, &map_k, &map_v, &map_q, &map_do, k0, 0, n_tiles, rs, kStatFloats,
-              kStatFloats * 4, h, b);
+      int ring_it = 0, n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const Item w = item_of(item, row_blocks, 1, p.heads);
+        load_own(sm, n, &map_k, &map_v, w.row0, w.h, w.b);
+        const float* rs = p.rowstat + ((long long)w.b * p.heads + w.h) * p.q_tiles * kStatFloats;
+        for (int i = 0; i < n_tiles; ++i, ++ring_it) {
+          load_tile(sm, ring_it, &map_q, &map_do, i * kTile, w.h, w.b, rs + i * kStatFloats,
+                    kStatFloats * 4);
+        }
+      }
     }
-  } else {
-    msd::setmaxnreg_inc<240>();
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-    const int key0 = k0 + wg * 64 + 16 * warp + g;  // the thread's keys: key0 and key0 + 8
-    const float* kterm = p.kterm + (long long)b * p.kv_pad;
-    const float kt[2] = {kterm[key0], kterm[key0 + 8]};  // times log2 e
-    const float* bias = p.bias != nullptr ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-    const uint64_t a_k = msd::sw128_desc(sm.own + wg * 64 * 128);
-    const uint64_t a_v = msd::sw128_desc(sm.own + (kBlockRows + wg * 64) * 128);
-    float dk[32], dv[32];
+    return;
+  }
+  msd::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float dk[32], dv[32];
+  uint32_t pa[4][4], da[4][4];
+  // dV += p^T dO and dK += dS^T q for the tile in `pa`, `da` (its q and dO
+  // at `qt`).
+  auto dkdv_products = [&](const unsigned char* qt) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      msd::wgmma_m64n64_rs<1>(dv, pa[kk], msd::sw128_n_desc(qt + kTileBytes, kTileBytes) + 128 * kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      msd::wgmma_m64n64_rs<1>(dk, da[kk], msd::sw128_n_desc(qt, kTileBytes) + 128 * kk);
+    }
+  };
+  int ring_it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const Item w = item_of(item, row_blocks, 1, p.heads);
+    const int buf = n % 2;
+    const int key0 = w.row0 + wg * 64 + 16 * warp + g;  // the thread's keys: key0 and key0 + 8
+    const float* kterm = p.kterm + (long long)w.b * p.kv_pad;
+    const float kt[2] = {kterm[key0], kterm[key0 + 8]};  // in log2 units
+    const float* bias = BIAS ? p.bias + w.b * p.bias_sb + w.h * p.bias_sh : nullptr;
+    const unsigned char* own = sm.own + buf * kOwnBytes;
+    const uint64_t a_k = msd::sw128_desc(own + wg * 64 * 128);
+    const uint64_t a_v = msd::sw128_desc(own + 2 * kTileBytes + wg * 64 * 128);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-    msd::mbar_wait(sm.bar, 0);
+    msd::mbar_wait(sm.own_full(buf), (n / 2) & 1);
 
-    // dV += p^T dO and dK += dS^T q for the tile in `pa`, `da` (its q and dO
-    // at `qt`, `dot`).
-    uint32_t pa[4][4], da[4][4];
-    auto dkdv_products = [&](const unsigned char* qt, const unsigned char* dot) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_rs<1>(dv, pa[kk], msd::sw128_n_desc(dot, kTileBytes) + 128 * kk);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_rs<1>(dk, da[kk], msd::sw128_n_desc(qt, kTileBytes) + 128 * kk);
-      }
-    };
-    if (kTurns) take_turns_first(wg);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages, prev = (it + kStages - 1) % kStages;
-      const unsigned char* qt = sm.ring + s * 2 * kTileBytes;
-      const unsigned char* dot = qt + kTileBytes;
-      msd::mbar_wait(sm.bar + 1 + s, (it / kStages) & 1);
+    for (int it = 0; it < n_tiles; ++it, ++ring_it) {
+      const int s = ring_it % kStages, prev = (ring_it + kStages - 1) % kStages;
+      const unsigned char* qt = sm.stage(s);
+      msd::mbar_wait(sm.full(s), (ring_it / kStages) & 1);
 
       // This tile's S^T = K q^T and dP^T = V dO^T (64 keys by 64 queries),
       // then the last tile's dV and dK, which run on the tensor cores while
       // this tile's exps run on the CUDA cores.
       float sc[32], dp[32];
-      if (kTurns) msd::named_bar_sync(kTurnBar + wg, kConsumers);
       msd::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -249,15 +277,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_ss<0>(dp, a_v + 2 * kk, msd::sw128_desc(dot) + 2 * kk, kk);
+        msd::wgmma_m64n64_ss<0>(dp, a_v + 2 * kk, msd::sw128_desc(qt + kTileBytes) + 2 * kk, kk);
       }
       msd::wgmma_commit();
-      if (it > 0) {
-        const unsigned char* qp = sm.ring + prev * 2 * kTileBytes;
-        dkdv_products(qp, qp + kTileBytes);
-      }
+      if (it > 0) dkdv_products(sm.stage(prev));
       msd::wgmma_commit();
-      if (kTurns) pass_turn(wg, it, n_tiles);
       msd::wgmma_wait<1>();  // this tile's S and dP
       msd::fence_regs(sc);
       msd::fence_regs(dp);
@@ -292,23 +316,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       msd::wgmma_wait<0>();  // the last tile's dV and dK, which read pa, da
       msd::fence_regs(dk);
       msd::fence_regs(dv);
-      if (it > 0) msd::mbar_arrive(sm.bar + 1 + kStages + prev);
+      if (it > 0) msd::mbar_arrive(sm.empty(prev));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         msd::acc_to_a(pa[kk], sc, kk);
         msd::acc_to_a(da[kk], dp, kk);
       }
     }
-    // The last tile's dV and dK.
-    const unsigned char* ql = sm.ring + ((n_tiles - 1) % kStages) * 2 * kTileBytes;
+    // The last tile's dV and dK; then its stage and the own rows are free.
+    const int last = (ring_it + kStages - 1) % kStages;
     msd::wgmma_fence();
-    dkdv_products(ql, ql + kTileBytes);
+    dkdv_products(sm.stage(last));
     msd::wgmma_commit();
     msd::wgmma_wait<0>();
     msd::fence_regs(dk);
     msd::fence_regs(dv);
+    msd::mbar_arrive(sm.empty(last));
+    msd::mbar_arrive(sm.own_empty(buf));
 
-    const long long off = b * p.kv_sb + h * p.kv_sh;
+    const long long off = w.b * p.kv_sb + w.h * p.kv_sh;
     bf16* dk_out = static_cast<bf16*>(p.dk) + off;
     bf16* dv_out = static_cast<bf16*>(p.dv) + off;
 #pragma unroll
@@ -327,74 +353,86 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// dQ of one block of 128 queries over one range of key tiles (the whole of
-// kv when p.splits == 1), walking its key tiles in order (with the f32 bias
-// when BIAS).
+// dQ of work items of 128 queries over one range of key tiles (the whole of
+// kv when p.splits == 1), each walking its key tiles in order (with the f32
+// bias when BIAS).
 template <bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_dq_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
-                        const __grid_constant__ CUtensorMap map_do) {
+                        const __grid_constant__ CUtensorMap map_do, int batch) {
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm = carve(smem_raw);
-  const int q0 = blockIdx.x * kBlockRows, h = blockIdx.y;
-  const int b = blockIdx.z / p.splits, split = blockIdx.z % p.splits;
-  const int tile0 = split * p.tiles_per_split;
-  const int n_tiles = min(p.tiles_per_split, (p.kv_len + kTile - 1) / kTile - tile0);
-  init_barriers(sm.bar);
+  const Smem sm = setup(smem_raw);
+  const int kv_tiles = (p.kv_len + kTile - 1) / kTile;
+  const int row_blocks = p.q_tiles * kTile / kBlockRows;
+  const int items = row_blocks * p.splits * p.heads * batch;
   const int wg = threadIdx.x / 128;
 
   if (wg == 2) {
     msd::setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      const float* kterm = p.kterm + (long long)b * p.kv_pad + tile0 * kTile;
-      produce(sm, &map_q, &map_do, &map_k, &map_v, q0, tile0, n_tiles, kterm, kTile, kTile * 4,
-              h, b);
+      int ring_it = 0, n = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+        const Item w = item_of(item, row_blocks, p.splits, p.heads);
+        load_own(sm, n, &map_q, &map_do, w.row0, w.h, w.b);
+        const int tile0 = w.split * p.tiles_per_split;
+        const int n_tiles = min(p.tiles_per_split, kv_tiles - tile0);
+        const float* kterm = p.kterm + (long long)w.b * p.kv_pad;
+        for (int i = 0; i < n_tiles; ++i, ++ring_it) {
+          load_tile(sm, ring_it, &map_k, &map_v, (tile0 + i) * kTile, w.h, w.b,
+                    kterm + (tile0 + i) * kTile, kTile * 4);
+        }
+      }
     }
-  } else {
-    msd::setmaxnreg_inc<240>();
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-    const int row0 = q0 + wg * 64 + 16 * warp + g;  // the thread's queries: row0 and row0 + 8
+    return;
+  }
+  msd::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float dq[32];
+  uint32_t da[4][4];
+  // dQ += dS k for the tile in `da` (its keys at `kt`).
+  auto dq_product = [&](const unsigned char* kt) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      msd::wgmma_m64n64_rs<1>(dq, da[kk], msd::sw128_n_desc(kt, kTileBytes) + 128 * kk);
+    }
+  };
+  int ring_it = 0, n = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
+    const Item w = item_of(item, row_blocks, p.splits, p.heads);
+    const int buf = n % 2;
+    const int tile0 = w.split * p.tiles_per_split;
+    const int n_tiles = min(p.tiles_per_split, kv_tiles - tile0);
+    const int row0 = w.row0 + wg * 64 + 16 * warp + g;  // the thread's queries: row0 and row0 + 8
     float m[2], il[2], dl[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = row0 + 8 * r;
       const float* rs = p.rowstat +
-                        (((long long)b * p.heads + h) * p.q_tiles + qi / kTile) * kStatFloats +
+                        (((long long)w.b * p.heads + w.h) * p.q_tiles + qi / kTile) * kStatFloats +
                         qi % kTile;
       m[r] = rs[0];
       il[r] = rs[kTile];
       dl[r] = rs[2 * kTile];
     }
-    const float* bias = p.bias != nullptr ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
-    const uint64_t a_q = msd::sw128_desc(sm.own + wg * 64 * 128);
-    const uint64_t a_do = msd::sw128_desc(sm.own + (kBlockRows + wg * 64) * 128);
-    float dq[32];
+    const float* bias = BIAS ? p.bias + w.b * p.bias_sb + w.h * p.bias_sh : nullptr;
+    const unsigned char* own = sm.own + buf * kOwnBytes;
+    const uint64_t a_q = msd::sw128_desc(own + wg * 64 * 128);
+    const uint64_t a_do = msd::sw128_desc(own + 2 * kTileBytes + wg * 64 * 128);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-    msd::mbar_wait(sm.bar, 0);
+    msd::mbar_wait(sm.own_full(buf), (n / 2) & 1);
 
-    // dQ += dS k for the tile in `da` (its keys at `kt`).
-    uint32_t da[4][4];
-    auto dq_product = [&](const unsigned char* kt) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_rs<1>(dq, da[kk], msd::sw128_n_desc(kt, kTileBytes) + 128 * kk);
-      }
-    };
-    if (kTurns) take_turns_first(wg);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages, prev = (it + kStages - 1) % kStages;
-      const unsigned char* kt = sm.ring + s * 2 * kTileBytes;
-      const unsigned char* vt = kt + kTileBytes;
-      msd::mbar_wait(sm.bar + 1 + s, (it / kStages) & 1);
+    for (int it = 0; it < n_tiles; ++it, ++ring_it) {
+      const int s = ring_it % kStages, prev = (ring_it + kStages - 1) % kStages;
+      const unsigned char* kt = sm.stage(s);
+      msd::mbar_wait(sm.full(s), (ring_it / kStages) & 1);
 
       // This tile's S = q K^T and dP = dO V^T (64 queries by 64 keys), then
       // the last tile's dQ, which runs on the tensor cores while this
       // tile's exps run on the CUDA cores.
       float sc[32], dp[32];
-      if (kTurns) msd::named_bar_sync(kTurnBar + wg, kConsumers);
       msd::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -402,12 +440,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        msd::wgmma_m64n64_ss<0>(dp, a_do + 2 * kk, msd::sw128_desc(vt) + 2 * kk, kk);
+        msd::wgmma_m64n64_ss<0>(dp, a_do + 2 * kk, msd::sw128_desc(kt + kTileBytes) + 2 * kk, kk);
       }
       msd::wgmma_commit();
-      if (it > 0) dq_product(sm.ring + prev * 2 * kTileBytes);
+      if (it > 0) dq_product(sm.stage(prev));
       msd::wgmma_commit();
-      if (kTurns) pass_turn(wg, it, n_tiles);
       msd::wgmma_wait<1>();  // this tile's S and dP
       msd::fence_regs(sc);
       msd::fence_regs(dp);
@@ -437,18 +474,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       msd::wgmma_wait<0>();  // the last tile's dQ, which reads da
       msd::fence_regs(dq);
-      if (it > 0) msd::mbar_arrive(sm.bar + 1 + kStages + prev);
+      if (it > 0) msd::mbar_arrive(sm.empty(prev));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) msd::acc_to_a(da[kk], sc, kk);
     }
-    // The last tile's dQ.
+    // The last tile's dQ; then its stage and the own rows are free.
+    const int last = (ring_it + kStages - 1) % kStages;
     msd::wgmma_fence();
-    dq_product(sm.ring + ((n_tiles - 1) % kStages) * 2 * kTileBytes);
+    dq_product(sm.stage(last));
     msd::wgmma_commit();
     msd::wgmma_wait<0>();
     msd::fence_regs(dq);
+    msd::mbar_arrive(sm.empty(last));
+    msd::mbar_arrive(sm.own_empty(buf));
 
-    const long long off = b * p.q_sb + h * p.q_sh;
+    const long long off = w.b * p.q_sb + w.h * p.q_sh;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -460,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (p.splits == 1) {
           *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.dq) + at) = msd::pack_bf16(x, y);
         } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.dq) + split * p.part_stride + at) =
+          *reinterpret_cast<float2*>(static_cast<float*>(p.dq) + w.split * p.part_stride + at) =
               make_float2(x, y);
         }
       }
@@ -469,49 +509,57 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // Per row of q: m log2 e, 1 / l and delta = rowsum(dO out) (f32 products
-// of the bf16 values, summed in order), each 64-row tile's three rows of 64
-// in a row (rows past q_len 0); per key: its mask term times log2 e (0,
+// of the bf16 values, each of 8 lanes summing 8 of them in order, then the
+// lanes' sums in a fixed butterfly), each 64-row tile's three rows of 64 in
+// a row (rows past q_len 0); per key: its mask term times log2 e (0,
 // -1e10 log2 e, or -inf past kv_len). An all-masked row's m is -1e10
 // exactly, so there m log2 e equals every key's term and p = 1 / l, as the
-// forward's. Threads run over (b, h, q_pad), q fastest.
+// forward's. Rows run over (b, q_pad, h), h fastest, so that a warp's four
+// rows read 512 contiguous bytes of out and of dO; `row_threads` (8 a row,
+// rounded up to whole warps) come first, then one thread a key.
 __global__ void bwd_prologue_kernel(const Params p, const bf16* out, const bf16* dout,
-                                    const float* stats, const uint8_t* mask, int batch,
-                                    float* rowstat, float* kterm) {
+                                    const float* stats, int batch, long long row_threads,
+                                    const uint8_t* mask, float* rowstat, float* kterm) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int q_pad = p.q_tiles * kTile;
-  const long long n_rows = (long long)batch * q_pad * p.heads;
-  if (idx < n_rows) {
-    const int qi = idx % q_pad;
-    const long long bh = idx / q_pad;
-    const int b = bh / p.heads, h = bh % p.heads;
-    float mv = 0.f, ilv = 0.f, dl = 0.f;
-    if (qi < p.q_len) {
-      const float* m = stats;
-      const float* l = stats + (long long)batch * p.heads * p.q_len;
-      mv = m[bh * p.q_len + qi] * msd::kLog2e;
-      ilv = 1.f / l[bh * p.q_len + qi];
-      const long long at = b * p.q_sb + qi * p.q_sl + h * p.q_sh;
-      const uint4* o = reinterpret_cast<const uint4*>(out + at);
-      const uint4* d = reinterpret_cast<const uint4*>(dout + at);
+  if (idx < row_threads) {
+    const long long row = idx / 8;
+    const int lane8 = idx % 8, h = row % p.heads, qi = row / p.heads % q_pad;
+    const int b = row / ((long long)p.heads * q_pad);
+    const bool valid = b < batch && qi < p.q_len;
+    float dl = 0.f;
+    if (valid) {
+      const long long at = b * p.q_sb + qi * p.q_sl + h * p.q_sh + 8 * lane8;
+      const uint4 ov = *reinterpret_cast<const uint4*>(out + at);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dout + at);
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-      for (int c = 0; c < kTile / 8; ++c) {
-        const uint4 ov = o[c], dv = d[c];
-        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const __nv_bfloat162 o2 = *reinterpret_cast<const __nv_bfloat162*>(&ow[w]);
-          const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dw[w]);
-          dl = fmaf(__bfloat162float(d2.x), __bfloat162float(o2.x), dl);
-          dl = fmaf(__bfloat162float(d2.y), __bfloat162float(o2.y), dl);
-        }
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 o2 = *reinterpret_cast<const __nv_bfloat162*>(&ow[i]);
+        const __nv_bfloat162 d2 = *reinterpret_cast<const __nv_bfloat162*>(&dw[i]);
+        dl = fmaf(__bfloat162float(d2.x), __bfloat162float(o2.x), dl);
+        dl = fmaf(__bfloat162float(d2.y), __bfloat162float(o2.y), dl);
       }
     }
-    float* dst = rowstat + (bh * p.q_tiles + qi / kTile) * kStatFloats + qi % kTile;
-    dst[0] = mv;
-    dst[kTile] = ilv;
-    dst[2 * kTile] = dl;
-  } else if (idx < n_rows + (long long)batch * p.kv_pad) {
-    const long long i = idx - n_rows;
+    dl += __shfl_xor_sync(0xffffffffu, dl, 4);
+    dl += __shfl_xor_sync(0xffffffffu, dl, 2);
+    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+    if (b < batch && lane8 == 0) {
+      const long long bh = (long long)b * p.heads + h;
+      float mv = 0.f, ilv = 0.f;
+      if (valid) {
+        const float* m = stats;
+        const float* l = stats + (long long)batch * p.heads * p.q_len;
+        mv = m[bh * p.q_len + qi] * msd::kLog2e;
+        ilv = 1.f / l[bh * p.q_len + qi];
+      }
+      float* dst = rowstat + (bh * p.q_tiles + qi / kTile) * kStatFloats + qi % kTile;
+      dst[0] = mv;
+      dst[kTile] = ilv;
+      dst[2 * kTile] = valid ? dl : 0.f;
+    }
+  } else if (idx < row_threads + (long long)batch * p.kv_pad) {
+    const long long i = idx - row_threads;
     const int b = i / p.kv_pad, c = i % p.kv_pad;
     kterm[i] = c >= p.kv_len ? -INFINITY
                              : (mask != nullptr && !mask[(long long)b * p.kv_len + c]
@@ -550,7 +598,8 @@ inline bool tile_map(CUtensorMap* map, const void* base, int batch, int heads, i
 }
 
 // The route's launches on `stream`: prologue, dkdv, dq and, with splits,
-// the combine. Returns a CUDA error code (0 on success).
+// the combine. dkdv and dq run a persistent grid of at most one block an
+// SM. Returns a CUDA error code (0 on success).
 inline int launch(Params p, const void* q, const void* k, const void* v, const void* out,
                   const void* dout, const float* stats, const uint8_t* mask, float* rowstat,
                   float* kterm, void* dq_out, int batch, cudaStream_t stream) {
@@ -561,13 +610,19 @@ inline int launch(Params p, const void* q, const void* k, const void* v, const v
       !tile_map(&map_v, v, batch, p.heads, p.kv_len, p.kv_sb, p.kv_sl, p.kv_sh)) {
     return (int)cudaErrorInvalidValue;
   }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   p.rowstat = rowstat;
   p.kterm = kterm;
-  const long long work = (long long)batch * padded(p.q_len) * p.heads + (long long)batch * p.kv_pad;
+  const long long rows = (long long)batch * padded(p.q_len) * p.heads;
+  const long long row_threads = (8 * rows + 31) / 32 * 32;
+  const long long work = row_threads + (long long)batch * p.kv_pad;
   bwd_prologue_kernel<<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(
-      p, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), stats, mask, batch,
-      rowstat, kterm);
-  cudaError_t err = cudaGetLastError();
+      p, static_cast<const bf16*>(out), static_cast<const bf16*>(dout), stats, batch,
+      row_threads, mask, rowstat, kterm);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool bias = p.bias != nullptr;
   const auto dkdv = bias ? bwd_dkdv_wgmma_kernel<true> : bwd_dkdv_wgmma_kernel<false>;
@@ -576,12 +631,13 @@ inline int launch(Params p, const void* q, const void* k, const void* v, const v
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid_kv(p.kv_pad / kBlockRows, p.heads, batch);
-  dkdv<<<grid_kv, kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do);
+  const int kv_items = p.kv_pad / kBlockRows * p.heads * batch;
+  dkdv<<<min(kv_items, sms), kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do,
+                                                             batch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q(padded(p.q_len) / kBlockRows, p.heads, batch * p.splits);
-  dq<<<grid_q, kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do);
+  const int q_items = padded(p.q_len) / kBlockRows * p.splits * p.heads * batch;
+  dq<<<min(q_items, sms), kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do, batch);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return (int)err;
   const long long n = p.part_stride;

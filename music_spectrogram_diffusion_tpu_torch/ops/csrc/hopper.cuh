@@ -75,15 +75,6 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Named barrier `id` (1-15; 0 is __syncthreads'): wait until `threads`
-// threads have arrived, or arrive without waiting.
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // The warpgroup's registers a thread, raised or lowered (a multiple of 8 in
 // 24..256; every warp of the warpgroup executes it).
 template <int N>
