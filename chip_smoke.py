@@ -361,8 +361,9 @@ def ptxas_lines(report: str) -> list:
               "f32" if t.group(2) == "f" else "bf16") + ">", entry)
       entry = re.sub(r"^(\w+_kernel)E\w*$", r"\1", entry)  # no template
       entry = re.sub(r"^_ZN9bwd_wgmma\d+", "bwd_wgmma::", entry)
-      entry = re.sub(r"ILb([01])EEEv\w*$", lambda t: "<" + (
-          "bias" if t.group(1) == "1" else "no bias") + ">", entry)
+      entry = re.sub(r"(?:<(\d+)>|I)Lb([01])EEEv\w*$", lambda t: "<" + (
+          f"{t.group(1)}, " if t.group(1) else "") + (
+              "bias" if t.group(2) == "1" else "no bias") + ">", entry)
     elif entry and "spill" in line:
       stack = line.split(":", 1)[-1].strip() if ":" in line else line.strip()
     elif entry and "registers" in line:
@@ -1800,10 +1801,11 @@ def route_rule_check() -> str:
               f"library's {built}, bwd_route's "
               f"{attention.bwd_route(dtype, head_dim, aligned)}")
         cases += 1
-  check(attention.bwd_tile()[1] == attention.WGMMA_HEAD_DIM,
-        f"the wgmma route's tile {attention.bwd_tile()}")
+  tiles = {q: attention.bwd_tile(q) for q in (256, 2048)}
+  check(all(t[1] == attention.WGMMA_HEAD_DIM for t in tiles.values()),
+        f"the wgmma route's tiles {tiles}")
   return (f"{cases} (dtype, head_dim, alignment) cases route as bwd_route "
-          f"says; block shape {attention.bwd_tile()}")
+          f"says; dq item rows and tile by q_len {tiles}")
 
 
 def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
@@ -1827,7 +1829,7 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
     route = attention.bwd_route(q.dtype, HEAD_DIM)
     check(route == "wgmma", f"{name}: bf16 training takes the {route} route")
     splits = attention.dq_key_split(batch, HEADS, q_len, kv_len, sms,
-                                    *attention.bwd_tile())
+                                    *attention.bwd_tile(q_len))
 
     def kernel():
       return attention.flash_attention_bwd(*args)

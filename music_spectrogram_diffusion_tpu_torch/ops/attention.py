@@ -153,8 +153,8 @@ def kv_split(batch: int, heads: int, q_len: int, kv_len: int, sm_count: int,
 # prologue loads need.
 WGMMA_HEAD_DIM = 64
 WGMMA_ALIGN = 16
-# The dq key split: splits until the dq pass has about this many blocks an
-# SM (one block of 384 threads fits an SM), at most DQ_MAX_SPLITS.
+# The dq key split: splits until the dq pass has about this many work items
+# an SM, at most DQ_MAX_SPLITS.
 DQ_SPLIT_WAVES = 4
 DQ_MAX_SPLITS = 8
 
@@ -174,12 +174,12 @@ def dq_key_split(batch: int, heads: int, q_len: int, kv_len: int,
                  sm_count: int, rows: int, keys: int) -> Tuple[int, int]:
   """(splits, keys_per_split) of the wgmma route's dq pass.
 
-  The pass runs b h ceil(q / rows) blocks (`rows` queries a block, `keys`
-  keys a streamed tile: the route's block shape, `bwd_tile`), each walking
-  its keys in order. Where that is fewer than DQ_SPLIT_WAVES blocks an SM
-  (the 256-query shapes), the keys are cut into ranges of whole tiles, one
-  block each, whose f32 partials are summed in range order; else 1 split
-  of every tile. Ranges cover [0, kv_len) once, in order, and each starts
+  The pass runs b h ceil(q / rows) work items (`rows` queries an item,
+  `keys` keys a streamed tile: the route's block shape, `bwd_tile`), each
+  walking its keys in order, at most one block an SM. Where that is fewer
+  than DQ_SPLIT_WAVES items an SM (the 256-query shapes), the keys are cut
+  into ranges of whole tiles, one item each, whose f32 partials are summed
+  in range order; else 1 split of every tile. Ranges cover [0, kv_len) once, in order, and each starts
   below kv_len.
   """
   blocks = batch * heads * -(-q_len // rows)
@@ -191,10 +191,13 @@ def dq_key_split(batch: int, heads: int, q_len: int, kv_len: int,
   return -(-tiles // per), per * keys
 
 
-def bwd_tile() -> Tuple[int, int]:
-  """(rows a block owns, rows a streamed tile) of the backward's wgmma
-  route, as `csrc/flash_bwd.cu` is built (loads it; needs the card)."""
-  return _library("flash_bwd").msd_bwd_tile
+def bwd_tile(q_len: int) -> Tuple[int, int]:
+  """(queries a dq work item owns, rows a streamed tile) of the backward's
+  wgmma route for q_len queries, as `csrc/flash_bwd.cu` is built (loads
+  it; needs the card): the dq pass takes three warpgroups (192 rows) where
+  the queries fill such items, else two (128)."""
+  lib = _library("flash_bwd")
+  return lib.msd_flash_bwd_tile(0, q_len), lib.msd_flash_bwd_tile(1, q_len)
 
 
 def fwd_tile(dtype: torch.dtype) -> Tuple[int, int]:
@@ -445,10 +448,10 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
   if lib.msd_flash_bwd_route(code, head_dim, int(aligned)):
     # The wgmma route's f32 scratch: each row's m, 1 / l and delta, each
     # key's mask term (lengths padded to whole blocks), the dq partials.
-    rows, keys = lib.msd_bwd_tile
+    rows, keys, kv_rows = (lib.msd_flash_bwd_tile(i, q_len) for i in range(3))
     rowstat = torch.empty(batch, heads, -(-q_len // rows) * rows // keys, 3,
                           keys, **f32)
-    kterm = torch.empty(batch, -(-kv_len // rows) * rows, **f32)
+    kterm = torch.empty(batch, -(-kv_len // kv_rows) * kv_rows, **f32)
     splits, keys_per_split = dq_key_split(
         batch, heads, q_len, kv_len, _sm_count(query.device.index), rows,
         keys)
@@ -584,9 +587,7 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "flash_bwd":
       lib.msd_flash_bwd_route.argtypes = [i32, i32, i32]
       lib.msd_flash_bwd_route.restype = i32
-      lib.msd_flash_bwd_tile.argtypes = [i32]
+      lib.msd_flash_bwd_tile.argtypes = [i32, i32]
       lib.msd_flash_bwd_tile.restype = i32
-      # The wgmma route's block shape, asked once: dq_key_split plans by it.
-      lib.msd_bwd_tile = (lib.msd_flash_bwd_tile(0), lib.msd_flash_bwd_tile(1))
     lib._msd_typed = True
   return lib

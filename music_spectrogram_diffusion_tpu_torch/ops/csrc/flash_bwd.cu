@@ -603,8 +603,9 @@ extern "C" {
 // bias_heads is 1 or `heads` (ignored without a bias). The mma.sync route
 // reads delta, f32 [b, h, q], and ignores out, rowstat, kterm, dq_part,
 // splits and keys_per_split. The wgmma route ignores delta and takes f32
-// scratch: rowstat [b, h, q_pad / 64, 3, 64] and kterm [b, kv_pad] (lengths padded
-// to msd_flash_bwd_tile(0) rows), and with splits > 1 dq_part [splits, b,
+// scratch: rowstat [b, h, q_pad / 64, 3, 64] and kterm [b, kv_pad] (q padded
+// to msd_flash_bwd_tile(0, q_len) rows, kv to msd_flash_bwd_tile(2, .)), and with
+// splits > 1 dq_part [splits, b,
 // q, h, d]; its dq pass cuts the keys into `splits` ranges of
 // keys_per_split (a multiple of msd_flash_bwd_tile(1)) that cover kv_len,
 // each starting below it.
@@ -668,8 +669,8 @@ int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
     w.q_len = q_len;
     w.kv_len = kv_len;
     w.heads = heads;
-    w.q_tiles = bwd_wgmma::padded(q_len) / bwd_wgmma::kTile;
-    w.kv_pad = bwd_wgmma::padded(kv_len);
+    w.q_tiles = bwd_wgmma::q_padded(q_len) / bwd_wgmma::kTile;
+    w.kv_pad = bwd_wgmma::kv_padded(kv_len);
     w.splits = splits;
     w.tiles_per_split = keys_per_split / bwd_wgmma::kTile;
     w.q_sb = p.q_sb;
@@ -695,11 +696,13 @@ int msd_flash_bwd_route(int dtype, int head_dim, int aligned) {
   return wgmma_route(dtype, head_dim, aligned != 0) ? 1 : 0;
 }
 
-// The wgmma route's block shape: 0, the rows a block owns (the padding of
-// q and kv for the scratch); 1, the rows of a streamed tile (the unit of
-// the dq key split).
-int msd_flash_bwd_tile(int which) {
-  return which == 0 ? bwd_wgmma::kBlockRows : bwd_wgmma::kTile;
+// The wgmma route's block shape for q_len queries: 0, the queries a dq
+// work item owns (the padding of q for the scratch, the dq key split's
+// items); 1, the rows of a streamed tile (the unit of the dq key split); 2,
+// the keys a dkdv work item owns (the padding of kv for the scratch).
+int msd_flash_bwd_tile(int which, int q_len) {
+  return which == 0 ? 64 * bwd_wgmma::dq_wgs(q_len)
+                    : (which == 1 ? bwd_wgmma::kTile : bwd_wgmma::DkdvShape::kRows);
 }
 
 const char* msd_cuda_error_string(int code) {

@@ -75,21 +75,45 @@ namespace bwd_wgmma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;        // rows of a streamed tile; the head_dim taken
-constexpr int kBlockRows = 128;  // a work item's own rows: two consumer warpgroups
-constexpr int kStages = 4;       // the TMA ring of streamed tiles
-constexpr int kThreads = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
-constexpr int kConsumers = 256;
-constexpr int kTileBytes = kTile * 128;    // a 64 x 64 bf16 tile in the 128-byte swizzle
-constexpr int kOwnBytes = 4 * kTileBytes;  // a work item's own rows of two tensors
-constexpr int kStatFloats = 3 * kTile;     // a stage's row statistics (or key terms)
+constexpr int kTile = 64;   // rows of a streamed tile; the head_dim taken
+constexpr int kStages = 4;  // the TMA ring of streamed tiles
+constexpr int kTileBytes = kTile * 128;  // a 64 x 64 bf16 tile in the 128-byte swizzle
+constexpr int kStatFloats = 3 * kTile;   // a stage's row statistics (or key terms)
 // own_full[2], own_empty[2], full[kStages], empty[kStages].
 constexpr int kBars = 4 + 2 * kStages;
-// Two buffers of own rows (the next work item's arrive while this one's
-// products run), the ring (two tiles a stage), the statistics, the
-// barriers, and 1024 bytes to align the tiles.
-constexpr int kSmemBytes = 1024 + 2 * kOwnBytes + kStages * 2 * kTileBytes +
-                           kStages * kStatFloats * 4 + kBars * 8;
+
+// A pass's block: WGS consumer warpgroups of 64 own rows each, then one
+// producer warpgroup. The producer gives its registers to the consumers:
+// 24 a thread for it, kRegs for each consumer thread (the SM's 65536 in
+// all). dkdv keeps S, dP, dK, dV and the last tile's p and dS (two
+// warpgroups, 240 registers); dq keeps S, dP, dQ and the last tile's dS,
+// which fits three warpgroups' 160, and a third warpgroup's exps hide more
+// of the products' latency (dq at 2048x2048, b = 8: 0.356 ms with two,
+// 0.309 with three, PERF.md §6) where the queries fill 192-row items
+// (`dq_wgs`).
+template <int WGS>
+struct Shape {
+  static constexpr int kRows = 64 * WGS;  // a work item's own rows
+  static constexpr int kThreads = 128 * (WGS + 1);
+  static constexpr int kConsumers = 128 * WGS;
+  static constexpr int kOwnBytes = 2 * WGS * kTileBytes;  // own rows of two tensors
+  static constexpr int kRegs = WGS == 2 ? 240 : 160;
+  static_assert(128 * 24 + kConsumers * kRegs <= 65536, "the SM's registers");
+  // Two buffers of own rows (the next work item's arrive while this one's
+  // products run), the ring (two tiles a stage), the statistics, the
+  // barriers, and 1024 bytes to align the tiles.
+  static constexpr int kSmemBytes = 1024 + 2 * kOwnBytes + kStages * 2 * kTileBytes +
+                                    kStages * kStatFloats * 4 + kBars * 8;
+};
+constexpr int kDkdvWgs = 2;
+using DkdvShape = Shape<kDkdvWgs>;
+
+// The dq pass's consumer warpgroups for q_len queries: three where 192-row
+// items waste at most an eighth of the rows to padding, else two (q = 256:
+// three would spend a third of the pass on padding).
+inline int dq_wgs(int q_len) {
+  return (q_len + 191) / 192 * 192 * 8 <= 9 * q_len ? 3 : 2;
+}
 
 struct Params {
   const float* bias;     // optional f32 [b, 1|h, q, kv]
@@ -105,10 +129,17 @@ struct Params {
   long long part_stride;          // elements between two splits' dQ partials
 };
 
-// Rows padded to whole work items: q_pad and kv_pad.
-inline int padded(int len) { return (len + kBlockRows - 1) / kBlockRows * kBlockRows; }
+// Lengths padded to whole work items: q_pad (the dq pass's items) and
+// kv_pad (dkdv's).
+inline int q_padded(int len) {
+  const int rows = 64 * dq_wgs(len);
+  return (len + rows - 1) / rows * rows;
+}
+inline int kv_padded(int len) {
+  return (len + DkdvShape::kRows - 1) / DkdvShape::kRows * DkdvShape::kRows;
+}
 
-// A work item: kBlockRows own rows from row0 of one (batch, head), and for
+// A work item: `rows` own rows from row0 of one (batch, head), and for
 // the dq pass one range of key tiles. A pass's items are numbered with the
 // row blocks fastest, then the key range, the head and the batch, and block
 // i of the grid takes items i, i + gridDim.x, ... (a persistent grid of at
@@ -117,9 +148,10 @@ struct Item {
   int row0, split, h, b;
 };
 
-__device__ __forceinline__ Item item_of(int item, int row_blocks, int splits, int heads) {
+__device__ __forceinline__ Item item_of(int item, int rows, int row_blocks, int splits,
+                                        int heads) {
   Item w;
-  w.row0 = item % row_blocks * kBlockRows;
+  w.row0 = item % row_blocks * rows;
   const int rest = item / row_blocks;
   w.split = rest % splits;
   w.h = rest / splits % heads;
@@ -128,7 +160,7 @@ __device__ __forceinline__ Item item_of(int item, int row_blocks, int splits, in
 }
 
 struct Smem {
-  unsigned char* own;   // [2][kOwnBytes]: two tensors' own rows, two buffers
+  unsigned char* own;   // [2][own bytes]: two tensors' own rows, two buffers
   unsigned char* ring;  // [kStages][2][kTileBytes]
   float* stat;          // [kStages][kStatFloats]
   uint64_t* bar;        // [kBars]
@@ -141,21 +173,23 @@ struct Smem {
 };
 
 // The block's shared memory, its barriers initialized.
+template <int WGS>
 __device__ __forceinline__ Smem setup(unsigned char* raw) {
+  using S = Shape<WGS>;
   unsigned char* base = raw + ((1024 - (msd::smem_addr(raw) & 1023)) & 1023);
   Smem sm;
   sm.own = base;
-  sm.ring = base + 2 * kOwnBytes;
+  sm.ring = base + 2 * S::kOwnBytes;
   sm.stat = reinterpret_cast<float*>(sm.ring + kStages * 2 * kTileBytes);
   sm.bar = reinterpret_cast<uint64_t*>(sm.stat + kStages * kStatFloats);
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
       msd::mbar_init(sm.own_full(i), 1);
-      msd::mbar_init(sm.own_empty(i), kConsumers);
+      msd::mbar_init(sm.own_empty(i), S::kConsumers);
     }
     for (int s = 0; s < kStages; ++s) {
       msd::mbar_init(sm.full(s), 1);
-      msd::mbar_init(sm.empty(s), kConsumers);
+      msd::mbar_init(sm.empty(s), S::kConsumers);
     }
     msd::fence_mbar_init();
   }
@@ -163,18 +197,19 @@ __device__ __forceinline__ Smem setup(unsigned char* raw) {
   return sm;
 }
 
-// The producer's loads (one thread). Work item n's own rows (two 64-row
+// The producer's loads (one thread). Work item n's own rows (WGS 64-row
 // tiles of each of two tensors from row0) into buffer n % 2, once the
 // consumers are done with item n - 2.
+template <int WGS>
 __device__ __forceinline__ void load_own(const Smem& sm, int n, const CUtensorMap* a,
                                          const CUtensorMap* b_, int row0, int h, int b) {
   const int buf = n % 2;
   msd::mbar_wait(sm.own_empty(buf), ((n / 2) & 1) ^ 1);
-  msd::mbar_expect_tx(sm.own_full(buf), kOwnBytes);
-  unsigned char* own = sm.own + buf * kOwnBytes;
-  for (int half = 0; half < 2; ++half) {
-    msd::tma_load_4d(own + half * kTileBytes, a, 0, row0 + half * kTile, h, b, sm.own_full(buf));
-    msd::tma_load_4d(own + (2 + half) * kTileBytes, b_, 0, row0 + half * kTile, h, b,
+  msd::mbar_expect_tx(sm.own_full(buf), Shape<WGS>::kOwnBytes);
+  unsigned char* own = sm.own + buf * Shape<WGS>::kOwnBytes;
+  for (int part = 0; part < WGS; ++part) {
+    msd::tma_load_4d(own + part * kTileBytes, a, 0, row0 + part * kTile, h, b, sm.own_full(buf));
+    msd::tma_load_4d(own + (WGS + part) * kTileBytes, b_, 0, row0 + part * kTile, h, b,
                      sm.own_full(buf));
   }
 }
@@ -203,24 +238,25 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // dK and dV of work items of 128 keys, each walking the query tiles (with
 // the f32 bias when BIAS).
 template <bool BIAS>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DkdvShape::kThreads, 1)
     bwd_dkdv_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_do, int batch) {
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm = setup(smem_raw);
+  using S = DkdvShape;
+  const Smem sm = setup<kDkdvWgs>(smem_raw);
   const int n_tiles = (p.q_len + kTile - 1) / kTile;
-  const int row_blocks = p.kv_pad / kBlockRows, items = row_blocks * p.heads * batch;
+  const int row_blocks = p.kv_pad / S::kRows, items = row_blocks * p.heads * batch;
   const int wg = threadIdx.x / 128;
 
-  if (wg == 2) {
+  if (wg == kDkdvWgs) {
     msd::setmaxnreg_dec<24>();
-    if (threadIdx.x == 256) {
+    if (threadIdx.x == S::kConsumers) {
       int ring_it = 0, n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const Item w = item_of(item, row_blocks, 1, p.heads);
-        load_own(sm, n, &map_k, &map_v, w.row0, w.h, w.b);
+        const Item w = item_of(item, S::kRows, row_blocks, 1, p.heads);
+        load_own<kDkdvWgs>(sm, n, &map_k, &map_v, w.row0, w.h, w.b);
         const float* rs = p.rowstat + ((long long)w.b * p.heads + w.h) * p.q_tiles * kStatFloats;
         for (int i = 0; i < n_tiles; ++i, ++ring_it) {
           load_tile(sm, ring_it, &map_q, &map_do, i * kTile, w.h, w.b, rs + i * kStatFloats,
@@ -230,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     return;
   }
-  msd::setmaxnreg_inc<240>();
+  msd::setmaxnreg_inc<S::kRegs>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   float dk[32], dv[32];
   uint32_t pa[4][4], da[4][4];
@@ -248,15 +284,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   int ring_it = 0, n = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const Item w = item_of(item, row_blocks, 1, p.heads);
+    const Item w = item_of(item, S::kRows, row_blocks, 1, p.heads);
     const int buf = n % 2;
     const int key0 = w.row0 + wg * 64 + 16 * warp + g;  // the thread's keys: key0 and key0 + 8
     const float* kterm = p.kterm + (long long)w.b * p.kv_pad;
     const float kt[2] = {kterm[key0], kterm[key0 + 8]};  // in log2 units
     const float* bias = BIAS ? p.bias + w.b * p.bias_sb + w.h * p.bias_sh : nullptr;
-    const unsigned char* own = sm.own + buf * kOwnBytes;
-    const uint64_t a_k = msd::sw128_desc(own + wg * 64 * 128);
-    const uint64_t a_v = msd::sw128_desc(own + 2 * kTileBytes + wg * 64 * 128);
+    const unsigned char* own = sm.own + buf * S::kOwnBytes;
+    const uint64_t a_k = msd::sw128_desc(own + wg * kTileBytes);
+    const uint64_t a_v = msd::sw128_desc(own + (kDkdvWgs + wg) * kTileBytes);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
     msd::mbar_wait(sm.own_full(buf), (n / 2) & 1);
@@ -356,26 +392,27 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dQ of work items of 128 queries over one range of key tiles (the whole of
 // kv when p.splits == 1), each walking its key tiles in order (with the f32
 // bias when BIAS).
-template <bool BIAS>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int WGS, bool BIAS>
+__global__ void __launch_bounds__(Shape<WGS>::kThreads, 1)
     bwd_dq_wgmma_kernel(const __grid_constant__ Params p, const __grid_constant__ CUtensorMap map_q,
                         const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v,
                         const __grid_constant__ CUtensorMap map_do, int batch) {
   extern __shared__ unsigned char smem_raw[];
-  const Smem sm = setup(smem_raw);
+  using S = Shape<WGS>;
+  const Smem sm = setup<WGS>(smem_raw);
   const int kv_tiles = (p.kv_len + kTile - 1) / kTile;
-  const int row_blocks = p.q_tiles * kTile / kBlockRows;
+  const int row_blocks = p.q_tiles * kTile / S::kRows;
   const int items = row_blocks * p.splits * p.heads * batch;
   const int wg = threadIdx.x / 128;
 
-  if (wg == 2) {
+  if (wg == WGS) {
     msd::setmaxnreg_dec<24>();
-    if (threadIdx.x == 256) {
+    if (threadIdx.x == S::kConsumers) {
       int ring_it = 0, n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const Item w = item_of(item, row_blocks, p.splits, p.heads);
-        load_own(sm, n, &map_q, &map_do, w.row0, w.h, w.b);
+        const Item w = item_of(item, S::kRows, row_blocks, p.splits, p.heads);
+        load_own<WGS>(sm, n, &map_q, &map_do, w.row0, w.h, w.b);
         const int tile0 = w.split * p.tiles_per_split;
         const int n_tiles = min(p.tiles_per_split, kv_tiles - tile0);
         const float* kterm = p.kterm + (long long)w.b * p.kv_pad;
@@ -387,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     return;
   }
-  msd::setmaxnreg_inc<240>();
+  msd::setmaxnreg_inc<S::kRegs>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   float dq[32];
   uint32_t da[4][4];
@@ -400,7 +437,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   int ring_it = 0, n = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const Item w = item_of(item, row_blocks, p.splits, p.heads);
+    const Item w = item_of(item, S::kRows, row_blocks, p.splits, p.heads);
     const int buf = n % 2;
     const int tile0 = w.split * p.tiles_per_split;
     const int n_tiles = min(p.tiles_per_split, kv_tiles - tile0);
@@ -417,9 +454,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       dl[r] = rs[2 * kTile];
     }
     const float* bias = BIAS ? p.bias + w.b * p.bias_sb + w.h * p.bias_sh : nullptr;
-    const unsigned char* own = sm.own + buf * kOwnBytes;
-    const uint64_t a_q = msd::sw128_desc(own + wg * 64 * 128);
-    const uint64_t a_do = msd::sw128_desc(own + 2 * kTileBytes + wg * 64 * 128);
+    const unsigned char* own = sm.own + buf * S::kOwnBytes;
+    const uint64_t a_q = msd::sw128_desc(own + wg * kTileBytes);
+    const uint64_t a_do = msd::sw128_desc(own + (WGS + wg) * kTileBytes);
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[i] = 0.f;
     msd::mbar_wait(sm.own_full(buf), (n / 2) & 1);
@@ -597,6 +634,23 @@ inline bool tile_map(CUtensorMap* map, const void* base, int batch, int heads, i
                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// The dq pass with WGS consumer warpgroups, a persistent grid.
+template <int WGS>
+cudaError_t launch_dq(const Params& p, const CUtensorMap& map_q, const CUtensorMap& map_k,
+                      const CUtensorMap& map_v, const CUtensorMap& map_do, int batch, int sms,
+                      cudaStream_t stream) {
+  using S = Shape<WGS>;
+  const auto dq = p.bias != nullptr ? bwd_dq_wgmma_kernel<WGS, true>
+                                    : bwd_dq_wgmma_kernel<WGS, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int items = q_padded(p.q_len) / S::kRows * p.splits * p.heads * batch;
+  dq<<<min(items, sms), S::kThreads, S::kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do,
+                                                              batch);
+  return cudaGetLastError();
+}
+
 // The route's launches on `stream`: prologue, dkdv, dq and, with splits,
 // the combine. dkdv and dq run a persistent grid of at most one block an
 // SM. Returns a CUDA error code (0 on success).
@@ -616,7 +670,7 @@ inline int launch(Params p, const void* q, const void* k, const void* v, const v
   if (err != cudaSuccess) return (int)err;
   p.rowstat = rowstat;
   p.kterm = kterm;
-  const long long rows = (long long)batch * padded(p.q_len) * p.heads;
+  const long long rows = (long long)batch * q_padded(p.q_len) * p.heads;
   const long long row_threads = (8 * rows + 31) / 32 * 32;
   const long long work = row_threads + (long long)batch * p.kv_pad;
   bwd_prologue_kernel<<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(
@@ -626,20 +680,18 @@ inline int launch(Params p, const void* q, const void* k, const void* v, const v
   if (err != cudaSuccess) return (int)err;
   const bool bias = p.bias != nullptr;
   const auto dkdv = bias ? bwd_dkdv_wgmma_kernel<true> : bwd_dkdv_wgmma_kernel<false>;
-  const auto dq = bias ? bwd_dq_wgmma_kernel<true> : bwd_dq_wgmma_kernel<false>;
-  for (auto kernel : {dkdv, dq}) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int kv_items = p.kv_pad / kBlockRows * p.heads * batch;
-  dkdv<<<min(kv_items, sms), kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do,
-                                                             batch);
+  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DkdvShape::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int kv_items = p.kv_pad / DkdvShape::kRows * p.heads * batch;
+  dkdv<<<min(kv_items, sms), DkdvShape::kThreads, DkdvShape::kSmemBytes, stream>>>(
+      p, map_q, map_k, map_v, map_do, batch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int q_items = padded(p.q_len) / kBlockRows * p.splits * p.heads * batch;
-  dq<<<min(q_items, sms), kThreads, kSmemBytes, stream>>>(p, map_q, map_k, map_v, map_do, batch);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.splits == 1) return (int)err;
+  err = dq_wgs(p.q_len) == 3 ? launch_dq<3>(p, map_q, map_k, map_v, map_do, batch, sms, stream)
+                             : launch_dq<2>(p, map_q, map_k, map_v, map_do, batch, sms, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (p.splits == 1) return 0;
   const long long n = p.part_stride;
   bwd_dq_combine_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(p.dq), static_cast<bf16*>(dq_out), n, p.splits);

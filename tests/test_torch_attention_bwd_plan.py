@@ -17,9 +17,12 @@ import torch
 
 from music_spectrogram_diffusion_tpu_torch.ops import attention
 
-# The H100's SMs and the wgmma route's block shape (rows a block owns, rows
-# a streamed tile), as msd_flash_bwd_tile reports them.
-SMS, ROWS, KEYS = 132, 128, 64
+# The H100's SMs, and the wgmma route's block shape as msd_flash_bwd_tile
+# reports it: the queries a dq work item owns (192 where the queries fill
+# such items, as at q = 2048; else 128, as at q = 256) and the rows of a
+# streamed tile.
+SMS, KEYS = 132, 64
+ROWS = {2048: 192, 256: 128}
 HEADS, BATCH = 12, 8
 TRAINING_SHAPES = {  # (q, kv): the context model's attentions in training
     "encoder_self": (2048, 2048),
@@ -39,9 +42,11 @@ def _ranges(kv_len, splits, keys_per_split):
                          + [(300, 2300), (1, 1), (1, 65), (129, 64),
                             (256, 64 * 37 + 1), (64, 8192)])
 @pytest.mark.parametrize("batch", [1, BATCH])
-def test_dq_key_split_covers_every_key_once_in_order(q_len, kv_len, batch):
+@pytest.mark.parametrize("rows", sorted(set(ROWS.values())))
+def test_dq_key_split_covers_every_key_once_in_order(q_len, kv_len, batch,
+                                                     rows):
   splits, per = attention.dq_key_split(batch, HEADS, q_len, kv_len, SMS,
-                                       ROWS, KEYS)
+                                       rows, KEYS)
   assert 1 <= splits <= attention.DQ_MAX_SPLITS
   assert per % KEYS == 0
   covered = []
@@ -53,16 +58,18 @@ def test_dq_key_split_covers_every_key_once_in_order(q_len, kv_len, batch):
 
 def test_dq_key_split_at_the_training_shapes():
   """2048 queries fill the card; the 256-query shapes split their keys."""
-  plans = {name: attention.dq_key_split(BATCH, HEADS, q, kv, SMS, ROWS, KEYS)
+  plans = {name: attention.dq_key_split(BATCH, HEADS, q, kv, SMS, ROWS[q],
+                                        KEYS)
            for name, (q, kv) in TRAINING_SHAPES.items()}
   assert plans["encoder_self"] == (1, 2048)
-  assert plans["cross"] == (3, 768)  # 192 blocks x 3 >= 4 x 132
+  assert plans["cross"] == (3, 768)  # 192 items x 3 >= 4 x 132
   assert plans["context_self"] == plans["decoder_self"] == (2, 128)
   # More queries never split more.
-  for q in (256, 512, 1024, 2048, 4096):
-    more = attention.dq_key_split(BATCH, HEADS, 2 * q, 2304, SMS, ROWS, KEYS)
-    assert more[0] <= attention.dq_key_split(BATCH, HEADS, q, 2304, SMS,
-                                             ROWS, KEYS)[0]
+  for rows in set(ROWS.values()):
+    for q in (256, 512, 1024, 2048, 4096):
+      more = attention.dq_key_split(BATCH, HEADS, 2 * q, 2304, SMS, rows, KEYS)
+      assert more[0] <= attention.dq_key_split(BATCH, HEADS, q, 2304, SMS,
+                                               rows, KEYS)[0]
 
 
 @pytest.mark.parametrize("dtype,head_dim,aligned,route", [

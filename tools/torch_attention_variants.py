@@ -1,7 +1,7 @@
 """Design choices of the port's attention kernels, timed on the card, and
 faults planted in them, caught by chip_smoke.py's tolerances.
 
-    python3 tools/torch_attention_variants.py [variant ...]
+    python3 tools/torch_attention_variants.py [--profile] [variant ...]
 
 Builds `ops/csrc/flash_fwd.cu` and `flash_bwd.cu` as they are, and variants
 of them made by replacing lines of the sources in a temporary copy, and
@@ -19,7 +19,10 @@ error over its tolerance (forward, f32 backward, bf16 backward) and the
 backward's worst relative RMS against its plain version. A fault
 (`fault_*`) is not timed: at each forward run where it changes the output,
 its error against the plain version and chip_smoke's limit there are
-printed, and the tool fails unless the limit catches it. The variants:
+printed, and the tool fails unless the limit catches it. With --profile,
+each backward run of the base and of each timed variant is also traced
+with torch.profiler (five calls), and each kernel's device ms a call is
+printed (the backward's prologue, passes and combine). The variants:
 
   fwd_f32_4warps   f32 blocks of 4 warps (64 rows) instead of 8;
   fwd_bf16_8warps  bf16 blocks of 8 warps (128 rows) instead of 4;
@@ -162,11 +165,28 @@ def finish_build(name, procs):
   return libs
 
 
+def kernel_ms(fn, calls: int = 5):
+  """(kernel name, device ms a call) of each kernel `fn` launches, from
+  torch.profiler over `calls` calls after a warm-up, largest first."""
+  from torch.profiler import ProfilerActivity, profile  # pylint: disable=import-outside-toplevel
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+  return [(e.key[:60], e.self_device_time_total / 1e3 / calls) for e in
+          sorted(events, key=lambda e: -e.self_device_time_total)]
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("needs an NVIDIA GPU", file=sys.stderr)
     return 1
-  chosen = sys.argv[1:] or list(VARIANTS)
+  args = sys.argv[1:]
+  profile = "--profile" in args
+  chosen = [a for a in args if a != "--profile"] or list(VARIANTS)
   unknown = set(chosen) - set(VARIANTS)
   if unknown:
     print(f"no variant {sorted(unknown)}; there are {list(VARIANTS)}",
@@ -266,6 +286,13 @@ def main() -> int:
       print(f"{n or 'base'}: worst error / tolerance {fwd:.3g} forward, "
             f"{bwd:.3g} backward f32, {bwd_bf16:.3g} backward bf16; backward "
             f"relative RMS {rms:.3g} f32, {rms_bf16:.3g} bf16")
+    if profile:
+      for name in names:
+        use(name)
+        for label, args_ in bwd_runs:
+          print(f"{name or 'base'} {label}: " + "; ".join(
+              f"{k} {ms:.4f} ms" for k, ms in kernel_ms(
+                  lambda: attention.flash_attention_bwd(*args_))), flush=True)
     missed = []
     for name in faults:
       use(name)
