@@ -1322,7 +1322,7 @@ def profile_step(t, state, experiment, seed: int, card: str,
     check(np.isfinite(metrics["loss"].item()), "profiled step's loss")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-  groups = {"flash_bwd (kernel #2)": ("flash_bwd",),
+  groups = {"flash_bwd (kernel #2)": ("flash_bwd", "bwd_wgmma"),
             "flash_fwd (kernel #1)": ("flash_fwd",),
             "matmul (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv", "nvjet"),
             "other": ("",)}

@@ -179,8 +179,8 @@ def dq_key_split(batch: int, heads: int, q_len: int, kv_len: int,
   walking its keys in order, at most one block an SM. Where that is fewer
   than DQ_SPLIT_WAVES items an SM (the 256-query shapes), the keys are cut
   into ranges of whole tiles, one item each, whose f32 partials are summed
-  in range order; else 1 split of every tile. Ranges cover [0, kv_len) once, in order, and each starts
-  below kv_len.
+  in range order; else 1 split of every tile. Ranges cover [0, kv_len)
+  once, in order, and each starts below kv_len.
   """
   blocks = batch * heads * -(-q_len // rows)
   tiles = -(-kv_len // keys)

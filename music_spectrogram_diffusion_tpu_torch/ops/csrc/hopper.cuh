@@ -64,10 +64,6 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 // Waits until at most N committed wgmma groups of this warpgroup are in
 // flight.
 template <int N>
@@ -129,12 +125,6 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : MSD_WGMMA_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
-}
-
-// d += a b for one m64n64k16 step: a K-major and b N-major (transposed)
-// bf16 tiles in shared memory.
-__device__ __forceinline__ void wgmma_m64n64_tb(float (&d)[32], uint64_t a, uint64_t b) {
-  wgmma_m64n64_ss<1>(d, a, b, 1);
 }
 
 #undef MSD_WGMMA_D32

@@ -482,10 +482,12 @@ __global__ void __launch_bounds__(Cfg::kThreads)
     const uint64_t b = msd::sw128_n_desc(s_b + (kt % 2) * Cfg::kBBuf, kBK * 128);
     msd::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) msd::wgmma_m64n64_tb(acc, a + 2 * kk, b + 128 * kk);
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      msd::wgmma_m64n64_ss<1>(acc, a + 2 * kk, b + 128 * kk, 1);
+    }
     msd::wgmma_commit();
     if (kt + 1 < num_k) widen(kt + 1);  // while the tensor cores run
-    msd::wgmma_wait_all();
+    msd::wgmma_wait<0>();
   }
 
   if (p.splits > 1) {

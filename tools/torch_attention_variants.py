@@ -39,6 +39,9 @@ printed (the backward's prologue, passes and combine). The variants:
   bwd_old_route    bf16 calls that the wgmma route takes go to the mma.sync
                    route, as before it existed (the before of a
                    before-and-after, other bits);
+  bwd_dq_two_warpgroups  the wgmma route's dq pass with two consumer
+                   warpgroups at every q_len, not three where the queries
+                   fill 192-row items;
   cvt_rna          the TF32 rounding by cvt.rna.tf32.f32 instead of the
                    integer add-and-mask (same bits);
   nan_unkept       the split without the clamp that keeps a NaN operand's
@@ -113,6 +116,9 @@ VARIANTS = {
     "bwd_old_route": ("flash_bwd", {"constexpr bool kWgmmaRoute = true;":
                                     "constexpr bool kWgmmaRoute = false;"},
                       False),
+    "bwd_dq_two_warpgroups": ("flash_bwd", {
+        "return (q_len + 191) / 192 * 192 * 8 <= 9 * q_len ? 3 : 2;":
+        "return 2;"}, False),
     "cvt_rna": (None, {ROUND: 'uint32_t r; asm("cvt.rna.tf32.f32 %0, %1;" '
                               ': "=r"(r) : "f"(x)); return r;'}, True),
     "nan_unkept": (None, {"min(rest, 0x7fffefff)": "rest"}, True),
