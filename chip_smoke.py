@@ -1817,6 +1817,21 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
   kernels = [line for line in ptxas_usage("flash_bwd") if "wgmma" in line
              or "prologue" in line or "combine" in line]
   log("  the wgmma route's kernels (ptxas): " + " | ".join(kernels))
+
+  def usage(q_len: int) -> str:
+    """Registers and spill stores of the dkdv and dq kernels that a call
+    with q_len queries (no bias) launches."""
+    wanted = ("dkdv_wgmma_kernel<no bias>",
+              f"dq_wgmma_kernel<{attention.bwd_tile(q_len)[0] // 64}, no bias>")
+    out = []
+    for name in wanted:
+      line = next(l for l in kernels if name in l)
+      regs = re.search(r"Used (\d+) registers", line).group(1)
+      spills = re.search(r"(\d+) bytes spill stores", line).group(1)
+      out.append(f"{name.split('_wgmma')[0]} {regs} registers, {spills} "
+                 f"bytes spilled")
+    return ", ".join(out)
+
   sms = torch.cuda.get_device_properties(0).multi_processor_count
   for name, q_len, kv_len, masked, _ in SHAPES:
     q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked, False,
@@ -1873,7 +1888,8 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
                             sdpa_backward_ms(q, k, v, mask, dout, iters))
     bound, bound_by, _ = bwd_bound_ms(batch, q_len, kv_len, torch.bfloat16)
     log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} bfloat16, {route} "
-        f"route, dq key split {splits[0]} x {splits[1]} keys: max_abs_err "
+        f"route ({usage(q_len)}), dq key split {splits[0]} x {splits[1]} "
+        f"keys: max_abs_err "
         f"dq/dk/dv {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol "
         f"{BWD_BF16_TOLERANCE:.6g} x max |plain|; at worst {worst:.3g} of "
         f"it), relative RMS {max(rmss):.3g}, finite"
