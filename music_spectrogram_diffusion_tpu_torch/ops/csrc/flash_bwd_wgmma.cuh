@@ -27,13 +27,13 @@
 //   N-major by wgmma's transposed B, so no product needs a transpose in
 //   memory and one TMA copy of a tile serves both of its products.
 // - Small tiles and one tile in flight, with a block-wide barrier each step:
-//   here a work item owns 128 rows (two consumer warpgroups of 64) and
-//   streams 64-row tiles through a ring of kStages = 4 stages that one
-//   producer thread keeps full with TMA loads, tracked by mbarriers (a full
-//   and an empty barrier a stage); the consumers never wait on each other.
-//   The producer warpgroup gives its registers to the consumers
-//   (setmaxnreg), which keep S, dP, two output accumulators and the last
-//   tile's p and dS (160 registers a thread).
+//   here a work item owns 64 rows per consumer warpgroup (two in dkdv, two
+//   or three in dq: `Shape`, `dq_wgs`) and streams 64-row tiles through a
+//   ring of kStages = 4 stages that one producer thread keeps full with TMA
+//   loads, tracked by mbarriers (a full and an empty barrier a stage); the
+//   consumers never wait on each other. The producer warpgroup gives its
+//   registers to the consumers (setmaxnreg): dkdv keeps S, dP, dK, dV and
+//   the last tile's p and dS in 160 of its 240 registers a thread.
 // - The exps and the products in turn: each warpgroup issues a tile's S and
 //   dP, then the last tile's register-A products, and waits only for S and
 //   dP, so the tensor cores run those products while the CUDA cores compute
