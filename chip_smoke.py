@@ -27,7 +27,8 @@ Phases, each printed on its own line with its seconds:
   5. main     float32 context_base at full width (random weights from
               --seed) renders one song of 3 chained segments of event
               tokens with the serving sampler (100-step sde-dpm++, CFG 5 in
-              t in [0.1, 0.8]) and vocodes it with Griffin-Lim (PGHI init,
+              t in [0.1, 0.8], its steps replayed as CUDA graphs) and
+              vocodes it with Griffin-Lim (PGHI init,
               32 iterations) into out/chip_smoke_seed<seed>.wav; the
               attention kernel's launch count must match the config's;
               PGHI's host seconds with the C++ heap and the Python heap;
@@ -44,8 +45,9 @@ Phases, each printed on its own line with its seconds:
   8. check    one int8 decoder step on the card against the same step on
               the CPU;
   9. bf16     bf16 context_base (compute_dtype="bfloat16", same seed): every
-              projection stores its kernel in the dtype it computes in, and
-              one CFG-pair decoder forward is timed eager and as a CUDA graph;
+              projection stores its kernel in the dtype it computes in, one
+              CFG-pair decoder forward is timed eager and as a CUDA graph,
+              and the song's first segment is rendered (phase 26);
  10. kernel   the flash-attention backward against its plain version and
               against autograd through the plain forward, at the four
               attention shapes of training at its batch (float32, key masks
@@ -121,10 +123,23 @@ Phases, each printed on its own line with its seconds:
               first 8 decode steps, card vs CPU;
  25. main     cli/train.py --synthetic --preset diffusion_base and --preset
               ar_base, batch 8, 3 steps each, float32: finite losses, s per
-              step, peak memory, both attention kernels' launch counts.
+              step, peak memory, both attention kernels' launch counts;
+ 26. graphs   every serving render above replays CUDA graphs of its
+              sampler's (or the decode's) steps, the default on the card;
+              the explicit eager render (graphs=False) of the same segments
+              is made first in phases 5, 7, 9, 23 and 24, where the models
+              are: int8 context_base (phase 7's 3 segments), and the first
+              segment of float32 and bfloat16 context_base, notes-only and
+              autoregressive int8. The captured renders (the phase's own
+              where its bucket is the same, else one made there: their
+              first segment captures; then one that replays every step)
+              must equal it bit for bit, and launch kernels #1 and #3 as
+              often, each graph's launches a replay x its replays; printed
+              per case: eager and captured s a steady segment, capture s,
+              peak memory without and with graphs.
 Then the vocoder phases' numbers as one JSON line, the families' phases'
-as another, one JSON line of the kernels, the nvidia-smi line again, and
-last
+as another, phase 26's as another, one JSON line of the kernels, the
+nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
 """
@@ -834,6 +849,127 @@ def forward_ms(model, tokens: np.ndarray, stream: torch.cuda.Stream,
   return eager, replay, out
 
 
+def zero_counts() -> None:
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+
+
+def launch_counts() -> tuple:
+  return (attention.flash_attention.launches,
+          quantize.quantized_matmul.launches)
+
+
+def eager_render(synth, segments) -> dict:
+  """The explicit eager render (`graphs=False`) of `segments`, vocoder off:
+  the reference that a captured render of the same segments must equal bit
+  for bit (they set the input bucket; another bucket sums over other
+  padding). It runs
+  before its model captures anything, so its peak memory is the one
+  without graphs, and on the model's step-graph stream, where every
+  sampler loop of the model runs (one cuBLAS workspace for both)."""
+  zero_counts()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  render = synth.render_song(segments, vocode=False, graphs=False)
+  wall = time.perf_counter() - t0
+  return dict(mel=render.mel, wall_s=wall, launches=launch_counts(),
+              steady_segment_s=render.timings["steady_segment_seconds"],
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def graph_name(key) -> str:
+  """A step graph's kind: the sampler's pair or conditional step (first,
+  last), or the autoregressive decode step."""
+  kind = key[-1]
+  if not isinstance(kind, dops.StepKind):
+    return "decode"
+  return (("pair" if kind.pair else "cond") + ("-first" if kind.first else "")
+          + ("-last" if kind.last else ""))
+
+
+def encoder_attention_launches(experiment) -> int:
+  """Flash-attention launches of a segment outside its steps: each
+  encoder layer's self-attention, once a segment."""
+  net = experiment.network()
+  return net.num_encoder_layers * (2 if experiment.with_context else 1)
+
+
+def graph_check(label: str, card: str, synth, segments, eager: dict,
+                experiment, main=None) -> dict:
+  """Phase 26, one case: captured renders of `segments` against their
+  eager render `eager` (`eager_render`), bit for bit. The first captured
+  render is `main` = (segments, render), the phase's own render, where
+  its first segment runs in the same input bucket (so that its first
+  segment captured the step graphs); else a render of `segments` made
+  here, which captures where their bucket is new. A second captured render
+  replays every step: its mel must equal the eager one too, and its
+  launches of kernels #1 and #3 the eager render's: each graph's launches
+  a replay x its replays, and outside the graphs the encoders' (their
+  attention `encoder_attention_launches` a segment; in int8 also their
+  GEMMs and the cross-attention K/V's)."""
+  def bucket(segs):
+    return synth._input_length(max(len(x) for x in segs))
+
+  frames = eager["mel"].shape[0]
+  if main is not None and bucket(main[0]) == bucket(segments):
+    first, what = main[1], "the phase's render"
+  else:
+    zero_counts()
+    first, what = synth.render_song(segments, vocode=False), "a render"
+    check(launch_counts() == eager["launches"],
+          f"{label}: captured launches {launch_counts()}, eager "
+          f"{eager['launches']}")
+  capture_s = first.timings["capture_seconds"]
+  check(np.array_equal(first.mel[:frames], eager["mel"]),
+        f"{label}: the captured render differs from the eager one: max abs "
+        f"{np.abs(first.mel[:frames] - eager['mel']).max()}")
+  graphs = synth.model.step_graphs
+  before = {key: c.replays for key, c in graphs.graphs.items()}
+  zero_counts()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  render = synth.render_song(segments, vocode=False)
+  wall = time.perf_counter() - t0
+  launches = launch_counts()
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  check(np.array_equal(render.mel, eager["mel"]),
+        f"{label}: the replayed render differs from the eager one: max abs "
+        f"{np.abs(render.mel - eager['mel']).max()}")
+  replayed = [(graph_name(key), c.launches, c.replays - before.get(key, 0))
+              for key, c in graphs.graphs.items()]
+  replayed = [r for r in replayed if r[2]]
+  from_graphs = tuple(sum(n[j] * r for _, n, r in replayed)
+                      for j in range(len(launches)))
+  outside = tuple(a - g for a, g in zip(launches, from_graphs))
+  int8 = launches[1] > 0
+  check(launches == eager["launches"]
+        and outside[0] == len(segments) * encoder_attention_launches(
+            experiment) and (from_graphs[1] > 0 or not int8),
+        f"{label}: launches (flash_attention, quantized_matmul) captured "
+        f"{launches} (from the graphs {from_graphs}, outside them "
+        f"{outside}), eager {eager['launches']}")
+  summary = dict(
+      case=label, segments=len(segments), equal=True,
+      eager_steady_segment_s=eager["steady_segment_s"],
+      captured_steady_segment_s=render.timings["steady_segment_seconds"],
+      eager_wall_s=eager["wall_s"], captured_wall_s=wall,
+      capture_s=capture_s, eager_peak_gib=eager["peak_gib"],
+      captured_peak_gib=peak, launches_eager=eager["launches"],
+      launches_captured=launches, launches_outside_graphs=outside,
+      graphs=[dict(kind=name, launches=n, replays=r)
+              for name, n, r in replayed])
+  log(f"  [{card}] {label}, {len(segments)} segment(s): captured mel equal "
+      f"to eager bit for bit ({what}, capturing, and one replaying); "
+      f"steady segment eager {eager['steady_segment_s']:.3f} s, captured "
+      f"{summary['captured_steady_segment_s']:.3f} s; capture "
+      f"{capture_s:.3f} s; peak memory eager {eager['peak_gib']:.2f} GiB, "
+      f"with graphs {peak:.2f} GiB; launches (flash_attention, "
+      f"quantized_matmul) eager {eager['launches']} = captured " + " + ".join(
+          f"{name} {n} x {r}" for name, n, r in replayed)
+      + f" + {outside} outside the graphs (the encoders, the K/V)")
+  return summary
+
+
 def song_tokens(seed: int, experiment) -> list:
   codec = vocabularies.build_codec(experiment.vocab_config())
   vocab = vocabularies.vocabulary_from_codec(codec)
@@ -899,6 +1035,7 @@ def main_phase(seed: int, card: str, rows, stream):
   segments = song_tokens(seed, experiment)
   voc = vocoder.GriffinLimVocoder(num_iters=32, device="cuda")
   synth = model.synthesizer(voc)
+  eager = eager_render(synth, segments[:1])
   torch.cuda.reset_peak_memory_stats()
   resident = torch.cuda.memory_allocated() / 2**30
   attention.flash_attention.launches = 0
@@ -937,11 +1074,14 @@ def main_phase(seed: int, card: str, rows, stream):
       f"segment's {1e3 * tm['steady_segment_seconds']:.1f} ms")
   log(f"  [{card}] sampler {tm['prediction_seconds']:.3f} s for "
       f"{SEGMENTS} segments (steady {tm['steady_segment_seconds']:.3f} s per "
-      f"{experiment.task_lengths.targets / 50.0:.2f} s segment); vocoder "
+      f"{experiment.task_lengths.targets / 50.0:.2f} s segment; capturing "
+      f"the step graphs {tm['capture_seconds']:.3f} s of the first); vocoder "
       f"{tm['audio_decode_seconds']:.3f} s; realtime factor "
       f"{audio_s / wall:.3f} (audio s / wall s, {wall:.3f} s wall); peak "
       f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
       f"({resident:.2f} GiB of it allocated before the render)")
+  case = graph_check("float32 context_base", card, synth, segments[:1],
+                     eager, experiment, (segments, render))
   eager, replay, _ = forward_ms(model, segments[0], stream)
   log(f"  [{card}] one CFG-pair decoder forward: {eager:.3f} ms eager "
       f"(host clock), {replay:.3f} ms on the card alone (CUDA graph); "
@@ -955,7 +1095,7 @@ def main_phase(seed: int, card: str, rows, stream):
   cpp_s, py_s = pghi_seconds(mag, voc.stft_params)
   log(f"  [{card}'s host] PGHI alone on the {n_frames} x 513 magnitude: "
       f"C++ heap {cpp_s:.3f} s, Python heap {py_s:.3f} s")
-  return model, segments, launches
+  return model, segments, launches, case
 
 
 def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
@@ -996,6 +1136,7 @@ def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
   check(l_in == experiment.task_lengths.inputs,
         f"the song's longest segment runs at {l_in} input tokens, not the "
         f"task's {experiment.task_lengths.inputs}")
+  eager = eager_render(synth, segments)
   torch.cuda.reset_peak_memory_stats()
   resident = torch.cuda.memory_allocated() / 2**30
   attention.flash_attention.launches = 0
@@ -1035,11 +1176,14 @@ def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
       f"{1e3 * tm['steady_segment_seconds']:.1f} ms")
   log(f"  [{card}] sampler {tm['prediction_seconds']:.3f} s for "
       f"{SEGMENTS} segments (steady {tm['steady_segment_seconds']:.3f} s per "
-      f"{seg_seconds:.2f} s segment); vocoder "
+      f"{seg_seconds:.2f} s segment; capturing the step graphs "
+      f"{tm['capture_seconds']:.3f} s of the first); vocoder "
       f"{tm['audio_decode_seconds']:.3f} s; realtime factor "
       f"{audio_s / wall:.3f} (audio s / wall s, {wall:.3f} s wall); peak "
       f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
       f"({resident:.2f} GiB of it allocated before the render)")
+  case = graph_check("int8 context_base (the MIDI song)", card, synth,
+                     segments, eager, experiment, (segments, render))
   eager, replay, _ = forward_ms(model, segments[0], stream)
   log(f"  [{card}] one CFG-pair decoder forward: {eager:.3f} ms eager "
       f"(host clock), {replay:.3f} ms on the card alone (CUDA graph); "
@@ -1048,12 +1192,14 @@ def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
   peak = max(float(np.abs(render.audio).max()), 1e-9)
   wav_io.write_wav(wav, render.audio / peak, model.audio_codec.sample_rate)
   log(f"  wrote {wav} (peak-normalized; the diffusion weights are random)")
-  return model, segments, launches, synth, render, audio_s / wall
+  return model, segments, launches, synth, render, audio_s / wall, case
 
 
-def bf16_phase(seed: int, card: str, tokens: np.ndarray, stream):
-  """The bf16 serving cast at full width: what each projection stores, and
-  one CFG-pair decoder forward on the card."""
+def bf16_phase(seed: int, card: str, segments, stream) -> dict:
+  """The bf16 serving cast at full width: what each projection stores, one
+  CFG-pair decoder forward on the card, and the first segment of phase 7's
+  song rendered eagerly and then captured (phase 26's case)."""
+  tokens = segments[0]
   experiment = serving_experiment()
   t0 = time.perf_counter()
   model = inference.InferenceModel(experiment, seed=seed, device="cuda",
@@ -1079,6 +1225,9 @@ def bf16_phase(seed: int, card: str, tokens: np.ndarray, stream):
   log(f"  [{card}] one CFG-pair decoder forward (bf16): {eager:.3f} ms eager "
       f"(host clock), {replay:.3f} ms on the card alone (CUDA graph); "
       f"output {tuple(out.shape)} bf16 finite")
+  synth = model.synthesizer()
+  return graph_check("bfloat16 context_base", card, synth, segments[:1],
+                     eager_render(synth, segments[:1]), experiment)
 
 
 def reference_phase(model, segments, tolerance):
@@ -2311,6 +2460,7 @@ def notes_only_phase(seed: int, card: str, rows, qmm_rows) -> dict:
   held = {shape_key(r) for r in qmm_rows}
   check(all(shape_key(r) in held for r in shapes),
         "a notes-only int8 GEMM shape that phase 4 did not hold")
+  eager = eager_render(synth, segments[:1])
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
   quantize.quantized_matmul.launches = 0
@@ -2333,6 +2483,7 @@ def notes_only_phase(seed: int, card: str, rows, qmm_rows) -> dict:
   summary = dict(launches=launches, realtime_factor=audio_s / wall,
                  wall_s=wall, prediction_s=tm["prediction_seconds"],
                  steady_segment_s=tm["steady_segment_seconds"],
+                 capture_s=tm["capture_seconds"],
                  vocoder_s=tm["audio_decode_seconds"],
                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
   log(f"  mel {render.mel.shape}, audio {render.audio.shape} finite; "
@@ -2346,16 +2497,19 @@ def notes_only_phase(seed: int, card: str, rows, qmm_rows) -> dict:
                  qmm_ms_per_segment=qmm_ms_per_segment(qmm_rows, shapes))
   log(f"  [{card}] sampler {tm['prediction_seconds']:.3f} s for {SEGMENTS} "
       f"independent segments (steady {tm['steady_segment_seconds']:.3f} s "
-      f"per 5.12 s segment); vocoder {tm['audio_decode_seconds']:.3f} s; "
+      f"per 5.12 s segment; capture {tm['capture_seconds']:.3f} s); vocoder "
+      f"{tm['audio_decode_seconds']:.3f} s; "
       f"realtime factor {audio_s / wall:.3f} ({wall:.3f} s wall); peak "
       f"memory {summary['peak_gib']:.2f} GiB; the kernels a segment, from "
       f"phases 3, 4 and 22's call times x launches: attention "
       f"{summary['attention_ms_per_segment']:.1f} ms, int8 GEMM "
       f"{summary['qmm_ms_per_segment']:.1f} ms")
+  case = graph_check("int8 diffusion_base (notes only)", card, synth,
+                     segments[:1], eager, experiment, (segments, render))
   del model, synth
   f32 = inference.InferenceModel(experiment, seed=seed, device="cuda")
   reference_phase(f32, segments, f32_tolerance)
-  return summary
+  return summary, case
 
 
 def ar_reference_check(model, tokens: np.ndarray) -> dict:
@@ -2371,7 +2525,8 @@ def ar_reference_check(model, tokens: np.ndarray) -> dict:
       frame = torch.zeros(1, 1, 128, device=dev)
       steps = []
       for i in range(AR_CHECK_STEPS):
-        frame = module.decode_step(cache, frame, i)
+        frame = module.decode_step(cache, frame,
+                                   torch.tensor([i], device=dev))
         steps.append(frame)
       outs.append((enc.cpu(), torch.cat(steps, dim=1).cpu()))
   errs = {}
@@ -2412,6 +2567,7 @@ def ar_phase(seed: int, card: str, rows, qmm_rows, gen, stream) -> dict:
   new_rows = qmm_phase([r for r in shapes if shape_key(r) not in held],
                        gen, stream)
   check(bool(new_rows), "the AR path has no int8 GEMM shape of its own")
+  eager = eager_render(synth, segments[:1])
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
   quantize.quantized_matmul.launches = 0
@@ -2441,6 +2597,7 @@ def ar_phase(seed: int, card: str, rows, qmm_rows, gen, stream) -> dict:
                  qmm_ms_per_segment=qmm_ms_per_segment(
                      list(qmm_rows) + new_rows, shapes),
                  steady_segment_s=tm["steady_segment_seconds"],
+                 capture_s=tm["capture_seconds"],
                  frames_per_s=frames / tm["steady_segment_seconds"],
                  vocoder_s=tm["audio_decode_seconds"],
                  realtime_factor=tm["audio_seconds"] / wall,
@@ -2455,7 +2612,8 @@ def ar_phase(seed: int, card: str, rows, qmm_rows, gen, stream) -> dict:
   log(f"  [{card}] {seg_s:.3f} s a segment of {frames} frames "
       f"({tm['prediction_seconds']:.3f} s for "
       f"{AR_SEGMENTS}; steady {tm['steady_segment_seconds']:.3f} s, "
-      f"{summary['frames_per_s']:.1f} frames/s); vocoder "
+      f"{summary['frames_per_s']:.1f} frames/s; capture "
+      f"{tm['capture_seconds']:.3f} s); vocoder "
       f"{tm['audio_decode_seconds']:.3f} s; realtime factor "
       f"{summary['realtime_factor']:.3f}; peak memory "
       f"{summary['peak_gib']:.2f} GiB; the kernels a segment, from phases 4, "
@@ -2481,10 +2639,12 @@ def ar_phase(seed: int, card: str, rows, qmm_rows, gen, stream) -> dict:
       f"(bf16 network): max |diff| / max {max_rel:.3g} (tol "
       f"{AR_TF_MAX_REL}), relative RMS {rms:.3g} (tol {AR_TF_RMS_REL})")
   summary.update(teacher_forced_max_rel=max_rel, teacher_forced_rms=rms)
+  case = graph_check("int8 ar_base", card, synth, segments[:1], eager,
+                     experiment, (segments, render))
   del model, synth
   f32 = inference.InferenceModel(experiment, seed=seed, device="cuda")
   summary["f32_card_vs_cpu"] = ar_reference_check(f32, tokens)
-  return summary, new_rows
+  return summary, new_rows, case
 
 
 def family_train_phase(seed: int, card: str, preset: str) -> dict:
@@ -2597,7 +2757,8 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  model, segments, f32_launches = main_phase(args.seed, card, rows, capture)
+  model, segments, f32_launches, f32_case = main_phase(args.seed, card, rows,
+                                                      capture)
   log(f"phase 5 main path, float32 from event tokens "
       f"({time.perf_counter() - t0:.2f} s)")
 
@@ -2608,8 +2769,8 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
-  model, segments, int8_launches, synth, render, realtime = int8_phase(
-      args.seed, card, rows, qmm_rows, capture)
+  model, segments, int8_launches, synth, render, realtime, int8_case = (
+      int8_phase(args.seed, card, rows, qmm_rows, capture))
   log(f"phase 7 main path, int8 from a MIDI file "
       f"({time.perf_counter() - t0:.2f} s)")
 
@@ -2618,8 +2779,9 @@ def main() -> int:
   log(f"phase 8 reference check, int8 ({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  bf16_phase(args.seed, card, segments[0], capture)
-  log(f"phase 9 bf16 decoder forward ({time.perf_counter() - t0:.2f} s)")
+  bf16_case = bf16_phase(args.seed, card, segments, capture)
+  log(f"phase 9 bf16 decoder forward and render "
+      f"({time.perf_counter() - t0:.2f} s)")
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
@@ -2706,15 +2868,15 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
-  notes_summary = notes_only_phase(args.seed, card, rows + family_rows,
-                                   qmm_rows)
+  notes_summary, notes_case = notes_only_phase(
+      args.seed, card, rows + family_rows, qmm_rows)
   log(f"phase 23 main path, notes-only diffusion_base int8 from the MIDI "
       f"file ({time.perf_counter() - t0:.2f} s)")
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
-  ar_summary, ar_qmm_rows = ar_phase(args.seed, card, family_rows, qmm_rows,
-                                     gen, capture)
+  ar_summary, ar_qmm_rows, ar_case = ar_phase(
+      args.seed, card, family_rows, qmm_rows, gen, capture)
   log(f"phase 24 main path, autoregressive ar_base int8 from the MIDI file "
       f"({time.perf_counter() - t0:.2f} s)")
   torch.cuda.empty_cache()
@@ -2724,6 +2886,18 @@ def main() -> int:
                   for preset in ("diffusion_base", "ar_base")}
   log(f"phase 25 main path, training diffusion_base and ar_base with "
       f"cli/train.py ({time.perf_counter() - t0:.2f} s)")
+
+  graph_cases = [f32_case, int8_case, bf16_case, notes_case, ar_case]
+  log(f"phase 26 captured renders vs eager: {len(graph_cases)} cases equal "
+      f"bit for bit, kernels #1 and #3 launched as often (checked in phases "
+      f"5, 7, 9, 23 and 24, where their models are)")
+  for c in graph_cases:
+    log(f"  {c['case']}: steady segment eager "
+        f"{c['eager_steady_segment_s']:.3f} s, captured "
+        f"{c['captured_steady_segment_s']:.3f} s "
+        f"({c['eager_steady_segment_s'] / c['captured_steady_segment_s']:.2f}"
+        f"x); capture {c['capture_s']:.3f} s; peak memory "
+        f"{c['eager_peak_gib']:.2f} / {c['captured_peak_gib']:.2f} GiB")
 
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
@@ -2834,6 +3008,7 @@ def main() -> int:
   log("vocoder " + json.dumps(dict(vocoder_summary, quality=quality,
                                    soundstream=soundstream,
                                    stream_wall_s=stream_wall)))
+  log("graphs " + json.dumps(graph_cases))
   log("families " + json.dumps(dict(notes_only=notes_summary,
                                     autoregressive=ar_summary,
                                     training=family_train)))

@@ -247,12 +247,15 @@ class InferenceModel:
     return self.model.audio_codec
 
   def predict(self, batch: Mapping[str, np.ndarray], seed: int = 0,
-              noise: Optional[dops.NoiseFn] = None) -> np.ndarray:
+              noise: Optional[dops.NoiseFn] = None,
+              graphs: Optional[bool] = None) -> np.ndarray:
     """One batched segment prediction, numpy in and out: mel features
     [B, L_tgt, n_dims]. `batch` as the model's `predict` takes it. The
     noise is `noise` if given (e.g. replayed draws), else row i's
     generator seeded from (seed, i, 0), as `synthesize.seeded_noise`
-    draws a song's first segment."""
+    draws a song's first segment. `graphs` as the model's `predict`: on a
+    CUDA device the sampler's (or the decode's) steps replay captured
+    graphs unless it is False."""
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize
     device = self.model.device
     dtypes = {"encoder_input_tokens": torch.int64,
@@ -264,7 +267,7 @@ class InferenceModel:
     if noise is None:
       rows = tensors["decoder_target_tokens"].shape[0]
       noise = synthesize.seeded_noise(seed, device)(0, rows)
-    return self.model.predict(tensors, noise).cpu().numpy()
+    return self.model.predict(tensors, noise, graphs=graphs).cpu().numpy()
 
   def synthesizer(self, vocoder=None, bucket_inputs: bool = True):
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize

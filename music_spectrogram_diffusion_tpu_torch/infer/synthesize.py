@@ -51,6 +51,12 @@ def _sync(device: torch.device):
     torch.cuda.synchronize(device)
 
 
+def _capture_seconds(model) -> float:
+  """The seconds the model has spent capturing step graphs so far."""
+  graphs = model.step_graphs
+  return 0.0 if graphs is None else graphs.capture_seconds
+
+
 class Synthesizer:
   """Segment-by-segment renderer for every model family (context chained
   for the context diffusion model)."""
@@ -63,7 +69,7 @@ class Synthesizer:
                vocoder=None, bucket_inputs: bool = True):
     """Args:
       model: a diffusion or autoregressive model (anything with their
-        .predict, .device, .audio_codec and USES_CONTEXT).
+        .predict, .device, .audio_codec, .step_graphs and USES_CONTEXT).
       task_feature_lengths: {'inputs', 'targets'} and, for the context
         model, 'targets_context'.
       vocoder: optional callable [B, T, D] mel -> [B, T*hop] audio.
@@ -121,7 +127,8 @@ class Synthesizer:
                    songs: Sequence[Sequence[np.ndarray]],
                    noise: Optional[SegmentNoise] = None,
                    vocode: bool = True,
-                   always_mask_context: bool = False) -> List[SongRender]:
+                   always_mask_context: bool = False,
+                   graphs: Optional[bool] = None) -> List[SongRender]:
     """Render a batch of songs, chaining context across segments.
 
     Args:
@@ -131,6 +138,13 @@ class Synthesizer:
       vocode: run the attached vocoder (if any) on the result.
       always_mask_context: keep every segment's context mask at 0 (the
         reference's ablation that renders every segment blind).
+      graphs: the model's `predict` option: None replays captured steps on
+        a CUDA device (eager on the CPU), False runs them eagerly.
+
+    Timings: the sampler's seconds (`prediction_seconds`, the captures
+    included), the steady segment's (the median after the first), the
+    seconds spent capturing step graphs (`capture_seconds`, all in the
+    segments that first used a shape), the vocoder's and the audio's.
     """
     device = self.model.device
     if noise is None:
@@ -154,11 +168,12 @@ class Synthesizer:
     context_mask = torch.zeros((n_songs, l_ctx), dtype=torch.bool,
                                device=device)
     mel_segments, seg_times = [], []
+    captures_before = _capture_seconds(self.model)
     for gi in range(max_segments):
       batch = self._segment_batch(tokens[gi], context, context_mask)
       _sync(device)
       t0 = time.perf_counter()
-      pred = self.model.predict(batch, noise(gi, n_songs))
+      pred = self.model.predict(batch, noise(gi, n_songs), graphs=graphs)
       _sync(device)
       seg_times.append(time.perf_counter() - t0)
       mel_segments.append(pred)
@@ -166,6 +181,7 @@ class Synthesizer:
       context_mask = torch.full((n_songs, l_ctx), not always_mask_context,
                                 dtype=torch.bool, device=device)
     mel = torch.cat(mel_segments, dim=1)
+    capture_time = _capture_seconds(self.model) - captures_before
 
     audio, vocode_time = None, 0.0
     if vocode and self.vocoder is not None:
@@ -194,6 +210,7 @@ class Synthesizer:
               "prediction_seconds": float(np.sum(seg_times)),
               "prediction_seconds_per_audio_second": steady_rate,
               "steady_segment_seconds": float(np.median(steady)),
+              "capture_seconds": capture_time,
               "audio_decode_seconds": vocode_time,
               "audio_seconds": n_frames / frame_rate,
           }))
@@ -201,12 +218,15 @@ class Synthesizer:
 
   def render_song(self, segments: Sequence[np.ndarray],
                   noise: Optional[SegmentNoise] = None,
-                  vocode: bool = True) -> SongRender:
-    return self.render_songs([segments], noise=noise, vocode=vocode)[0]
+                  vocode: bool = True,
+                  graphs: Optional[bool] = None) -> SongRender:
+    return self.render_songs([segments], noise=noise, vocode=vocode,
+                             graphs=graphs)[0]
 
   def stream_song(self, segments: Sequence[np.ndarray],
                   noise: Optional[SegmentNoise] = None,
-                  vocoder_context_frames: int = 16
+                  vocoder_context_frames: int = 16,
+                  graphs: Optional[bool] = None
                   ) -> Iterator[Tuple[int, np.ndarray, Optional[np.ndarray]]]:
     """Low-latency render of one song: yields (segment index, mel
     [l_tgt, n_dims], audio [l_tgt * hop] or None) as each segment is
@@ -217,7 +237,8 @@ class Synthesizer:
     warm-up convention). The noise of segment i is `noise(i, 1)`, what
     `render_songs` draws for song 0, so the streamed mel equals the batch
     renderer's exactly. Griffin-Lim's phase is chunk-local, so streamed
-    audio differs slightly from whole-song vocoding.
+    audio differs slightly from whole-song vocoding. `graphs` as in
+    `render_songs`.
     """
     device = self.model.device
     if noise is None:
@@ -234,7 +255,8 @@ class Synthesizer:
       seg = np.asarray(seg)[:l_in]
       tokens[0, :len(seg)] = seg
       pred = self.model.predict(
-          self._segment_batch(tokens, context, context_mask), noise(gi, 1))
+          self._segment_batch(tokens, context, context_mask), noise(gi, 1),
+          graphs=graphs)
       audio = None
       if self.vocoder is not None:
         if prev_tail is None:

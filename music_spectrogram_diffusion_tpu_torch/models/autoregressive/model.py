@@ -4,9 +4,11 @@ in PyTorch.
 Port of music_spectrogram_diffusion_tpu/models/autoregressive/model.py
 (`AutoregressiveModel`). `predict` encodes once, projects the
 cross-attention K/V once, and then runs `target_len` single-frame decode
-steps against the self-attention cache, each step's sampled frame feeding
-the next. The loop is a Python loop of eager steps; JAX's is one
-`lax.scan`.
+steps against a self-attention cache of fixed length, each step's sampled
+frame feeding the next. JAX runs the loop as one `lax.scan`; here the step
+reads its position from a device tensor (JAX's `cache_index`), so on a
+CUDA device one captured graph of the step is replayed for every frame
+(`ops/graphs.py`), and on the CPU the same step runs eagerly.
 
 Batch schema:
   encoder_input_tokens   int   [B, L_in]
@@ -18,6 +20,7 @@ Batch schema:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -26,6 +29,7 @@ from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.models.autoregressive import (
     network)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
+from music_spectrogram_diffusion_tpu_torch.ops import graphs as graphs_lib
 
 
 class AutoregressiveModel:
@@ -38,6 +42,8 @@ class AutoregressiveModel:
     self.module = module
     self.output_function = output_function
     self.audio_codec = audio_codec
+    self.step_graphs = None  # graphs_lib.model_step_graphs
+    self._slots: Dict[tuple, "_Generation"] = {}
 
   @property
   def device(self) -> torch.device:
@@ -76,20 +82,77 @@ class AutoregressiveModel:
 
   @torch.inference_mode()
   def predict(self, batch: Mapping[str, torch.Tensor],
-              noise: dops.NoiseFn) -> torch.Tensor:
+              noise: dops.NoiseFn,
+              graphs: Optional[bool] = None) -> torch.Tensor:
     """Generate one segment per row, frame by frame; returns features
     [B, L_tgt, n_dims] float32. `noise` feeds the head's sampling (one
-    generator per row: `synthesize.seeded_noise`); the deterministic head
-    without dither draws nothing."""
+    generator per row: `synthesize.seeded_noise`), every step's draws
+    taken before the loop in the order of the steps; the deterministic
+    head without dither draws nothing. `graphs` as the diffusion models'
+    `predict`: on a CUDA device the decode step is captured once and
+    replayed for every frame, unless `graphs` is False."""
+    captured = graphs_lib.use_graphs(self.device, graphs)
     tokens = batch["encoder_input_tokens"]
     batch_size, target_len = batch["decoder_target_tokens"].shape[:2]
+    device = tokens.device
     encoded = self.module.encode(tokens)
     cache = self.module.init_cache(encoded, tokens, target_len)
-    frame = torch.zeros(batch_size, 1, self.audio_codec.n_dims,
-                        device=tokens.device)
-    frames = []
-    for i in range(target_len):
-      out = self.module.decode_step(cache, frame, i)
-      frame = self.output_function.get_sample(out[:, 0], noise, i)[:, None]
-      frames.append(frame)
-    return torch.cat(frames, dim=1).float()
+    cfg = self.module.config
+    shape = self.output_function.draw_shape(batch_size,
+                                            cfg.output_dim or cfg.audio_dim)
+    draws = None if shape is None else torch.stack(
+        [noise(i, shape).to(device) for i in range(target_len)])
+    key = (tuple(tokens.shape), target_len)
+    gen = self._slots.get(key) if captured else None
+    if gen is None:
+      n_dims = self.audio_codec.n_dims
+      gen = _Generation(
+          cache, torch.zeros(batch_size, 1, n_dims, device=device),
+          torch.zeros(batch_size, target_len, n_dims, device=device), draws,
+          torch.zeros(1, dtype=torch.int64, device=device))
+      if captured:
+        self._slots[key] = gen
+    else:
+      # The step graph reads the generation's buffers: refill them.
+      graphs_lib.copy_tree_(_buffers(gen.cache), _buffers(cache))
+      if draws is not None:
+        gen.draws.copy_(draws)
+      gen.frame.zero_()
+      gen.index.zero_()
+
+    def step():
+      out = self.module.decode_step(gen.cache, gen.frame, gen.index)
+      row = (None if gen.draws is None else
+             gen.draws.index_select(0, gen.index)[0])
+      frame = self.output_function.get_sample(out[:, 0], row)[:, None]
+      gen.frames.index_copy_(1, gen.index, frame.float())
+      gen.frame.copy_(frame)
+      gen.index.add_(1)
+
+    step_graphs = graphs_lib.model_step_graphs(self)
+    with graphs_lib.on_stream(step_graphs):
+      for _ in range(target_len):
+        if captured:
+          step_graphs.run(key, step)
+        else:
+          step()
+    return gen.frames.clone() if captured else gen.frames
+
+
+@dataclasses.dataclass
+class _Generation:
+  """What a generation's decode steps read and write: the decode cache,
+  the frame that feeds the next step, the frames so far [B, L, n_dims]
+  (float32), each step's draws [L, *draw_shape] (None where the head
+  draws nothing) and the next step's index (int64 [1]). A captured model
+  keeps one for each shape, read by its step graph."""
+  cache: network.DecoderCache
+  frame: torch.Tensor
+  frames: torch.Tensor
+  draws: Optional[torch.Tensor]
+  index: torch.Tensor
+
+
+def _buffers(cache: network.DecoderCache) -> tuple:
+  return (cache.cross_kv, cache.cross_bias,
+          [(kv.key, kv.value) for kv in cache.self_kv])

@@ -23,7 +23,10 @@ tokens > 0.
 
 Decoding: `init_cache` projects the encoder memory's cross-attention K/V
 once per generation (JAX DecoderLayer :90-110) and allocates each layer's
-self-attention cache; `decode_step(cache, frame, i)` then runs step i.
+self-attention cache of the generation's full length; `decode_step(cache,
+frame, index)` then runs the step at `index`, a device tensor (JAX's
+`cache_index`), so that every step has the same shapes and one CUDA graph
+replays them all (`models/autoregressive/model.py`).
 
 Dropout runs at every JAX site when a forward gets a `generator` (rate
 `dropout_rate`, broadcast along the length axis where JAX broadcasts it).
@@ -149,8 +152,9 @@ class DecoderLayer(nn.Module):
 
   def step(self, inputs: torch.Tensor, self_kv: layers.KVCache,
            cross_kv: Tuple[torch.Tensor, torch.Tensor],
-           cross_bias: torch.Tensor, index: int) -> torch.Tensor:
-    """Decode step `index` on one frame [b, 1, emb] (no dropout)."""
+           cross_bias: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The decode step at `index` (int64 [1] on the device) on one frame
+    [b, 1, emb] (no dropout)."""
     x = self.self_attention.step(self.pre_self_attention_norm(inputs),
                                  self_kv, index) + inputs
     cross = self.encoder_decoder_attention
@@ -229,7 +233,7 @@ class Decoder(nn.Module):
     return self._out(y, generator)
 
   def step(self, cache: DecoderCache, frame: torch.Tensor,
-           index: int) -> torch.Tensor:
+           index: torch.Tensor) -> torch.Tensor:
     y = (self.continuous_inputs_projection(frame)
          + self.position_embedder.step(index)).to(self.cfg.dtype)
     for layer, self_kv, cross_kv in zip(self.layers, cache.self_kv,
@@ -291,7 +295,8 @@ class ARTransformer(nn.Module):
     return DecoderCache(self_kv, cross_kv, cross_bias)
 
   def decode_step(self, cache: DecoderCache, frame: torch.Tensor,
-                  index: int) -> torch.Tensor:
-    """Output [b, 1, n_out] of decode step `index` on the previous frame
+                  index: torch.Tensor) -> torch.Tensor:
+    """Output [b, 1, n_out] of the decode step at `index` (int64 [1] on the
+    device, so that every step has the same shapes) on the previous frame
     [b, 1, audio_dim]; writes the step's keys and values into `cache`."""
     return self.decoder.step(cache, frame, index).to(self.config.dtype)

@@ -2,10 +2,12 @@
 frame, and -> a sampled frame.
 
 Port of music_spectrogram_diffusion_tpu/models/autoregressive/
-output_functions.py. Sampling draws from a `NoiseFn` (ops/diffusion.py),
-float32 standard normals of a given shape, one generator per batch row
-(`generator_noise`) so that a row's samples do not depend on its batch
-neighbours; tests replace it with injected draws. As in JAX, a sample is
+output_functions.py. A head that samples takes a step's float32 standard
+normal draws, [b, *] of `draw_shape`, as a tensor: the decode loop draws
+every step's from a `NoiseFn` (ops/diffusion.py) before it starts, one
+generator per batch row (`generator_noise`) so that a row's samples do
+not depend on its batch neighbours, and a step reads its row of that
+table on the device; tests inject draws. As in JAX, a sample is
 float32 whatever the network's dtype (bf16 output plus float32 noise). The mixture's component
 is drawn by inverting its cumulative probabilities at u = Phi(n), a uniform
 made from the first normal draw of the row.
@@ -14,11 +16,10 @@ made from the first normal draw of the row.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
-
-from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 
 
 class Deterministic:
@@ -35,12 +36,17 @@ class Deterministic:
                targets: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.square(outputs - targets), dim=-1)
 
-  def get_sample(self, outputs: torch.Tensor, noise: dops.NoiseFn,
-                 step: int) -> torch.Tensor:
-    """outputs [b, dims] -> a frame [b, dims]."""
+  def draw_shape(self, batch: int, out_dims: int):
+    """The draws of one step for `batch` outputs of `out_dims`: None
+    without dither."""
+    return (batch, out_dims) if self.sampling_dither_amount > 0 else None
+
+  def get_sample(self, outputs: torch.Tensor,
+                 draws: Optional[torch.Tensor]) -> torch.Tensor:
+    """outputs [b, dims] -> a frame [b, dims]; `draws` [b, dims] with
+    dither, else None."""
     if self.sampling_dither_amount > 0:
-      outputs = outputs + noise(step, tuple(outputs.shape)).to(
-          outputs.device) * self.sampling_dither_amount
+      outputs = outputs + draws * self.sampling_dither_amount
     return outputs
 
 
@@ -88,13 +94,16 @@ class GaussianMixture:
                        + 2.0 * torch.log(sigma) + math.log(2.0 * math.pi))
     return -torch.logsumexp(log_mix + log_norm.sum(dim=-1), dim=-1)
 
-  def get_sample(self, outputs: torch.Tensor, noise: dops.NoiseFn,
-                 step: int) -> torch.Tensor:
-    """outputs [b, expected_num_dims] -> a frame [b, dims]: one draw
-    [b, 1 + dims] a step, the first column picking the component."""
+  def draw_shape(self, batch: int, out_dims: int):
+    """One step's draws: [batch, 1 + dims]."""
+    del out_dims  # expected_num_dims
+    return (batch, 1 + self.dims_per_component)
+
+  def get_sample(self, outputs: torch.Tensor,
+                 draws: torch.Tensor) -> torch.Tensor:
+    """outputs [b, expected_num_dims] -> a frame [b, dims] from the step's
+    draws [b, 1 + dims], the first column picking the component."""
     logits, mu, sigma = self.unpack(outputs)
-    draws = noise(step, (outputs.shape[0], 1 + self.dims_per_component)).to(
-        outputs.device)
     comp = sample_component(logits.float(), draws[:, 0])
     pick = comp[:, None, None].expand(-1, 1, self.dims_per_component)
     mu_sel = torch.gather(mu, -2, pick)[:, 0]

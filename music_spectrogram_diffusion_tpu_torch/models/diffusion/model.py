@@ -7,8 +7,12 @@ and `ContextDiffusionModel` (notes and the previous segment's context). In
 `loss_fn` a row whose condition is dropped sees no tokens (and no context);
 its all-masked cross-attention is exactly zero (`zero_if_all_masked`). In
 `predict` the encoders run once per segment and the cross-attention K/V are
-projected once; every sampler step then runs the fused CFG pair as one
-2B-row decoder forward whose unconditional rows skip cross-attention.
+projected once, eagerly; every sampler step then runs the fused CFG pair
+as one 2B-row decoder forward whose unconditional rows skip
+cross-attention (inside the guidance interval) or the conditional forward
+alone (outside it). On a CUDA device each kind of step is captured once as
+a CUDA graph (`ops/graphs.py`) and replayed: the encodings, K/V and
+sampler state it reads are buffers kept per shape and refilled by `copy_`.
 
 Batch schema:
   encoder_input_tokens      int   [B, L_in]
@@ -20,6 +24,7 @@ Batch schema:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -28,6 +33,18 @@ from torch import nn
 from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import network
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
+from music_spectrogram_diffusion_tpu_torch.ops import graphs as graphs_lib
+
+
+@dataclasses.dataclass
+class _Segment:
+  """What a segment's sampler steps read: the encodings and masks, the
+  cached cross-attention K/V and the sampler's state. A captured model
+  keeps one for each shape and sampler (its step graphs read these
+  tensors) and refills it for every segment of that shape."""
+  encodings: list
+  cross_kv: list
+  state: dops.SamplerState
 
 
 class DiffusionModelBase:
@@ -42,6 +59,8 @@ class DiffusionModelBase:
     self.module = module
     self.diffusion_config = diffusion_config
     self.audio_codec = audio_codec
+    self.step_graphs = None  # graphs_lib.model_step_graphs
+    self._slots: Dict[tuple, _Segment] = {}
 
   @property
   def device(self) -> torch.device:
@@ -97,16 +116,10 @@ class DiffusionModelBase:
     }
     return loss, metrics
 
-  @torch.inference_mode()
-  def predict(self, batch: Mapping[str, torch.Tensor],
-              noise: dops.NoiseFn) -> torch.Tensor:
-    """Sample one spectrogram segment per row; returns features in the
-    codec's range, [B, L_tgt, n_dims] float32."""
-    target_shape = tuple(batch["decoder_target_tokens"].shape)
-    batch_size = target_shape[0]
-    encodings = self.encode(batch)
-    cross_kv = self.module.precompute_cross_kv(encodings)
-
+  def _denoisers(self, encodings, cross_kv, batch_size: int):
+    """The sampler's two forwards over a segment's encodings and cached
+    cross-attention K/V: the CFG pair as one 2B-row decoder forward whose
+    unconditional rows skip cross-attention, and the conditional one."""
     def denoise_cond_fn(z, time):
       return self.module.decode(encodings, z, time, cross_kv=cross_kv)
 
@@ -120,12 +133,45 @@ class DiffusionModelBase:
       def denoise_pair_fn(z, time):
         out = denoise_cond_fn(z, time)
         return out, out
+    return dict(denoise_pair_fn=denoise_pair_fn,
+                denoise_cond_fn=denoise_cond_fn)
 
-    pred_x0 = dops.sample(noise, target_shape, self.diffusion_config,
-                          denoise_pair_fn=denoise_pair_fn,
-                          denoise_cond_fn=denoise_cond_fn,
-                          device=self.device)
-    return self.audio_codec.scale_to_features(pred_x0,
+  @torch.inference_mode()
+  def predict(self, batch: Mapping[str, torch.Tensor],
+              noise: dops.NoiseFn,
+              graphs: Optional[bool] = None) -> torch.Tensor:
+    """Sample one spectrogram segment per row; returns features in the
+    codec's range, [B, L_tgt, n_dims] float32.
+
+    `graphs` None (the default) replays captured sampler steps on a CUDA
+    device and runs them eagerly on the CPU; False runs them eagerly; True
+    captures, and raises on the CPU (`ops.graphs.use_graphs`). Captured
+    or eager, a segment's result is the same bit for bit.
+    """
+    config = self.diffusion_config
+    target_shape = tuple(batch["decoder_target_tokens"].shape)
+    captured = graphs_lib.use_graphs(self.device, graphs)
+    encodings = self.encode(batch)
+    cross_kv = self.module.precompute_cross_kv(encodings)
+    key = (tuple(tuple(e.shape) for e, _ in encodings), target_shape, config)
+    slot = self._slots.get(key) if captured else None
+    if slot is None:
+      slot = _Segment(encodings, cross_kv,
+                      dops.SamplerState(target_shape, config, self.device))
+      if captured:
+        self._slots[key] = slot
+    else:
+      # The step graphs read the slot's buffers: refill them in place.
+      graphs_lib.copy_tree_((slot.encodings, slot.cross_kv),
+                            (encodings, cross_kv))
+    state = slot.state
+    state.start(noise)
+    fns = self._denoisers(slot.encodings, slot.cross_kv, target_shape[0])
+    step_graphs = graphs_lib.model_step_graphs(self)
+    with graphs_lib.on_stream(step_graphs):
+      dops.run(state, config, key=key,
+               step_graphs=step_graphs if captured else None, **fns)
+    return self.audio_codec.scale_to_features(state.z,
                                               input_range=(-1.0, 1.0))
 
 

@@ -291,9 +291,10 @@ class DecodeCacheAttention(MultiHeadAttention):
 
   `forward` attends over the whole target under an additive bias (the
   teacher-forced pass, with the causal mask). `step` takes one frame
-  [b, 1, emb], writes its key and value at position `index` of a
-  `KVCache` and attends over positions 0..index: what JAX's decode step
-  computes, where the later positions are masked out.
+  [b, 1, emb] and the step's position `index` (int64 [1], on the cache's
+  device), writes its key and value there in a `KVCache` of fixed length
+  and attends over every position, those after `index` masked out: JAX's
+  `cache_index` decode step, whose shapes do not change from step to step.
   """
 
   def forward(self, inputs: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -304,25 +305,27 @@ class DecodeCacheAttention(MultiHeadAttention):
     return self.out(x)
 
   def step(self, inputs: torch.Tensor, cache: "KVCache",
-           index: int) -> torch.Tensor:
-    cache.key[:, :, index] = self.key(inputs)[:, 0]
-    cache.value[:, :, index] = self.value(inputs)[:, 0]
-    x = dot_product_attention(self.query(inputs),
-                              cache.key[:, :, :index + 1],
-                              cache.value[:, :, :index + 1],
-                              kv_transposed=True)
+           index: torch.Tensor) -> torch.Tensor:
+    cache.key.index_copy_(2, index, self.key(inputs).transpose(1, 2))
+    cache.value.index_copy_(2, index, self.value(inputs).transpose(1, 2))
+    bias = torch.where(cache.positions <= index, 0.0, -1e10)
+    x = dot_product_attention(self.query(inputs), cache.key, cache.value,
+                              bias, kv_transposed=True)
     return self.out(x)
 
 
 class KVCache:
   """One decoder layer's self-attention cache: key and value, each
-  [b, h, length, d], written one position a decode step."""
+  [b, h, length, d], written one position a decode step, and the
+  positions 0..length-1 (int64) that a step's mask compares with its
+  index."""
 
   def __init__(self, batch: int, heads: int, length: int, head_dim: int, *,
                dtype, device):
     shape = (batch, heads, length, head_dim)
     self.key = torch.zeros(shape, dtype=dtype, device=device)
     self.value = torch.zeros(shape, dtype=dtype, device=device)
+    self.positions = torch.arange(length, device=device)
 
 
 class Embed(nn.Module):
@@ -346,10 +349,11 @@ class FixedEmbed(nn.Module):
   """A fixed sinusoidal table (position ids -> rows), never trained.
 
   As in Flax, where the table is computed and is no parameter, it is a
-  buffer that no state_dict carries. `step(i)` is the decode position: the
-  row of the i-th single-frame decode step (JAX counts the steps in its
-  decode cache, starting at uint32 max so that the cache-init pass takes
-  one; the port's caller passes i).
+  buffer that no state_dict carries. `step(index)` is the decode
+  position: the row of the single-frame decode step at `index` (int64 [1]
+  on the table's device; JAX counts the steps in its decode cache,
+  starting at uint32 max so that the cache-init pass takes one; the
+  port's caller holds the count).
   """
 
   def __init__(self, features: int, max_length: int = 2048):
@@ -362,9 +366,9 @@ class FixedEmbed(nn.Module):
       raise ValueError("FixedEmbed inputs must be integers.")
     return F.embedding(ids.long(), self.embedding)
 
-  def step(self, index: int) -> torch.Tensor:
+  def step(self, index: torch.Tensor) -> torch.Tensor:
     """Row `index` as [1, features]."""
-    return self.embedding[index:index + 1]
+    return self.embedding.index_select(0, index)
 
 
 class RMSNorm(nn.Module):

@@ -3,19 +3,31 @@
 Port of music_spectrogram_diffusion_tpu/ops/diffusion.py: the schedules,
 the parameterisation conversions, the training input and loss, the DDPM,
 DDIM and DPM-Solver++(2M) updates, classifier-free guidance with its
-interval, and `sample`. The configs are the same frozen dataclasses, so an
-ExperimentConfig JSON written by either package reads in both.
+interval, `sampler_step`, `multistep_sampler_step` and `sample`. The
+configs are the same frozen dataclasses, so an ExperimentConfig JSON
+written by either package reads in both.
 
-Differences from the JAX module, none of which changes the arithmetic:
+JAX runs the reverse process as one program (`lax.scan`). Here each step
+splits into what the host decides (`StepKind`: the pair or the
+conditional-only forward, the multistep samplers' first-order first step,
+the last step's return of pred_x0) and what the device computes from
+tensors alone: the step's time and log-SNRs are rows of per-step tables
+and its draw a row of a noise table, read at a step index held in a
+device tensor (`SamplerState`). So one CUDA graph captures every step of a
+kind and is replayed from a short host loop (`ops/graphs.py`); on the CPU
+the same steps run eagerly. Differences from the JAX module, none of which
+changes the arithmetic:
 
-* The reverse loop is a Python loop (PyTorch runs eagerly), so the guidance
-  interval is decided per step: steps inside it run the fused two-row CFG
-  forward, steps outside it one conditional forward. The JAX module makes
-  the same choice per step in `_predict_x0_eps` and, at batch >= 4, in
-  `sample`; both apply the CFG mix to (cond, cond) outside the window.
+* The guidance interval is decided per step on the host: steps inside it
+  run the fused two-row CFG forward, steps outside it one conditional
+  forward. The JAX module makes the same choice per step in
+  `_predict_x0_eps` and, at batch >= 4, in `sample`; both apply the CFG mix
+  to (cond, cond) outside the window.
 * Noise comes from a provider `noise(i, shape)`: i is None for the initial
-  draw and the step index for a step's draw. `generator_noise` draws from
-  one `torch.Generator` per batch row; tests hand in JAX's draws instead.
+  draw and the step index for a step's draw. `SamplerState.start` draws
+  every step's noise before the loop, in the eager loop's order.
+  `generator_noise` draws from one `torch.Generator` per batch row; tests
+  hand in JAX's draws instead.
 * Likewise `training_input` takes eps, time and include_conditioning from a
   provider `draws(x0, config)`; `generator_draws` draws them from a
   `torch.Generator`.
@@ -25,12 +37,15 @@ Differences from the JAX module, none of which changes the arithmetic:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from music_spectrogram_diffusion_tpu_torch.ops import graphs as graphs_lib
 
 LOGSNR_MIN = -20.0
 LOGSNR_MAX = 20.0
@@ -66,6 +81,8 @@ class SamplerConfig:
 
 
 MULTISTEP_SAMPLERS = ("dpm++", "sde-dpm++")
+STOCHASTIC_SAMPLERS = ("ddpm", "sde-dpm++")  # a draw every step
+SAMPLERS = ("ddpm", "ddim") + MULTISTEP_SAMPLERS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,49 +311,43 @@ def training_loss(x0, eps, z, time, model_output,
 
 
 # ---------------------------------------------------------------------------
-# Sampler updates.
+# Sampler updates and steps.
 # ---------------------------------------------------------------------------
 
 
-def ddim_update(i: int, logsnr_s, pred_x0, pred_eps):
-  """One DDIM step (returns x0 at i == 0)."""
-  if i == 0:
-    return pred_x0
+def ddim_update(logsnr_s, pred_x0, pred_eps):
+  """One DDIM step z_t -> z_s."""
   logsnr_s = bcast_left(logsnr_s, pred_x0.shape)
   return (torch.sqrt(torch.sigmoid(logsnr_s)) * pred_x0 +
           torch.sqrt(torch.sigmoid(-logsnr_s)) * pred_eps)
 
 
-def ddpm_update(i: int, noise: NoiseFn, logsnr_s, logsnr_t, pred_x0, z_t,
+def ddpm_update(noise: torch.Tensor, logsnr_s, logsnr_t, pred_x0, z_t,
                 logvar_type: str):
-  """One ancestral DDPM step (returns x0 at i == 0)."""
-  if i == 0:
-    return pred_x0
+  """One ancestral DDPM step; `noise` is the step's standard normal draw."""
   dist = reverse_process(pred_x0, z_t, bcast_left(logsnr_s, pred_x0.shape),
                          bcast_left(logsnr_t, pred_x0.shape), logvar_type)
-  return dist["mean"] + dist["std"] * noise(i, tuple(pred_x0.shape))
+  return dist["mean"] + dist["std"] * noise
 
 
-def dpm_update(i: int, noise: Optional[NoiseFn], logsnr_s, logsnr_t,
-               logsnr_t_prev, pred_x0, prev_x0, z_t, *, num_steps: int,
+def dpm_update(first: bool, noise: Optional[torch.Tensor], logsnr_s,
+               logsnr_t, logsnr_t_prev, pred_x0, prev_x0, z_t, *,
                stochastic: bool):
-  """One DPM-Solver++(2M) step over half-logSNR (returns x0 at i == 0).
+  """One DPM-Solver++(2M) step over half-logSNR:
 
       D    = x0_t + (x0_t - x0_prev) / (2 r),   r = h_prev / h
       det:  z_s = (sigma_s/sigma_t) z_t - alpha_s expm1(-h) D
       sde:  z_s = (sigma_s/sigma_t) e^{-h} z_t - alpha_s expm1(-2h) D
                   + sigma_s sqrt(-expm1(-2h)) xi
 
-  First order (D = x0_t) at the first step i == num_steps - 1.
+  First order (D = x0_t) at the first step (`first`); `noise` is xi.
   """
-  if i == 0:
-    return pred_x0
   shape = pred_x0.shape
   lam_s = bcast_left(logsnr_s, shape) * 0.5
   lam_t = bcast_left(logsnr_t, shape) * 0.5
   lam_p = bcast_left(logsnr_t_prev, shape) * 0.5
   h = lam_s - lam_t
-  if i >= num_steps - 1:
+  if first:
     d = pred_x0
   else:
     r = (lam_t - lam_p) / torch.clamp(h, min=1e-12)
@@ -350,7 +361,7 @@ def dpm_update(i: int, noise: Optional[NoiseFn], logsnr_s, logsnr_t,
     sigma_s = torch.sqrt(torch.sigmoid(-logsnr_s_b))
     one_minus_e2h = -torch.expm1(-2.0 * h)
     return (sigma_ratio * torch.exp(-h) * z_t + alpha_s * one_minus_e2h * d
-            + sigma_s * torch.sqrt(one_minus_e2h) * noise(i, tuple(shape)))
+            + sigma_s * torch.sqrt(one_minus_e2h) * noise)
   return sigma_ratio * z_t - alpha_s * torch.expm1(-h) * d
 
 
@@ -369,23 +380,97 @@ def _step_times(i: int, num_steps: int, batch: int, schedule: Schedule,
   return t, logsnr_at(s, schedule), logsnr_at(t, schedule)
 
 
-def _predict_x0_eps(z_t, i: int, *, config: DiffusionConfig,
-                    denoise_pair_fn: DenoisePairFn,
-                    denoise_cond_fn: Optional[DenoiseFn]):
-  """Network eval + guidance + clipping shared by every sampler.
+@dataclasses.dataclass(frozen=True)
+class StepKind:
+  """What the host decides about one reverse step; the rest of the step
+  comes from device tensors, so one captured graph serves every step of a
+  kind. `pair`: the two-row CFG forward (inside the guidance interval,
+  static as in JAX); `first`: the multistep samplers' first-order first
+  step; `last`: the step that returns pred_x0 (i == 0)."""
+  pair: bool
+  first: bool
+  last: bool
 
-  Returns (pred_x0, pred_eps, logsnr_s, logsnr_t) at step i.
-  """
-  sampler = config.sampler
-  time, logsnr_s, logsnr_t = _step_times(
-      i, sampler.num_steps, z_t.shape[0], sampler.schedule, z_t.device)
-  cond_wt = config.guidance.eval_condition_weight
-  if cond_wt != 1.0:
-    interval = config.guidance.interval
+
+def step_kind(i: int, config: DiffusionConfig) -> StepKind:
+  """The host's decisions for step i."""
+  sampler, guidance = config.sampler, config.guidance
+  pair = True
+  if guidance.eval_condition_weight != 1.0 and guidance.interval is not None:
     # Compared in float32, as the JAX sampler compares its float32 times.
     t = np.float32(_f32_ratio(i + 1.0, sampler.num_steps))
-    if interval is None or (np.float32(interval[0]) <= t
-                            <= np.float32(interval[1])):
+    pair = bool(np.float32(guidance.interval[0]) <= t
+                <= np.float32(guidance.interval[1]))
+  return StepKind(pair=pair,
+                  first=(sampler.name in MULTISTEP_SAMPLERS
+                         and i == sampler.num_steps - 1),
+                  last=i == 0)
+
+
+def _row(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+  """Row `index` (int64 [1], on the table's device) of a table: a read
+  that a captured step replays at whatever the index holds."""
+  return table.index_select(0, index)[0]
+
+
+class SamplerState:
+  """One reverse process's device state, at fixed addresses.
+
+  The per-step tables [num_steps, batch] hold, at row i, what the eager
+  loop computes for step i: `time`, `logsnr_s` and `logsnr_t` from
+  `_step_times` and, for the multistep samplers, `logsnr_t_prev` (the
+  previous network eval's noise level, clamped at t = 1). `noise`
+  [num_steps, *shape] holds step i's draw at row i (DDPM and SDE-DPM++).
+  `z`, `prev_x0` and `index` (int64 [1], the step to run next) are the
+  loop's state. `start` refills what changes from run to run.
+  """
+
+  def __init__(self, shape: Tuple[int, ...], config: DiffusionConfig,
+               device):
+    sampler = config.sampler
+    if sampler.name not in SAMPLERS:
+      raise ValueError(f"Unknown sampler: {sampler.name}")
+    n, batch = sampler.num_steps, shape[0]
+    self.shape, self.num_steps = tuple(shape), n
+    self.multistep = sampler.name in MULTISTEP_SAMPLERS
+    columns = zip(*[_step_times(i, n, batch, sampler.schedule, device)
+                    for i in range(n)])
+    self.time, self.logsnr_s, self.logsnr_t = (torch.stack(c)
+                                               for c in columns)
+    self.logsnr_t_prev = None
+    if self.multistep:
+      self.logsnr_t_prev = torch.stack([
+          logsnr_at(torch.full((batch,), min(_f32_ratio(i + 2.0, n), 1.0),
+                               dtype=torch.float32, device=device),
+                    sampler.schedule) for i in range(n)])
+    f32 = dict(dtype=torch.float32, device=device)
+    self.noise = (torch.zeros((n,) + self.shape, **f32)
+                  if sampler.name in STOCHASTIC_SAMPLERS else None)
+    self.z = torch.zeros(self.shape, **f32)
+    self.prev_x0 = torch.zeros(self.shape, **f32)
+    self.index = torch.zeros(1, dtype=torch.int64, device=device)
+
+  def start(self, noise: NoiseFn) -> None:
+    """A new run: z the initial draw, then every step's draw in the eager
+    loop's order (steps N-1 down to 1; step 0 draws nothing), prev_x0
+    zero, the index at the first step."""
+    self.z.copy_(noise(None, self.shape))
+    if self.noise is not None:
+      for i in reversed(range(1, self.num_steps)):
+        self.noise[i].copy_(noise(i, self.shape))
+    self.prev_x0.zero_()
+    self.index.fill_(self.num_steps - 1)
+
+
+def _predict_x0_eps(z_t, time, logsnr_t, pair: bool, *,
+                    config: DiffusionConfig,
+                    denoise_pair_fn: DenoisePairFn,
+                    denoise_cond_fn: Optional[DenoiseFn]):
+  """Network eval + guidance + clipping shared by every sampler; returns
+  (pred_x0, pred_eps)."""
+  cond_wt = config.guidance.eval_condition_weight
+  if cond_wt != 1.0:
+    if pair:
       cond_out, uncond_out = denoise_pair_fn(z_t, time)
     else:
       # Outside the window the mix below reduces to the conditional
@@ -403,10 +488,101 @@ def _predict_x0_eps(z_t, i: int, *, config: DiffusionConfig,
     out, _ = denoise_pair_fn(z_t, time)
     outputs = x0_eps_from_model_output(z_t, time, out, config)
     pred_eps, pred_x0 = outputs["eps"], outputs["x0"]
-  if sampler.clip_x0:
+  if config.sampler.clip_x0:
     pred_x0 = torch.clamp(pred_x0, -1.0, 1.0)
     pred_eps = eps_from_x0(z_t, pred_x0, logsnr_t)
-  return pred_x0, pred_eps, logsnr_s, logsnr_t
+  return pred_x0, pred_eps
+
+
+def sampler_step(z_t: torch.Tensor, index: torch.Tensor, kind: StepKind,
+                 state: SamplerState, *, config: DiffusionConfig,
+                 denoise_pair_fn: DenoisePairFn,
+                 denoise_cond_fn: Optional[DenoiseFn] = None
+                 ) -> torch.Tensor:
+  """One DDPM or DDIM step z_t -> z_s (JAX `sampler_step`): step i =
+  `index`'s value (t = (i+1)/N, s = i/N), its times and draw read from
+  `state`'s tables there; pred_x0 at the last step."""
+  sampler = config.sampler
+  if sampler.name not in ("ddpm", "ddim"):
+    raise ValueError(f"sampler_step runs ddpm and ddim, not {sampler.name}")
+  logsnr_s, logsnr_t = _row(state.logsnr_s, index), _row(state.logsnr_t,
+                                                          index)
+  pred_x0, pred_eps = _predict_x0_eps(
+      z_t, _row(state.time, index), logsnr_t, kind.pair, config=config,
+      denoise_pair_fn=denoise_pair_fn, denoise_cond_fn=denoise_cond_fn)
+  if kind.last:
+    return pred_x0
+  if sampler.name == "ddim":
+    return ddim_update(logsnr_s, pred_x0, pred_eps)
+  return ddpm_update(_row(state.noise, index), logsnr_s, logsnr_t, pred_x0,
+                     z_t, sampler.logvar_type)
+
+
+def multistep_sampler_step(z_t: torch.Tensor, prev_x0: torch.Tensor,
+                           index: torch.Tensor, kind: StepKind,
+                           state: SamplerState, *, config: DiffusionConfig,
+                           denoise_pair_fn: DenoisePairFn,
+                           denoise_cond_fn: Optional[DenoiseFn] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """One DPM-Solver++(2M) step (JAX `multistep_sampler_step`), read from
+  `state`'s tables at `index` as `sampler_step`; returns (z_s, pred_x0)
+  for the next step."""
+  sampler = config.sampler
+  if sampler.name not in MULTISTEP_SAMPLERS:
+    raise ValueError(f"multistep_sampler_step runs {MULTISTEP_SAMPLERS}, "
+                     f"not {sampler.name}")
+  pred_x0, _ = _predict_x0_eps(
+      z_t, _row(state.time, index), _row(state.logsnr_t, index), kind.pair,
+      config=config, denoise_pair_fn=denoise_pair_fn,
+      denoise_cond_fn=denoise_cond_fn)
+  if kind.last:
+    return pred_x0, pred_x0
+  stochastic = sampler.name == "sde-dpm++"
+  z_s = dpm_update(kind.first,
+                   _row(state.noise, index) if stochastic else None,
+                   _row(state.logsnr_s, index), _row(state.logsnr_t, index),
+                   _row(state.logsnr_t_prev, index), pred_x0, prev_x0, z_t,
+                   stochastic=stochastic)
+  return z_s, pred_x0
+
+
+def advance(state: SamplerState, kind: StepKind, *,
+            config: DiffusionConfig, denoise_pair_fn: DenoisePairFn,
+            denoise_cond_fn: Optional[DenoiseFn] = None) -> None:
+  """One step of `state`'s run, in place: z (and prev_x0) take the step's
+  results and the index moves to the next step. This is what a captured
+  step graph replays."""
+  fns = dict(config=config, denoise_pair_fn=denoise_pair_fn,
+             denoise_cond_fn=denoise_cond_fn)
+  if state.multistep:
+    z_s, pred_x0 = multistep_sampler_step(state.z, state.prev_x0,
+                                          state.index, kind, state, **fns)
+    state.prev_x0.copy_(pred_x0)
+  else:
+    z_s = sampler_step(state.z, state.index, kind, state, **fns)
+  state.z.copy_(z_s)
+  state.index.sub_(1)
+
+
+def run(state: SamplerState, config: DiffusionConfig, *,
+        denoise_pair_fn: DenoisePairFn,
+        denoise_cond_fn: Optional[DenoiseFn] = None,
+        step_graphs: Optional[graphs_lib.StepGraphs] = None,
+        key: tuple = ()) -> torch.Tensor:
+  """Every step of a started `state`, highest t first; returns state.z,
+  pred_x0 after the last step. With `step_graphs` each kind of step is
+  captured once, under key + (kind,), and replayed (inside its
+  `on_stream()`); without, every step runs eagerly."""
+  for i in reversed(range(state.num_steps)):
+    kind = step_kind(i, config)
+    step = functools.partial(advance, state, kind, config=config,
+                             denoise_pair_fn=denoise_pair_fn,
+                             denoise_cond_fn=denoise_cond_fn)
+    if step_graphs is None:
+      step()
+    else:
+      step_graphs.run(key + (kind,), step)
+  return state.z
 
 
 def sample(noise: NoiseFn,
@@ -415,7 +591,8 @@ def sample(noise: NoiseFn,
            *,
            denoise_pair_fn: DenoisePairFn,
            denoise_cond_fn: Optional[DenoiseFn] = None,
-           device="cuda") -> torch.Tensor:
+           device="cuda",
+           graphs: Optional[bool] = None) -> torch.Tensor:
   """Full reverse diffusion; returns pred_x0 in [-1, 1], float32.
 
   Args:
@@ -425,31 +602,19 @@ def sample(noise: NoiseFn,
     denoise_pair_fn: (z, time) -> (cond_out, uncond_out) in one forward.
     denoise_cond_fn: optional (z, time) -> cond_out, for steps outside
       `config.guidance.interval`.
+    graphs: None captures each kind of step as a CUDA graph on a CUDA
+      device and runs eagerly on the CPU; False runs eagerly; True
+      captures, and raises on the CPU. The denoisers of a captured run
+      must read tensors that keep their addresses.
   """
-  sampler = config.sampler
-  n = sampler.num_steps
-  z = noise(None, tuple(target_shape)).to(device=device, dtype=torch.float32)
-  prev_x0 = torch.zeros_like(z)
-  for i in reversed(range(n)):
-    pred_x0, pred_eps, logsnr_s, logsnr_t = _predict_x0_eps(
-        z, i, config=config, denoise_pair_fn=denoise_pair_fn,
-        denoise_cond_fn=denoise_cond_fn)
-    if sampler.name in MULTISTEP_SAMPLERS:
-      # Noise level of the previous network eval, clamped at t = 1.
-      t_prev = torch.full((z.shape[0],), min(_f32_ratio(i + 2.0, n), 1.0),
-                          dtype=torch.float32, device=z.device)
-      z = dpm_update(i, noise, logsnr_s, logsnr_t,
-                     logsnr_at(t_prev, sampler.schedule), pred_x0, prev_x0,
-                     z, num_steps=n, stochastic=sampler.name == "sde-dpm++")
-      prev_x0 = pred_x0
-    elif sampler.name == "ddim":
-      z = ddim_update(i, logsnr_s, pred_x0, pred_eps)
-    elif sampler.name == "ddpm":
-      z = ddpm_update(i, noise, logsnr_s, logsnr_t, pred_x0, z,
-                      sampler.logvar_type)
-    else:
-      raise ValueError(f"Unknown sampler: {sampler.name}")
-  return z
+  device = torch.device(device)
+  captured = graphs_lib.use_graphs(device, graphs)
+  state = SamplerState(tuple(target_shape), config, device)
+  state.start(noise)
+  step_graphs = graphs_lib.StepGraphs(device) if captured else None
+  with graphs_lib.on_stream(step_graphs):
+    return run(state, config, denoise_pair_fn=denoise_pair_fn,
+               denoise_cond_fn=denoise_cond_fn, step_graphs=step_graphs)
 
 
 def timing_embedding(position: torch.Tensor, num_channels: int,

@@ -7,8 +7,9 @@ on the CPU, the weights moved by convert.py.
   tests/test_ar_parity.py holds the JAX package: atol = rtol = 1e-5.
 * `encode` and the teacher-forced call against JAX on JAX-initialised
   weights, 1e-5; the cached decode, step by step, against the port's own
-  teacher-forced call, 1e-5 (the same function: JAX's decode step masks
-  the cache's later positions out, the port leaves them out).
+  teacher-forced call, 1e-5 (the same function: the decode step attends
+  over the whole fixed-length cache with its later positions masked out,
+  as JAX's does).
 * `predict` with the deterministic head against JAX's `predict`: nothing is
   random, so the frames must agree, within 3e-4, the limit
   tests/test_torch_network.py gives a decoder (float32 sums in other
@@ -118,9 +119,55 @@ def test_cached_decode_equals_the_teacher_forced_call(tiny):
   with torch.no_grad():
     want = module(tokens, frames)
     cache = module.init_cache(module.encode(tokens), tokens, frames.shape[1])
-    got = torch.cat([module.decode_step(cache, frames[:, i:i + 1], i)
+    got = torch.cat([module.decode_step(cache, frames[:, i:i + 1],
+                                        torch.tensor([i]))
                      for i in range(frames.shape[1])], dim=1)
   _close(got, want)
+
+
+def test_decode_step_masks_the_cache_after_its_index(tiny):
+  """The fixed-length cache's positions after the step's index take no
+  part: whatever they hold, the step's output is the same bit for bit."""
+  module = tiny["torch"]
+  tokens = torch.from_numpy(tiny["tokens"])
+  frame = torch.from_numpy(tiny["dec_in"])[:, :1]
+  outs = []
+  with torch.no_grad():
+    for fill in (0.0, 3.0):
+      cache = module.init_cache(module.encode(tokens), tokens, 8)
+      for kv in cache.self_kv:
+        kv.key[:, :, 3:] = fill
+        kv.value[:, :, 3:] = fill
+      outs.append(module.decode_step(cache, frame, torch.tensor([2])))
+  assert torch.equal(outs[0], outs[1])
+
+
+def test_predict_draws_every_step_before_the_loop(tiny):
+  """A head that draws: predict takes every step's draws before the loop,
+  in the steps' order, and equals the per-step loop that drew each step's
+  in turn."""
+  head = heads.Deterministic(0.3)
+  pm = model.AutoregressiveModel(tiny["torch"], head, codecs.MelGan())
+  tokens = torch.from_numpy(tiny["tokens"])
+  batch = {"encoder_input_tokens": tokens,
+           "decoder_target_tokens": torch.zeros(2, 8, 128)}
+  calls = []
+
+  def noise(i, shape):
+    calls.append((i, shape))
+    return torch.randn(shape, generator=torch.Generator().manual_seed(i))
+
+  got = pm.predict(batch, noise)
+  assert calls == [(i, (2, 128)) for i in range(8)]
+  with torch.no_grad():
+    module = tiny["torch"]
+    cache = module.init_cache(module.encode(tokens), tokens, 8)
+    frame, frames = torch.zeros(2, 1, 128), []
+    for i in range(8):
+      out = module.decode_step(cache, frame, torch.tensor([i]))
+      frame = head.get_sample(out[:, 0], noise(i, (2, 128)))[:, None]
+      frames.append(frame)
+  assert torch.equal(got, torch.cat(frames, dim=1))
 
 
 def test_attention_routes(tiny, monkeypatch):
@@ -142,7 +189,7 @@ def test_attention_routes(tiny, monkeypatch):
     assert calls == [(16, 16, False)] * 2 + [(8, 16, True)] * 2
     calls.clear()
     cache = module.init_cache(module.encode(tokens), tokens, 8)
-    module.decode_step(cache, torch.zeros(2, 1, 128), 0)
+    module.decode_step(cache, torch.zeros(2, 1, 128), torch.tensor([0]))
   assert calls == [(16, 16, False)] * 2
 
 
@@ -197,15 +244,9 @@ def test_mixture_sampling_with_injected_draws():
   out = _mixture_outputs(r, (6,), n, dims)
   out[:, :n] *= 3.0  # spread the component probabilities
   draws = r.randn(6, 1 + dims).astype(np.float32)
-  seen = []
-
-  def injected(i, shape):
-    seen.append((i, shape))
-    return torch.from_numpy(draws)
-
-  got = heads.GaussianMixture(n, dims).get_sample(torch.from_numpy(out),
-                                                  injected, 7)
-  assert seen == [(7, (6, 1 + dims))]
+  head = heads.GaussianMixture(n, dims)
+  assert head.draw_shape(6, out.shape[1]) == (6, 1 + dims)
+  got = head.get_sample(torch.from_numpy(out), torch.from_numpy(draws))
   # numpy: the component where the CDF first passes Phi(draw), then
   # mu + sigma x normal of that component.
   logits = out[:, :n].astype(np.float64)
@@ -224,7 +265,10 @@ def test_mixture_sampling_with_injected_draws():
 def test_dithered_deterministic_sampling_draws_per_step():
   out = torch.ones(2, 4)
   draws = torch.arange(8.0).reshape(2, 4)
-  got = heads.Deterministic(0.5).get_sample(out, lambda i, s: draws, 0)
+  head = heads.Deterministic(0.5)
+  assert head.draw_shape(2, 4) == (2, 4)
+  assert heads.Deterministic().draw_shape(2, 4) is None
+  got = head.get_sample(out, draws)
   _close(got, (out + 0.5 * draws).numpy(), dict(rtol=0, atol=0))
 
 

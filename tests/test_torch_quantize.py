@@ -498,9 +498,9 @@ def int8_renders(tiny, tmp_path_factory):
   dtypes = []  # the context each segment is fed, and what predict returns
   predict = port.model.predict
 
-  def recording_predict(batch, noise):
+  def recording_predict(batch, noise, **options):
     dtypes.append(batch["encoder_continuous_inputs"].dtype)
-    out = predict(batch, noise)
+    out = predict(batch, noise, **options)
     dtypes.append(out.dtype)
     return out
 
