@@ -137,8 +137,27 @@ Phases, each printed on its own line with its seconds:
               often, each graph's launches a replay x its replays; printed
               per case: eager and captured s a steady segment, capture s,
               peak memory without and with graphs.
+ 27. main     the dataset pipeline: records in the seven published TFRecord
+              schemas (data/dataset_records.py, 3 songs of 39.5 s in each
+              train and validation shard, MAESTRO's and MusicNet's audio at
+              44.1 kHz), written under out/chip_smoke_data/ at the published
+              paths' suffixes by processes started in phase 2;
+              cli/cache_task.py --dataset all; cli/train.py --preset
+              context_base --dataset mega --cache_root at batch 8, 2 steps,
+              float32 (finite losses, every cache read, kernels #1 and #2
+              launched as attention_calls_per_step predicts); the first
+              maestrov3 validation_subset song's full_song_dataset segments
+              (3) rendered by phase 7's int8 synthesizer (realtime factor,
+              kernels #1 and #3 launched as the config predicts);
+              cli/eval_vocoder.py --dataset maestrov3 --split
+              validation_subset with the trained vocoder (finite metrics);
+              the host's examples/s of the mega mixture at context_base's
+              lengths, from raw records and from the caches at 1 and 8
+              threads, beside the examples/s this run's training steps eat
+              (phases 11 and 20).
 Then the vocoder phases' numbers as one JSON line, the families' phases'
-as another, phase 26's as another, one JSON line of the kernels, the
+as another, phase 26's as another, phase 27's as another, one JSON line of
+the kernels, the
 nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
@@ -147,6 +166,7 @@ traceback and prints no result. Needs CUDA; it refuses to run without it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import copy
 import ctypes
 import dataclasses
@@ -2696,6 +2716,280 @@ def family_train_phase(seed: int, card: str, preset: str) -> dict:
               losses=[m["loss"] for m in lines], wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the dataset pipeline on the card.
+# ---------------------------------------------------------------------------
+
+# Records in the seven published schemas, written under DATA_ROOT at the
+# published paths' suffixes by DATA_WORKERS processes started with phase 2's
+# build: DATA_SONGS songs of DATA_SECONDS each in every train and validation
+# shard. 39.5 s is one full cached chunk a song (1976 of the 2000 frames), so
+# that a raw example costs the tokenizing of a chunk, as a long recording's
+# chunks each do; MAESTRO's and MusicNet's audio is at 44.1 kHz (resampled).
+DATA_ROOT = os.path.join("out", "chip_smoke_data")
+DATA_CACHE = os.path.join("out", "chip_smoke_data_cache")
+DATA_SONGS, DATA_SECONDS, DATA_WORKERS = 3, 39.5, 3
+# The full-song render's segments (the first validation_subset song's).
+FULL_SONG_SEGMENTS = 3
+# Each host rate's window: examples drawn after the first few, for at least
+# this long.
+RATE_SECONDS, RATE_WARMUP = 4.0, 4
+
+
+def start_dataset_records():
+  """The records' writer, started now and joined in phase 27: (process,
+  start time)."""
+  shutil.rmtree(DATA_ROOT, ignore_errors=True)
+  proc = subprocess.Popen(
+      [sys.executable, "-m",
+       "music_spectrogram_diffusion_tpu_torch.data.dataset_records",
+       "--data_root", DATA_ROOT, "--songs", str(DATA_SONGS), "--seconds",
+       str(DATA_SECONDS), "--workers", str(DATA_WORKERS)],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+  atexit.register(proc.kill)
+  return proc, time.perf_counter()
+
+
+def finish_dataset_records(records) -> dict:
+  """Waits for the writer; returns {dataset: {split: path}}."""
+  from music_spectrogram_diffusion_tpu_torch.data import dataset_records
+  from music_spectrogram_diffusion_tpu_torch.data import datasets
+  proc, started = records
+  stdout, stderr = proc.communicate()
+  check(proc.returncode == 0, f"writing the records failed:\n{stderr}")
+  paths = {}
+  for name, config in datasets.ALL_DATASET_CONFIGS.items():
+    paths[name] = {split: dataset_records.shard_path(config, split,
+                                                     DATA_ROOT)
+                   for split in ("train", "validation")}
+    for path in paths[name].values():
+      check(os.path.exists(path), f"no shard {path}")
+  size = sum(os.path.getsize(p) for v in paths.values() for p in v.values())
+  log(f"  records of the 7 schemas under {DATA_ROOT}: {DATA_SONGS} songs of "
+      f"{DATA_SECONDS} s in each train and validation shard, "
+      f"{size / 2**20:.1f} MiB; {DATA_WORKERS} processes started in phase 2 "
+      f"{stdout.strip().splitlines()[-1]} on the host, in the background "
+      f"(joined {time.perf_counter() - started:.1f} s after their start)")
+  return paths
+
+
+def host_rate(make, threads: int) -> dict:
+  """Examples/s that `make(threads)`'s stream yields on the host, after
+  RATE_WARMUP examples, over at least RATE_SECONDS."""
+  it = iter(make(threads))
+  for _ in range(RATE_WARMUP):
+    next(it)
+  n, t0 = 0, time.perf_counter()
+  while time.perf_counter() - t0 < RATE_SECONDS or n < 4:
+    next(it)
+    n += 1
+  wall = time.perf_counter() - t0
+  return dict(examples=n, seconds=wall, examples_per_s=n / wall)
+
+
+def dataset_phase(card: str, seed: int, synth, qmm_rows, records,
+                  demand: dict) -> dict:
+  """cli/cache_task.py --dataset all; cli/train.py --dataset mega on the
+  caches at full width; a validation song's full_song_dataset segments
+  rendered in int8 by phase 7's synthesizer; cli/eval_vocoder.py --dataset;
+  and the host's examples/s from raw records and from the caches beside the
+  training steps' demand."""
+  from music_spectrogram_diffusion_tpu_torch.cli import cache_task
+  from music_spectrogram_diffusion_tpu_torch.cli import eval_vocoder
+  from music_spectrogram_diffusion_tpu_torch.data import cache as cache_lib
+  from music_spectrogram_diffusion_tpu_torch.data import datasets
+  from music_spectrogram_diffusion_tpu_torch.data import tasks
+  summary = {}
+  finish_dataset_records(records)
+
+  shutil.rmtree(DATA_CACHE, ignore_errors=True)
+  seconds, built = host_s(lambda: cache_task.main([
+      "--dataset", "all", "--data_root", DATA_ROOT, "--cache_root",
+      DATA_CACHE]))
+  names = sorted(os.path.basename(b["cache_dir"]) for b in built)
+  check(len(built) == 6 and all(b["num_examples"] == DATA_SONGS
+                                for b in built),
+        f"cache_task built {[(b['cache_dir'], b['num_examples']) for b in built]}")
+  log(f"  cli/cache_task.py --dataset all: {len(built)} caches of "
+      f"{DATA_SONGS} chunks each in {seconds:.2f} s on the host: "
+      f"{', '.join(names)}")
+  summary["cache_s"] = seconds
+
+  # Training context_base on the mega mixture, from the caches.
+  experiment = training_experiment()
+  model_dir = os.path.join("out", "chip_smoke_train_mega")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  argv = ["--preset", "context_base", "--dataset", "mega", "--data_root",
+          DATA_ROOT, "--cache_root", DATA_CACHE, "--steps", "2", "--batch",
+          str(TRAIN_BATCH), "--model_dir", model_dir, "--log_period", "1",
+          "--seed", str(seed), "--device", "cuda"]
+  reads, read_cache = [], cache_lib.read_cache
+
+  def counted_read(cache_dir):
+    reads.append(os.path.basename(cache_dir))
+    return read_cache(cache_dir)
+
+  tasks.TASK_REGISTRY.clear()
+  tasks.MIXTURE_REGISTRY.clear()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  quantize.quantized_matmul.launches = 0
+  cache_lib.read_cache = counted_read
+  t0 = time.perf_counter()
+  try:
+    state, t = train_cli.main(argv)
+  finally:
+    cache_lib.read_cache = read_cache
+  wall = time.perf_counter() - t0
+  train_launches = (attention.flash_attention.launches,
+                    attention.flash_attention_bwd.launches)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  check(quantize.quantized_matmul.launches == 0,
+        "the training path launched the int8 GEMM")
+  check(state.step == 2, f"the CLI trained {state.step} steps")
+  del t, state
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    lines = [json.loads(l) for l in f]
+  check([m["step"] for m in lines] == [1, 2], f"logged {lines}")
+  for m in lines:
+    check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+          f"mega step {m['step']}: loss {m['loss']}")
+  check(sorted(set(reads)) == names, f"caches read {reads}, built {names}")
+  calls = attention_calls_per_step(experiment)
+  check(train_launches == (2 * calls, 2 * calls),
+        f"the mega run launched flash_fwd {train_launches[0]} and flash_bwd "
+        f"{train_launches[1]} times, expected {2 * calls} each")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  log(f"  cli/train.py --preset context_base --dataset mega --cache_root: "
+      f"losses {[round(m['loss'], 4) for m in lines]}, grad norms "
+      f"{[round(m['grad_norm'], 4) for m in lines]}, finite; all 6 caches "
+      f"read, no raw record; launches flash_fwd {train_launches[0]}, "
+      f"flash_bwd {train_launches[1]} = expected 2 steps x {calls}")
+  log(f"  [{card}] {lines[-1]['timing/seconds_per_step']:.3f} s for step 2 "
+      f"at batch {TRAIN_BATCH}, float32; peak memory {peak:.2f} GiB; "
+      f"{wall:.2f} s in all (model, mixture, steps, checkpoint)")
+  summary["training"] = dict(
+      launches=train_launches, losses=[m["loss"] for m in lines],
+      seconds_per_step=lines[-1]["timing/seconds_per_step"], peak_gib=peak,
+      wall_s=wall)
+  torch.cuda.empty_cache()
+
+  # A validation song's full-song segments, rendered in int8.
+  serving = serving_experiment()
+  tl = serving.task_lengths
+  lengths = {"inputs": tl.inputs, "targets": tl.targets,
+             "targets_context": tl.targets_context}
+  task = registry.make_dataset_task(
+      datasets.MAESTROV3_CONFIG, "validation_subset",
+      vocab_config=serving.vocab_config(), note_rep=serving.note_rep(),
+      program_granularity=serving.program_granularity, with_context=True,
+      data_root=DATA_ROOT, audio_codec=synth.model.audio_codec)
+  t0 = time.perf_counter()
+  segments, song_id = [], None
+  for ex in task.model_dataset(lengths, training=False,
+                               passthrough_keys=("id",)):
+    if song_id is not None and ex["id"] != song_id:
+      break
+    song_id = ex["id"]
+    segments.append(np.trim_zeros(ex["encoder_input_tokens"], "b"))
+    if len(segments) == FULL_SONG_SEGMENTS:
+      break
+  host = time.perf_counter() - t0
+  check(len(segments) == FULL_SONG_SEGMENTS,
+        f"{len(segments)} segments of {song_id}")
+  attention.flash_attention.launches = 0
+  quantize.quantized_matmul.launches = 0
+  t0 = time.perf_counter()
+  render = synth.render_song(segments)
+  render_wall = time.perf_counter() - t0
+  render_launches = (attention.flash_attention.launches,
+                     quantize.quantized_matmul.launches)
+  n = len(segments)
+  expected = (n * attention_launches(serving),
+              n * sum(r["launches_per_segment"] for r in qmm_rows))
+  n_frames = n * tl.targets
+  check(render.mel.shape == (n_frames, 128) and bool(
+      np.isfinite(render.mel).all()), f"mel {render.mel.shape} finite")
+  check(render.audio.shape == (n_frames * 320,) and bool(
+      np.isfinite(render.audio).all()), f"audio {render.audio.shape}")
+  check(render_launches == expected, f"the full-song render launched "
+        f"{render_launches}, expected {expected}")
+  tm = render.timings
+  realtime = tm["audio_seconds"] / render_wall
+  log(f"  full_song_dataset of maestrov3 validation_subset ({song_id}): "
+      f"{n} segments of {[len(x) for x in segments]} tokens ({host:.2f} s "
+      f"on the host), rendered by phase 7's int8 synthesizer through its "
+      f"captured step graphs: mel {render.mel.shape}, audio "
+      f"{render.audio.shape}, finite; launches flash_attention "
+      f"{render_launches[0]}, quantized_matmul {render_launches[1]} = "
+      f"expected")
+  log(f"  [{card}] realtime factor {realtime:.3f} ({tm['audio_seconds']:.2f}"
+      f" s of audio in {render_wall:.3f} s; steady segment "
+      f"{tm['steady_segment_seconds']:.3f} s, capturing "
+      f"{tm['capture_seconds']:.3f} s, vocoder "
+      f"{tm['audio_decode_seconds']:.3f} s)")
+  summary["full_song"] = dict(
+      launches=render_launches, segments=n, realtime_factor=realtime,
+      wall_s=render_wall, steady_segment_s=tm["steady_segment_seconds"],
+      capture_s=tm["capture_seconds"], host_s=host)
+
+  # The vocoders on the dataset's audio.
+  seconds, report = host_s(lambda: eval_vocoder.main([
+      "--checkpoint", vocoder.TRAINED_MAGNITUDE_GL, "--dataset",
+      "maestrov3", "--split", "validation_subset", "--data_root", DATA_ROOT,
+      "--clips", str(DATA_SONGS), "--device", "cuda", "--output",
+      os.path.join("out", "chip_smoke_eval_vocoder_maestrov3.json")]))
+  check(report["clips"] == DATA_SONGS, f"{report['clips']} clips")
+  for method, metrics in report["methods"].items():
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"{method}: {metrics}")
+  log(f"  cli/eval_vocoder.py --dataset maestrov3 --split validation_subset "
+      f"({report['clips']} clips of {report['clip_seconds']} s, resampled "
+      f"from 44.1 kHz): " + "; ".join(
+          f"{m} spectral convergence {v['spectral_convergence']:.4f}, mel "
+          f"round trip {v['mel_roundtrip_l2']:.4f}"
+          for m, v in report["methods"].items()) + f" ({seconds:.2f} s)")
+  summary["eval_vocoder"] = dict(report["methods"], seconds=seconds)
+
+  # The host's rates at context_base's lengths, the mega mixture as the
+  # training CLI draws it, from the raw records and from the caches.
+  train_lengths = {"inputs": experiment.task_lengths.inputs,
+                   "targets": experiment.task_lengths.targets,
+                   "targets_context": experiment.task_lengths.targets_context}
+
+  def mixture(cache_root):
+    tasks.TASK_REGISTRY.clear()
+    tasks.MIXTURE_REGISTRY.clear()
+    registry.register_all_tasks(data_root=DATA_ROOT,
+                                include_eval_splits=False,
+                                cache_root=cache_root)
+    mix = tasks.MIXTURE_REGISTRY["synthesis_with_context_mega"]
+    return lambda threads: mix.dataset(train_lengths, training=True, seed=0,
+                                       num_threads=threads)
+
+  rates = {}
+  for source, cache_root in (("raw", None), ("cached", DATA_CACHE)):
+    make = mixture(cache_root)
+    for threads in (1, 8):
+      rates[f"{source}_{threads}"] = host_rate(make, threads)
+  tasks.TASK_REGISTRY.clear()
+  tasks.MIXTURE_REGISTRY.clear()
+  log(f"  [{card}'s host, {os.cpu_count()} CPUs] examples/s of the mega "
+      f"mixture at context_base's lengths (2048/256/256): " + "; ".join(
+          f"{k.replace('_', ', ')} thread(s) {v['examples_per_s']:.1f} "
+          f"({v['examples']} in {v['seconds']:.2f} s)"
+          for k, v in rates.items()))
+  log("  the training steps eat (this run's step times): " + "; ".join(
+      f"{k} {v:.1f} examples/s" for k, v in demand.items()) + "; "
+      + "; ".join(f"{k} covers {name} {rates[k]['examples_per_s'] / v:.2f}x"
+                  for k in rates for name, v in demand.items()))
+  summary["host_rates"] = rates
+  summary["demand_examples_per_s"] = demand
+  return summary
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -2718,7 +3012,9 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  # 4 nvcc processes at once: the three kernels, and phase 19's fault.
+  # 4 nvcc processes at once: the three kernels, and phase 19's fault; and
+  # phase 27's records, written in the background.
+  records = start_dataset_records()
   fault_build = start_fault_build(os.path.join("out", "chip_smoke_fault"))
   _build.build("flash_fwd", "qmm", "flash_bwd")
   attention._library("flash_fwd")
@@ -2821,7 +3117,7 @@ def main() -> int:
                                               experiment)
   log(f"phase 16 main path, int8 streamed with stream_song "
       f"({time.perf_counter() - t0:.2f} s)")
-  del model, synth
+  del model  # the synthesizer renders again in phase 27
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
@@ -2899,6 +3195,19 @@ def main() -> int:
         f"x); capture {c['capture_s']:.3f} s; peak memory "
         f"{c['eager_peak_gib']:.2f} / {c['captured_peak_gib']:.2f} GiB")
 
+  t0 = time.perf_counter()
+  data = dataset_phase(card, args.seed, synth, qmm_rows, records, {
+      f"float32 batch {TRAIN_BATCH} (phase 11)":
+          TRAIN_BATCH / train_summary["seconds_per_step"],
+      f"bfloat16 remat batch {BF16_LARGE_BATCH} (phase 20)":
+          BF16_LARGE_BATCH / bf16_summary["batch_32"]["seconds_per_step"]})
+  del synth
+  torch.cuda.empty_cache()
+  log(f"phase 27 main path, the dataset pipeline: the seven schemas' "
+      f"records, their caches, context_base trained on the mega mixture, a "
+      f"full-song render in int8, the vocoders on dataset audio, the host's "
+      f"rates ({time.perf_counter() - t0:.2f} s)")
+
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
   # The context model's int8 path, a segment (phase 7).
@@ -2922,7 +3231,9 @@ def main() -> int:
                    + bf16_large_launches[0] + cli_train["launches"][0]
                    + notes_summary["launches"][0]
                    + ar_summary["launches"][0]
-                   + sum(v["launches"][0] for v in family_train.values())),
+                   + sum(v["launches"][0] for v in family_train.values())
+                   + data["training"]["launches"][0]
+                   + data["full_song"]["launches"][0]),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
                            "training": train_launches[0],
@@ -2935,7 +3246,11 @@ def main() -> int:
                            "notes_only_int8": notes_summary["launches"][0],
                            "autoregressive_int8": ar_summary["launches"][0],
                            **{f"training_{k}": v["launches"][0]
-                              for k, v in family_train.items()}},
+                              for k, v in family_train.items()},
+                           "dataset_training_mega":
+                               data["training"]["launches"][0],
+                           "dataset_full_song_int8":
+                               data["full_song"]["launches"][0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -2951,11 +3266,14 @@ def main() -> int:
       "replaces": "music_spectrogram_diffusion_tpu/ops/quantize.py:114",
       "launches": (int8_launches[1] + stream_launches[1]
                    + notes_summary["launches"][1]
-                   + ar_summary["launches"][1]),
+                   + ar_summary["launches"][1]
+                   + data["full_song"]["launches"][1]),
       "launches_by_path": {"int8": int8_launches[1],
                            "int8_streamed": stream_launches[1],
                            "notes_only_int8": notes_summary["launches"][1],
-                           "autoregressive_int8": ar_summary["launches"][1]},
+                           "autoregressive_int8": ar_summary["launches"][1],
+                           "dataset_full_song_int8":
+                               data["full_song"]["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
       "ms": total("ms", qmm_rows),
       "plain_ms": total("plain_ms", qmm_rows),
@@ -2972,14 +3290,17 @@ def main() -> int:
       "replaces": "music_spectrogram_diffusion_tpu/ops/attention.py:708",
       "launches": (train_launches[1] + bf16_launches[1]
                    + bf16_large_launches[1] + cli_train["launches"][1]
-                   + sum(v["launches"][1] for v in family_train.values())),
+                   + sum(v["launches"][1] for v in family_train.values())
+                   + data["training"]["launches"][1]),
       "launches_by_path": {"training": train_launches[1],
                            "training_bf16_remat": bf16_launches[1],
                            "training_bf16_remat_batch_32":
                                bf16_large_launches[1],
                            "cli_training_remat": cli_train["launches"][1],
                            **{f"training_{k}": v["launches"][1]
-                              for k, v in family_train.items()}},
+                              for k, v in family_train.items()},
+                           "dataset_training_mega":
+                               data["training"]["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
       "ms": total("ms", bwd_rows),
       "plain_ms": total("plain_ms", bwd_rows),
@@ -3012,6 +3333,7 @@ def main() -> int:
   log("families " + json.dumps(dict(notes_only=notes_summary,
                                     autoregressive=ar_summary,
                                     training=family_train)))
+  log("datasets " + json.dumps(data))
   print(json.dumps(kernels))
   print(card)
   print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 
 Port of music_spectrogram_diffusion_tpu/audio/codecs.py, MelGan codec only:
 `encode` on tensors, `encode_np` in numpy for the host-side data pipeline.
-Decoding back to audio is the vocoder's job (audio/vocoder.py).
+`decode` hands the features (dithered, when the codec was made with a
+`decode_dither_amount`) to the vocoder attached with `set_vocoder`
+(audio/vocoder.py has them).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +38,18 @@ class MelGan:
   additional_frames_for_encoding = 16
   fft_size = 1024
   lo_hz = 0.0
+
+  def __init__(self, decode_dither_amount: float = 0.0,
+               vocoder_apply_fn: Optional[Callable] = None,
+               vocoder_params: Any = None):
+    self.decode_dither_amount = decode_dither_amount
+    self._vocoder_apply_fn = vocoder_apply_fn
+    self._vocoder_params = vocoder_params
+
+  @property
+  def abbrev_str(self) -> str:
+    """The codec's part of a task's name (data/tasks.construct_task_name)."""
+    return self.name
 
   @property
   def frame_rate(self) -> int:
@@ -87,7 +101,46 @@ class MelGan:
         mel_fmax=self.sample_rate // 2)
 
 
-def get_codec(name: str) -> MelGan:
+  def to_images(self, features: torch.Tensor) -> torch.Tensor:
+    """[batch, frames, n_dims] features scaled to [0, 1], for images."""
+    assert features.ndim == 3
+    return self.scale_features(features, output_range=(0.0, 1.0))
+
+  def set_vocoder(self, apply_fn: Callable, params: Any = None) -> None:
+    """Attach the decoder: `apply_fn(params, features) -> audio`, as the JAX
+    package's adapters have it. A vocoder of audio/vocoder.py goes in as
+    `set_vocoder(lambda _, mel: voc(mel))`."""
+    self._vocoder_apply_fn = apply_fn
+    self._vocoder_params = params
+
+  def decode(self, features: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """[batch, n_frames, 128] -> [batch, n_frames * hop_size] audio.
+
+    With a `decode_dither_amount`, Gaussian noise of that scale, drawn from
+    `generator` (on the features' device), is added to the features first;
+    the dither needs an explicit generator, as JAX's needs an rng key."""
+    if self._vocoder_apply_fn is None:
+      raise ValueError(
+          "No vocoder attached; call set_vocoder(lambda _, mel: voc(mel)) "
+          "with voc from audio/vocoder.py (vocoder.load_trained(path) or "
+          "vocoder.GriffinLimVocoder())")
+    if self.decode_dither_amount > 0:
+      if generator is None:
+        raise ValueError("decode dither requires a torch.Generator")
+      features = features + _dither_noise(
+          features, generator) * self.decode_dither_amount
+    return self._vocoder_apply_fn(self._vocoder_params, features)
+
+
+def _dither_noise(features: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+  """Standard normal noise of the features' shape, dtype and device."""
+  return torch.randn(features.shape, generator=generator,
+                     dtype=features.dtype, device=features.device)
+
+
+def get_codec(name: str, **kwargs) -> MelGan:
   if name != "melgan":
     raise ValueError(f"Unknown codec {name!r}; the port has 'melgan'")
-  return MelGan()
+  return MelGan(**kwargs)

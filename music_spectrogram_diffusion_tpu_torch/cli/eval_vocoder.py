@@ -3,18 +3,21 @@ Griffin-Lim.
 
   python -m music_spectrogram_diffusion_tpu_torch.cli.eval_vocoder \
       --checkpoint music_spectrogram_diffusion_tpu_torch/assets/magnitude_gl_step4000.npz \
-      --synthetic --clips 16 --seed 1000 [--output results.json] \
-      [--device cpu]
+      (--synthetic | --dataset maestrov3 [--split validation_subset] \
+      --data_root /data/mirror) --clips 16 --seed 1000 \
+      [--output results.json] [--device cpu]
 
 Port of music_spectrogram_diffusion_tpu/cli/eval_vocoder.py: held-out
-synthetic clips (the same clips: `np.random.RandomState(seed)`,
-`random_note_sequence`, `render_note_sequence`) are encoded to log-mel,
+clips, synthetic (the same clips: `np.random.RandomState(seed)`,
+`random_note_sequence`, `render_note_sequence`) or the first clip of each
+song of a dataset's split long enough for one (`data/registry.py
+audio_source`, by default the dataset's train_eval split), are encoded to
+log-mel,
 inverted by each vocoder, and scored against the ground-truth audio with
 the multi-resolution STFT loss (`audio/vocoder_train.py stft_loss`), the
 mel round-trip L2 (re-encode and compare) and the time-domain SNR.
 Griffin-Lim is always scored; `--checkpoint` (a vocoder exported to .npz
-by tools/export_jax_checkpoint.py) adds `trained`. `--dataset` is not
-ported (ROADMAP queue 1, item 5).
+by tools/export_jax_checkpoint.py) adds `trained`.
 """
 
 from __future__ import annotations
@@ -37,7 +40,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--base_channels", type=int, default=512)
   p.add_argument("--synthetic", action="store_true")
   p.add_argument("--dataset", default=None,
-                 help="not ported (ROADMAP queue 1, item 5)")
+                 help="dataset config name; audio from its TFRecords")
+  p.add_argument("--split", default=None,
+                 help="the dataset's split (default: its train_eval split)")
+  p.add_argument("--data_root", default=None,
+                 help="local mirror root for gs:// dataset paths")
   p.add_argument("--clips", type=int, default=16)
   p.add_argument("--clip_seconds", type=float, default=4.0)
   p.add_argument("--seed", type=int, default=1000,
@@ -56,12 +63,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--device", default="cuda",
                  help="'cuda' (default) or 'cpu'")
   args = p.parse_args(argv)
-  if args.dataset:
-    raise NotImplementedError(
-        "--dataset: the dataset pipeline is not ported yet (ROADMAP queue 1,"
-        " item 5); use --synthetic")
-  if not args.synthetic:
-    p.error("pick an audio source: --synthetic")
+  if not args.synthetic and not args.dataset:
+    p.error("pick an audio source: --synthetic or --dataset NAME")
+  from music_spectrogram_diffusion_tpu_torch.data import datasets
+  if not args.synthetic and args.dataset not in datasets.ALL_DATASET_CONFIGS:
+    p.error(f"unknown dataset {args.dataset!r}; "
+            f"known: {sorted(datasets.ALL_DATASET_CONFIGS)}")
   return args
 
 
@@ -77,6 +84,28 @@ def synthetic_clips(seed: int, clips: int, clip_seconds: float,
                                           duration=clip_seconds + 1.0)
     if len(clip) >= seg_samples:
       out.append(clip[:seg_samples])
+  return np.stack(out)
+
+
+def dataset_clips(args: argparse.Namespace, codec,
+                  seg_samples: int) -> np.ndarray:
+  """The JAX CLI's dataset clips: the first seg_samples of each song of the
+  split that has that many, up to args.clips; [clips, seg_samples]."""
+  from music_spectrogram_diffusion_tpu_torch.data import registry
+  source = registry.audio_source(args.dataset, args.split, codec,
+                                 data_root=args.data_root, is_training=False)
+  out = []
+  for ex in source:
+    clip = np.asarray(ex["audio"], np.float32)
+    if len(clip) < seg_samples:
+      continue
+    out.append(clip[:seg_samples])
+    if len(out) == args.clips:
+      break
+  if len(out) < args.clips:
+    print(f"warning: only {len(out)} usable clips")
+  if not out:
+    raise ValueError(f"no clip of {seg_samples} samples in {args.dataset}")
   return np.stack(out)
 
 
@@ -107,8 +136,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
   codec = codecs.MelGan()
   seg_frames = int(args.clip_seconds * codec.sample_rate) // codec.hop_size
   seg_samples = seg_frames * codec.hop_size
-  audio = synthetic_clips(args.seed, args.clips, args.clip_seconds,
-                          codec.sample_rate, seg_samples)
+  if args.synthetic:
+    audio = synthetic_clips(args.seed, args.clips, args.clip_seconds,
+                            codec.sample_rate, seg_samples)
+  else:
+    audio = dataset_clips(args, codec, seg_samples)
   mel = codec.encode_np(audio)[:, :seg_frames]  # [N, frames, 128]
   methods = vocoders(args)
   device = next(iter(methods.values())).device

@@ -1,28 +1,36 @@
-"""Train a model of any family on the synthetic task.
+"""Train a model of any family on a dataset, the mega mixture or the
+synthetic task.
 
-  python -m music_spectrogram_diffusion_tpu_torch.cli.train --synthetic \
-      --preset context_base --model_dir /tmp/run1 [--steps 1000] \
-      [--batch 8] [--microbatches 2] [--remat] [--eval_batches 2 \
-      --eval_period 1000] [--cache_root /tmp/cache] [--shuffle_buffer 256] \
-      [--data_threads 8] [--device cpu]
+  python -m music_spectrogram_diffusion_tpu_torch.cli.train \
+      --preset context_base --model_dir /tmp/run1 \
+      [--dataset maestrov3 | mega] [--data_root /data/mirror] \
+      [--cache_root /data/cache] [--synthetic] [--steps 1000] [--batch 8] \
+      [--microbatches 2] [--remat] [--eval_batches 2 --eval_period 1000] \
+      [--shuffle_buffer 256] [--data_threads 8] [--device cpu]
 
-Port of music_spectrogram_diffusion_tpu/cli/train.py for `--synthetic`:
-generated songs (data/synthetic.py) are tokenized, chunked (with their
+Port of music_spectrogram_diffusion_tpu/cli/train.py. The data: `--dataset`
+(default maestrov3, as JAX's) names one of the seven dataset configs
+(data/datasets.py), whose TFRecords are read under `--data_root` at their
+published paths' suffixes; `--dataset mega` trains on the example-
+proportional mixture of the six mixture datasets (data/registry.py
+register_all_tasks); `--synthetic` trains on generated songs
+(data/synthetic.py) instead. Songs are tokenized, chunked (with their
 previous frames as context, for the context model) and mel-encoded on the
 host, and the model of the preset's family (`context_*`, `diffusion_*`,
-`ismir2021_*` or `ar_*`) takes Adafactor steps on the card (`--device`, default cuda; 'cpu' runs
-the plain versions of the kernels). Checkpoints go to
-<model_dir>/step_<N>/ and metrics to <model_dir>/metrics.jsonl; a run
+`ismir2021_*` or `ar_*`) takes Adafactor steps on the card (`--device`,
+default cuda; 'cpu' runs the plain versions of the kernels). Checkpoints go
+to <model_dir>/step_<N>/ and metrics to <model_dir>/metrics.jsonl; a run
 resumes from the latest checkpoint there. As in the JAX CLI: `--remat`
 rematerializes every layer; `--eval_batches N` scores N held-out batches
-(synthetic songs from seed 1000) every `--eval_period` steps, logged as
-eval/<metric>; `--cache_root` keeps each task's tokenized chunks there
-(built on the first run, read on the next); `--shuffle_buffer` and
+every `--eval_period` steps, logged as eval/<metric> (the dataset's
+train_eval split, or synthetic songs from seed 1000; none for the mega
+mixture); `--cache_root` reads each dataset task's tokenized chunks from
+<cache_root>/<task name> where cli/cache_task.py built them (a synthetic
+task's cache is built there on the first run); `--shuffle_buffer` and
 `--data_threads` set the data pipeline's shuffle and thread pool. The model
 computes in the preset's dtype (the CLI, as JAX's, has no dtype flag).
 
-Not ported, and refused: --dataset (the real datasets), --mesh and
---distributed.
+Not ported, and refused: --mesh and --distributed.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from typing import Optional, Sequence
 
 # Flags of the JAX CLI whose modules the port has not got; any value given
 # is refused.
-NOT_PORTED = ("dataset", "mesh", "distributed")
+NOT_PORTED = ("mesh", "distributed")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -49,8 +57,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--log_period", type=int, default=100)
   p.add_argument("--seed", type=int, default=0)
   p.add_argument("--synthetic", action="store_true",
-                 help="train on the generated sine dataset (required: the "
-                      "port has no other data source yet)")
+                 help="train on the generated sine dataset")
   p.add_argument("--synthetic_examples", type=int, default=64)
   p.add_argument("--synthetic_seed", type=int, default=0,
                  help="base seed of the synthetic songs: seeds "
@@ -58,9 +65,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--synthetic_timbre", default="sine",
                  choices=["sine", "rich"])
   p.add_argument("--synthetic_drums", type=float, default=0.0)
+  p.add_argument("--dataset", default="maestrov3",
+                 help="dataset config name, or 'mega' for the full "
+                      "example-proportional mixture (requires TFRecords)")
+  p.add_argument("--data_root", default=None,
+                 help="local mirror root for gs:// dataset paths")
   p.add_argument("--cache_root", default=None,
-                 help="offline tokenization cache root: each task's chunks "
-                      "are built there once and read from then on")
+                 help="offline tokenization cache root (a dataset's: build "
+                      "with cli.cache_task; a synthetic task's is built "
+                      "there once) read from then on")
   p.add_argument("--shuffle_buffer", type=int, default=256)
   p.add_argument("--data_threads", type=int, default=8,
                  help="post-cache transform thread pool size")
@@ -84,10 +97,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   given = [f"--{n}" for n in NOT_PORTED if getattr(args, n)]
   if given:
     p.error(f"{', '.join(given)}: not ported to the PyTorch package yet "
-            "(it trains on --synthetic data, on one device)")
-  if not args.synthetic:
-    p.error("--synthetic is required: the port has no other data source "
-            "yet")
+            "(it trains on one device)")
+  from music_spectrogram_diffusion_tpu_torch.data import datasets
+  if (not args.synthetic and args.dataset != "mega"
+      and args.dataset not in datasets.ALL_DATASET_CONFIGS):
+    p.error(f"unknown dataset {args.dataset!r}; "
+            f"known: {sorted(datasets.ALL_DATASET_CONFIGS)} or 'mega'")
   return args
 
 
@@ -110,7 +125,9 @@ def main(argv: Optional[Sequence[str]] = None):
   """Runs the training; returns the final TrainState and the trainer."""
   args = parse_args(argv)
   import numpy as np
+  from music_spectrogram_diffusion_tpu_torch.data import datasets
   from music_spectrogram_diffusion_tpu_torch.data import registry
+  from music_spectrogram_diffusion_tpu_torch.data import tasks
   from music_spectrogram_diffusion_tpu_torch.train import loop, trainer
 
   experiment = experiment_from_args(args)
@@ -140,12 +157,45 @@ def main(argv: Optional[Sequence[str]] = None):
         drum_fraction=args.synthetic_drums,
         cache_root=args.cache_root)
 
-  task = synthetic_task("train", args.synthetic_examples,
-                        args.synthetic_seed)
-  ds = (task.model_dataset(lengths, seed=args.seed,
-                           shuffle_buffer_size=args.shuffle_buffer,
-                           num_threads=args.data_threads)
-        .repeat().batch(batch_size).prefetch(4, num_threads=2))
+  def dataset_task(config, split):
+    return registry.make_dataset_task(
+        config, split,
+        vocab_config=experiment.vocab_config(),
+        note_rep=experiment.note_rep(),
+        program_granularity=experiment.program_granularity,
+        with_context=experiment.with_context,
+        data_root=args.data_root,
+        audio_codec=model.audio_codec,
+        cache_root=args.cache_root)
+
+  config = None  # the dataset's, when one dataset trains
+  if args.synthetic:
+    ds = synthetic_task("train", args.synthetic_examples,
+                        args.synthetic_seed).model_dataset(
+        lengths, seed=args.seed, shuffle_buffer_size=args.shuffle_buffer,
+        num_threads=args.data_threads).repeat()
+  elif args.dataset == "mega":
+    registry.register_all_tasks(data_root=args.data_root,
+                                with_context=experiment.with_context,
+                                include_eval_splits=False,
+                                cache_root=args.cache_root)
+    mix_name = ("synthesis_with_context_mega" if experiment.with_context
+                else "synthesis_mega")
+    mixture = tasks.MIXTURE_REGISTRY[mix_name]
+    print(f"mixture: {mix_name} over {len(mixture.task_names)} tasks")
+    ds = mixture.dataset(lengths, training=True, seed=args.seed,
+                         shuffle_buffer_size=args.shuffle_buffer,
+                         num_threads=args.data_threads)
+  else:
+    config = datasets.ALL_DATASET_CONFIGS[args.dataset]
+    task = dataset_task(config, config.train_split)
+    print(f"task: {task.name}"
+          + (" (cached)" if task.cache_dir else " (no cache: tokenizing "
+             "online; build one with cli.cache_task)"))
+    ds = task.model_dataset(lengths, seed=args.seed,
+                            shuffle_buffer_size=args.shuffle_buffer,
+                            num_threads=args.data_threads).repeat()
+  ds = ds.batch(batch_size).prefetch(4, num_threads=2)
 
   t = trainer.Trainer(model, experiment.train)
   n_params = sum(p.numel() for p in model.module.parameters())
@@ -153,12 +203,20 @@ def main(argv: Optional[Sequence[str]] = None):
         f"({sum(p.numel() for p in t.params.values()) / 1e6:.1f}M trained)")
 
   # The held-out eval pass every eval_period steps, as the JAX CLI's: a
-  # fixed set of batches from songs disjoint from training's (seed 1000),
-  # scored with the loss metrics of Trainer.eval_step.
-  eval_fn = None
+  # fixed set of batches from a disjoint source (synthetic songs from seed
+  # 1000, or the dataset's train_eval split), scored with the loss metrics
+  # of Trainer.eval_step. The mega mixture has none, as in JAX.
+  eval_fn, eval_task = None, None
   if args.eval_batches:
-    eval_task = synthetic_task("eval", max(args.synthetic_examples // 8, 8),
-                               1000)
+    if args.synthetic:
+      eval_task = synthetic_task(
+          "eval", max(args.synthetic_examples // 8, 8), 1000)
+    elif config is not None:
+      eval_task = dataset_task(config, config.train_eval_split)
+    else:
+      print("--eval_batches: no held-out eval for the mega mixture (as the "
+            "JAX CLI)")
+  if eval_task is not None:
     eval_set = list(itertools.islice(
         iter(eval_task.model_dataset(lengths, seed=1,
                                      num_threads=args.data_threads)

@@ -16,7 +16,10 @@ The wire format is the JAX package's byte for byte (tf.train.Example in
 TFRecord framing), so a cache that either package wrote reads in the other.
 A pickled object that names a class of the JAX package (the tokenized
 chunks' `sequence`, a NoteSequence) is read as the port's copy of that
-class, so reading a JAX-written cache imports nothing of the JAX package.
+class, so reading a JAX-written cache imports nothing of the JAX package;
+and the port pickles its copy of such a class under the JAX package's name,
+so the shards that both packages write of the same examples are the same
+bytes.
 """
 
 from __future__ import annotations
@@ -60,6 +63,35 @@ def _unpickle(raw: bytes) -> Any:
   return _PortUnpickler(io.BytesIO(raw)).load()
 
 
+# The JAX package's name of each port module a pickled class lives in (one
+# str object a module, so that the pickler's memo reuses it as the C
+# pickler reuses the interned `__module__`).
+_JAX_MODULE_NAMES: Dict[str, str] = {}
+
+
+class _JaxNamePickler(pickle._Pickler):  # pylint: disable=protected-access
+  """Pickles a class of the port under the JAX package's module path; else
+  the same opcodes as `pickle.dumps` (the pure-Python pickler, which writes
+  what the C one writes)."""
+
+  def save_global(self, obj, name=None):
+    module = getattr(obj, "__module__", "") or ""
+    if module.startswith(_PORT_PACKAGE + ".") and self.proto >= 4:
+      self.save(_JAX_MODULE_NAMES.setdefault(
+          module, _JAX_PACKAGE + module[len(_PORT_PACKAGE):]))
+      self.save(name or obj.__qualname__)
+      self.write(pickle.STACK_GLOBAL)
+      self.memoize(obj)
+      return
+    super().save_global(obj, name)
+
+
+def _pickle(value: Any) -> bytes:
+  buf = io.BytesIO()
+  _JaxNamePickler(buf, protocol=pickle.DEFAULT_PROTOCOL).dump(value)
+  return buf.getvalue()
+
+
 def encode_example(example: Dict[str, Any]) -> bytes:
   """Serialize one example dict to a tf.train.Example record.
 
@@ -74,7 +106,7 @@ def encode_example(example: Dict[str, Any]) -> bytes:
       continue
     arr = np.asarray(value)
     if arr.dtype == object or arr.dtype.kind in "US":
-      features[key] = pickle.dumps(value)
+      features[key] = _pickle(value)
       features[_DTYPE + key] = _PICKLE
       continue
     if arr.dtype.kind not in "fiub":

@@ -1,35 +1,89 @@
-"""TFRecord framing and the tf.train.Example wire format, in pure Python.
+"""Dataset configurations + a TF-free TFRecord/tf.train.Example reader.
 
-The record functions of music_spectrogram_diffusion_tpu/data/datasets.py
-that the offline cache (`data/cache.py`) needs, copied (the port imports
-nothing of the JAX package): `serialize_example`, `parse_example`,
-`write_tfrecord` and `iter_tfrecords`. The dataset configurations stay in
-the JAX package until the real datasets are ported. `iter_tfrecords` reads
-local files with the pure-Python splitter (the JAX package also has a
-native one and remote paths; both yield the same records).
+The port's own copy of music_spectrogram_diffusion_tpu/data/datasets.py
+(the port imports nothing of the JAX package). The seven dataset configs
+mirror the reference's datasets.py, including the published GCS TFRecord
+paths; the reader parses TFRecord framing and the tf.train.Example wire
+format in pure Python/numpy so the pipeline has no TensorFlow dependency.
+`iter_tfrecords` splits records in Python (the JAX package also has a
+native splitter; both yield the same records).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import struct
-from typing import Dict, Iterator, List, Mapping, Sequence
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 
+from music_spectrogram_diffusion_tpu_torch.data import core
+from music_spectrogram_diffusion_tpu_torch.data import remote_io
+from music_spectrogram_diffusion_tpu_torch.midi import sequences
 
-def iter_tfrecords(path: str) -> Iterator[bytes]:
-  """Yield the raw records of a local TFRecord file (CRCs not checked)."""
-  with open(path, "rb") as f:
+
+# ---------------------------------------------------------------------------
+# Feature specs (replacing tf.io.FixedLen[Sequence]Feature).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSpec:
+  """Declared feature: kind in {'bytes','float','int64'}; sequence=True
+  for variable-length lists (FixedLenSequenceFeature equivalents)."""
+  kind: str
+  sequence: bool = False
+  shape: Optional[Sequence[int]] = None
+
+
+def bytes_feature() -> FeatureSpec:
+  return FeatureSpec("bytes")
+
+
+def float_feature() -> FeatureSpec:
+  return FeatureSpec("float")
+
+
+def int64_feature(shape: Optional[Sequence[int]] = None) -> FeatureSpec:
+  return FeatureSpec("int64", shape=shape)
+
+
+def bytes_seq_feature() -> FeatureSpec:
+  return FeatureSpec("bytes", sequence=True)
+
+
+def float_seq_feature() -> FeatureSpec:
+  return FeatureSpec("float", sequence=True)
+
+
+def int64_seq_feature() -> FeatureSpec:
+  return FeatureSpec("int64", sequence=True)
+
+
+# ---------------------------------------------------------------------------
+# TFRecord framing + tf.train.Example wire-format parsing (pure Python).
+# ---------------------------------------------------------------------------
+
+
+def iter_tfrecords(path: str, verify_crc: bool = False) -> Iterator[bytes]:
+  """Yield the raw records of a TFRecord file (local, or a scheme that
+  data/remote_io serves). With `verify_crc`, a record whose masked CRC32C
+  (of its length or of its data) disagrees raises IOError."""
+  with remote_io.open_file(path, "rb") as f:
     while True:
       header = f.read(8)
       if len(header) < 8:
         return
       (length,) = struct.unpack("<Q", header)
-      f.read(4)  # length CRC
+      length_crc = f.read(4)
       data = f.read(length)
-      if len(data) < length:
+      data_crc = f.read(4)
+      if len(data) < length or len(data_crc) < 4:
         raise IOError(f"truncated record in {path}")
-      f.read(4)  # data CRC
+      if verify_crc and (
+          struct.unpack("<I", length_crc)[0] != _masked_crc32c(header)
+          or struct.unpack("<I", data_crc)[0] != _masked_crc32c(data)):
+        raise IOError(f"TFRecord CRC mismatch in {path}")
       yield data
 
 
@@ -208,3 +262,232 @@ def write_tfrecord(path: str, records: Sequence[bytes]) -> None:
       f.write(struct.pack("<I", _masked_crc32c(header)))
       f.write(record)
       f.write(struct.pack("<I", _masked_crc32c(record)))
+
+
+def tfrecord_source(filepattern: str,
+                    features: Mapping[str, FeatureSpec]) -> core.Dataset:
+  """Dataset over TFRecord shards matching a glob pattern.
+
+  Local paths glob directly; gs:// (and registered schemes) go through
+  data/remote_io — so the published GCS paths are readable wherever a
+  gcs backend exists, without a manual mirror.
+  """
+  def gen():
+    paths = sorted(remote_io.glob(filepattern.replace("?????", "*")))
+    if not paths:
+      raise FileNotFoundError(f"no files match {filepattern}")
+    for path in paths:
+      for record in iter_tfrecords(path):
+        raw = parse_example(record)
+        ex = {}
+        for name, spec in features.items():
+          if name not in raw:
+            continue
+          value = raw[name]
+          if spec.kind == "bytes" and not spec.sequence:
+            ex[name] = value[0]
+          else:
+            ex[name] = value
+        yield ex
+  return core.Dataset.from_generator(gen)
+
+
+# ---------------------------------------------------------------------------
+# Dataset configurations (the reference's datasets.py:24-296).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InferEvalSplit:
+  name: str
+  suffix: str
+  include_in_mixture: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+  name: str
+  paths: Mapping[str, str]
+  features: Mapping[str, FeatureSpec]
+  train_split: str
+  train_eval_split: str
+  infer_eval_splits: Sequence[InferEvalSplit]
+  track_specs: Sequence[sequences.TrackSpec] = ()
+
+
+_WAV_NS_FEATURES = {
+    "audio": bytes_feature(),
+    "sequence": bytes_feature(),
+    "id": bytes_feature(),
+}
+
+_MAESTRO_SPLITS = [
+    InferEvalSplit("train", "eval_train_full", include_in_mixture=False),
+    InferEvalSplit("train_subset", "eval_train"),
+    InferEvalSplit("validation", "validation_full",
+                   include_in_mixture=False),
+    InferEvalSplit("validation_subset", "validation"),
+    InferEvalSplit("test", "test", include_in_mixture=False),
+]
+
+MAESTROV1_CONFIG = DatasetConfig(
+    name="maestrov1",
+    paths={
+        "train": "gs://magentadata/datasets/maestro/v1.0.0/maestro-v1.0.0_ns_wav_train.tfrecord-?????-of-00010",
+        "train_subset": "gs://magentadata/datasets/maestro/v1.0.0/maestro-v1.0.0_ns_wav_train.tfrecord-00002-of-00010",
+        "validation": "gs://magentadata/datasets/maestro/v1.0.0/maestro-v1.0.0_ns_wav_validation.tfrecord-?????-of-00010",
+        "validation_subset": "gs://magentadata/datasets/maestro/v1.0.0/maestro-v1.0.0_ns_wav_validation.tfrecord-0000[06]-of-00010",
+        "test": "gs://magentadata/datasets/maestro/v1.0.0/maestro-v1.0.0_ns_wav_test.tfrecord-?????-of-00010",
+    },
+    features=_WAV_NS_FEATURES,
+    train_split="train",
+    train_eval_split="validation_subset",
+    infer_eval_splits=_MAESTRO_SPLITS)
+
+MAESTROV3_CONFIG = DatasetConfig(
+    name="maestrov3",
+    paths={
+        "train": "gs://magentadata/datasets/maestro/v3.0.0/maestro-v3.0.0_ns_wav_train.tfrecord-?????-of-00025",
+        "train_subset": "gs://magentadata/datasets/maestro/v3.0.0/maestro-v3.0.0_ns_wav_train.tfrecord-00004-of-00025",
+        "validation": "gs://magentadata/datasets/maestro/v3.0.0/maestro-v3.0.0_ns_wav_validation.tfrecord-?????-of-00025",
+        "validation_subset": "gs://magentadata/datasets/maestro/v3.0.0/maestro-v3.0.0_ns_wav_validation.tfrecord-0002?-of-00025",
+        "test": "gs://magentadata/datasets/maestro/v3.0.0/maestro-v3.0.0_ns_wav_test.tfrecord-?????-of-00025",
+    },
+    features=_WAV_NS_FEATURES,
+    train_split="train",
+    train_eval_split="validation_subset",
+    infer_eval_splits=_MAESTRO_SPLITS)
+
+GUITARSET_CONFIG = DatasetConfig(
+    name="guitarset",
+    paths={
+        "train": "gs://mt3/data/datasets/guitarset/train.tfrecord-?????-of-00019",
+        "validation": "gs://mt3/data/datasets/guitarset/validation.tfrecord-?????-of-00006",
+    },
+    features={
+        "sequence": bytes_feature(),
+        "audio": bytes_feature(),
+        "velocity_range": bytes_feature(),
+        "id": bytes_feature(),
+    },
+    train_split="train",
+    train_eval_split="validation",
+    infer_eval_splits=[
+        InferEvalSplit("train", "eval_train"),
+        InferEvalSplit("validation", "validation"),
+    ])
+
+URMP_CONFIG = DatasetConfig(
+    name="urmp",
+    paths={
+        "train": "gs://mt3/data/datasets/urmp/train.tfrecord",
+        "validation": "gs://mt3/data/datasets/urmp/validation.tfrecord",
+    },
+    features={
+        "id": bytes_feature(),
+        "tracks": int64_seq_feature(),
+        "inst_names": bytes_seq_feature(),
+        "audio": bytes_feature(),
+        "sequence": bytes_feature(),
+        "instrument_sequences": bytes_seq_feature(),
+    },
+    train_split="train",
+    train_eval_split="validation",
+    infer_eval_splits=[
+        InferEvalSplit("train", "eval_train"),
+        InferEvalSplit("validation", "validation"),
+    ])
+
+MUSICNET_CONFIG = DatasetConfig(
+    name="musicnet",
+    paths={
+        "train": "gs://mt3/data/datasets/musicnet/musicnet-train.tfrecord-?????-of-00036",
+        "validation": "gs://mt3/data/datasets/musicnet/musicnet-validation.tfrecord-?????-of-00005",
+        "test": "gs://mt3/data/datasets/musicnet/musicnet-test.tfrecord-?????-of-00003",
+    },
+    features={
+        "id": bytes_feature(),
+        "sample_rate": float_feature(),
+        "audio": float_seq_feature(),
+        "sequence": bytes_feature(),
+    },
+    train_split="train",
+    train_eval_split="validation",
+    infer_eval_splits=[
+        InferEvalSplit("train", "eval_train"),
+        InferEvalSplit("validation", "validation"),
+        InferEvalSplit("test", "test", include_in_mixture=False),
+    ])
+
+_SLAKH_FEATURES = {
+    "audio_sample_rate": int64_feature(),
+    "inst_names": bytes_seq_feature(),
+    "midi_class": int64_seq_feature(),
+    "mix": float_seq_feature(),
+    "note_sequences": bytes_seq_feature(),
+    "plugin_name": int64_seq_feature(),
+    "program_num": int64_seq_feature(),
+    "slakh_class": int64_seq_feature(),
+    "src_ids": bytes_seq_feature(),
+    "stems": float_seq_feature(),
+    "stems_shape": int64_feature(shape=[2]),
+    "target_type": bytes_feature(),
+    "track_id": bytes_feature(),
+}
+
+_SLAKH_SPLITS = [
+    InferEvalSplit("train", "eval_train_full", include_in_mixture=False),
+    InferEvalSplit("train_subset", "eval_train"),
+    InferEvalSplit("validation", "validation_full",
+                   include_in_mixture=False),
+    InferEvalSplit("validation_subset", "validation"),
+    InferEvalSplit("test", "test", include_in_mixture=False),
+]
+
+CERBERUS4_CONFIG = DatasetConfig(
+    name="cerberus4",
+    paths={
+        "train": "gs://mt3/data/datasets/cerberus4/slakh_multi_cerberus_train_bass:drums:guitar:piano.tfrecord-?????-of-00286",
+        "train_subset": "gs://mt3/data/datasets/cerberus4/slakh_multi_cerberus_train_bass:drums:guitar:piano.tfrecord-00000-of-00286",
+        "validation": "gs://mt3/data/datasets/cerberus4/slakh_multi_cerberus_validation_bass:drums:guitar:piano.tfrecord-?????-of-00212",
+        "validation_subset": "gs://mt3/data/datasets/cerberus4/slakh_multi_cerberus_validation_bass:drums:guitar:piano.tfrecord-0000?-of-00212",
+        "test": "gs://mt3/data/datasets/cerberus4/slakh_multi_cerberus_test_bass:drums:guitar:piano.tfrecord-?????-of-00106",
+    },
+    features=_SLAKH_FEATURES,
+    train_split="train",
+    train_eval_split="validation_subset",
+    infer_eval_splits=_SLAKH_SPLITS,
+    track_specs=[
+        sequences.TrackSpec("bass", program=32),
+        sequences.TrackSpec("drums", is_drum=True),
+        sequences.TrackSpec("guitar", program=24),
+        sequences.TrackSpec("piano", program=0),
+    ])
+
+SLAKH_CONFIG = DatasetConfig(
+    name="slakh",
+    paths={
+        "train": "gs://mt3/data/datasets/slakh/slakh_multi_full_subsets_10_train_all_inst.tfrecord-?????-of-02307",
+        "train_subset": "gs://mt3/data/datasets/slakh/slakh_multi_full_subsets_10_train_all_inst.tfrecord-00000-of-02307",
+        "validation": "gs://mt3/data/datasets/slakh/slakh_multi_full_validation_all_inst.tfrecord-?????-of-00168",
+        "validation_subset": "gs://mt3/data/datasets/slakh/slakh_multi_full_validation_all_inst.tfrecord-0000?-of-00168",
+        "test": "gs://mt3/data/datasets/slakh/slakh_multi_full_test_all_inst.tfrecord-?????-of-00109",
+    },
+    features=_SLAKH_FEATURES,
+    train_split="train",
+    train_eval_split="validation_subset",
+    infer_eval_splits=_SLAKH_SPLITS)
+
+ALL_DATASET_CONFIGS = {
+    c.name: c for c in [
+        MAESTROV1_CONFIG, MAESTROV3_CONFIG, GUITARSET_CONFIG, URMP_CONFIG,
+        MUSICNET_CONFIG, CERBERUS4_CONFIG, SLAKH_CONFIG,
+    ]
+}
+
+# The six datasets in the reference "mega" training mixture
+# (reference tasks.py:496-503).
+SYNTH_MIXTURE_DATASET_CONFIGS = [
+    MAESTROV3_CONFIG, GUITARSET_CONFIG, URMP_CONFIG, MUSICNET_CONFIG,
+    CERBERUS4_CONFIG, SLAKH_CONFIG,
+]

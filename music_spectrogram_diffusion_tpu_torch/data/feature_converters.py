@@ -9,7 +9,7 @@ Packing is not supported (2D continuous targets, all equal length).
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 
@@ -123,6 +123,13 @@ class ContinuousContextFeatureConverter:
 
 
 def convert_dataset(ds: core.Dataset, converter,
-                    task_feature_lengths: Mapping[str, int]) -> core.Dataset:
-  """Apply a feature converter over a Dataset."""
-  return ds.map(lambda ex: converter(ex, task_feature_lengths))
+                    task_feature_lengths: Mapping[str, int],
+                    passthrough_keys: Sequence[str] = ()) -> core.Dataset:
+  """Apply a feature converter over a Dataset, keeping passthrough keys."""
+  def fn(ex):
+    out = converter(ex, task_feature_lengths)
+    for k in passthrough_keys:
+      if k in ex:
+        out[k] = ex[k]
+    return out
+  return ds.map(fn)

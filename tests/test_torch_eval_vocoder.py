@@ -57,11 +57,17 @@ def test_eval_vocoder_report_matches_jax(tmp_path, monkeypatch):
       want["trained_vs_griffin_lim"])
 
 
-def test_eval_vocoder_sources():
-  with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+def test_eval_vocoder_sources(capsys):
+  """An unknown dataset is the usage error of the JAX CLI's p.error."""
+  with pytest.raises(SystemExit) as e:
     eval_vocoder.parse_args(["--dataset", "maestro"])
+  assert e.value.code == 2
+  assert "unknown dataset 'maestro'" in capsys.readouterr().err
   with pytest.raises(SystemExit):
     eval_vocoder.parse_args([])
+  args = eval_vocoder.parse_args(["--dataset", "maestrov3"])
+  assert (args.dataset, args.split, args.data_root) == ("maestrov3", None,
+                                                        None)
   args = eval_vocoder.parse_args(["--synthetic"])
   assert (args.device, args.clips, args.seed, args.phase_init) == (
       "cuda", 16, 1000, "pghi")

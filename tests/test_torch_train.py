@@ -490,16 +490,37 @@ def test_cli_trains_on_the_cpu_and_resumes(tmp_path, capsys):
 
 # --cache_root, --remat and --eval_batches are ported: the CLI runs with
 # them in tests/test_torch_train_bf16.py
-# test_cli_trains_with_remat_eval_and_cache.
-@pytest.mark.parametrize("flags", [
-    ["--dataset", "maestrov3"], ["--mesh", "4x2"], ["--distributed"], []])
+# test_cli_trains_with_remat_eval_and_cache; --dataset and --data_root in
+# tests/test_torch_data_cli.py.
+@pytest.mark.parametrize("flags", [["--mesh", "4x2"], ["--distributed"]])
 def test_cli_refuses_what_is_not_ported(flags, tmp_path):
   argv = ["--preset", "context_tiny", "--model_dir", str(tmp_path),
-          "--device", "cpu"]
-  if flags:
-    argv.append("--synthetic")
+          "--device", "cpu", "--synthetic"]
   with pytest.raises(SystemExit):
     train_cli.parse_args(argv + flags)
+
+
+def test_cli_takes_the_jax_dataset_flags(tmp_path):
+  """--dataset (default maestrov3, as JAX's), --data_root and mega parse;
+  --synthetic is no longer required (the CLI runs them in
+  tests/test_torch_data_cli.py)."""
+  argv = ["--preset", "context_tiny", "--model_dir", str(tmp_path)]
+  args = train_cli.parse_args(argv)
+  assert (args.dataset, args.data_root, args.synthetic) == (
+      "maestrov3", None, False)
+  args = train_cli.parse_args(argv + ["--dataset", "mega", "--data_root",
+                                      str(tmp_path)])
+  assert (args.dataset, args.data_root) == ("mega", str(tmp_path))
+  assert train_cli.NOT_PORTED == ("mesh", "distributed")
+
+
+def test_cli_refuses_an_unknown_dataset_as_jax(tmp_path, capsys):
+  """An unknown name is JAX's usage error (p.error, exit code 2)."""
+  argv = ["--preset", "context_tiny", "--model_dir", str(tmp_path)]
+  with pytest.raises(SystemExit) as e:
+    train_cli.parse_args(argv + ["--dataset", "maestro"])
+  assert e.value.code == 2
+  assert "unknown dataset 'maestro'" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
