@@ -6,7 +6,8 @@ Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
   2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu,
               qmm.cu and flash_bwd.cu with its wgmma route, and phase 19's
-              planted fault: four compilers started together) and reports
+              planted fault: four compilers started together; phases 27 and
+              28's host data start in the background) and reports
               ptxas's registers and spills of every instantiation; no
               kernel may spill;
   3. kernel   flash attention against its plain PyTorch version at the
@@ -155,9 +156,31 @@ Phases, each printed on its own line with its seconds:
               lengths, from raw records and from the caches at 1 and 8
               threads, beside the examples/s this run's training steps eat
               (phases 11 and 20).
+ 28. main     evaluation: MT3 at its published geometry (random weights
+              from --seed, float32) on a 10.24 s synthetic clip (5
+              segments of 256 frames): kernel #1 at its encoder's 256x256
+              shape with 6 heads and the frames key mask against its plain
+              version; greedy and beam (4) decodes of 1024 tokens, captured
+              against eager bit for bit, their seconds per segment batch
+              eager and captured and the capture's; the teacher-forced
+              logits, card against CPU. Kernel #2 at the transcriber's
+              training shapes (batch 32, 4 heads: 256x256 and 512x256);
+              cli/train_transcriber.py --synthetic_examples 64 --steps 20
+              --batch 32 (its data generated on the host by a process
+              started in phase 2): finite losses, kernels #1 and #2
+              launched as predicted, s per step. cli/evaluate.py --synthetic
+              --preset context_base --compute_dtype int8 --songs 4
+              --songs_per_batch 2 --bootstrap 0 (each CI resample costs
+              a host sqrtm a space) with the trained vocoder, VGGish and TRILL
+              on random weights written by the phase, and the transcriber
+              just trained: finite mel metrics, mel / VGGish / TRILL FAD and
+              onset F1, kernels #1 and #3 launched as predicted, the seconds
+              per song of each stage; then --prediction_source gt_encoded
+              unsharded and in 2 shards merged by cli/merge_eval.py: the
+              merged per-song metrics equal the unsharded run's.
 Then the vocoder phases' numbers as one JSON line, the families' phases'
-as another, phase 26's as another, phase 27's as another, one JSON line of
-the kernels, the
+as another, phase 26's as another, phase 27's as another, phase 28's as
+another, one JSON line of the kernels, the
 nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
@@ -421,11 +444,12 @@ def cuda_ms(fn, iters: int) -> float:
   return start.elapsed_time(stop) / iters
 
 
-def attention_inputs(batch, q_len, kv_len, masked, transposed, dtype, gen):
+def attention_inputs(batch, q_len, kv_len, masked, transposed, dtype, gen,
+                     heads=HEADS):
   dev = "cuda"
-  q = torch.randn(batch, q_len, HEADS, HEAD_DIM, device=dev, generator=gen)
-  kv_shape = ((batch, HEADS, kv_len, HEAD_DIM) if transposed else
-              (batch, kv_len, HEADS, HEAD_DIM))
+  q = torch.randn(batch, q_len, heads, HEAD_DIM, device=dev, generator=gen)
+  kv_shape = ((batch, heads, kv_len, HEAD_DIM) if transposed else
+              (batch, kv_len, heads, HEAD_DIM))
   k = torch.randn(kv_shape, device=dev, generator=gen)
   v = torch.randn(kv_shape, device=dev, generator=gen)
   mask = None
@@ -437,12 +461,12 @@ def attention_inputs(batch, q_len, kv_len, masked, transposed, dtype, gen):
   return (q * HEAD_DIM ** -0.5).to(dtype), k.to(dtype), v.to(dtype), mask
 
 
-def bound_ms(batch, q_len, kv_len, masked, dtype):
+def bound_ms(batch, q_len, kv_len, masked, dtype, heads=HEADS):
   """max(operations / the route's peak, bytes / HBM rate) for one call, and
   the same at the bf16 peak."""
-  flops = 4.0 * batch * HEADS * q_len * kv_len * HEAD_DIM
+  flops = 4.0 * batch * heads * q_len * kv_len * HEAD_DIM
   elt = torch.finfo(dtype).bits // 8
-  nbytes = (2 * batch * q_len + 2 * batch * kv_len) * HEADS * HEAD_DIM * elt
+  nbytes = (2 * batch * q_len + 2 * batch * kv_len) * heads * HEAD_DIM * elt
   nbytes += batch * kv_len if masked else 0
   t_ops, t_bytes = flops / ROUTE_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
   bf16_ops = flops / PEAK_FLOPS[torch.bfloat16]
@@ -458,12 +482,15 @@ def fwd_tolerance(dtype, plain) -> float:
 
 
 def kernel_phase(gen, stream, shapes=SHAPES):
+  """The forward kernel at `shapes` ((name, q_len, kv_len, masked,
+  transposed[, heads]); HEADS where heads is not given)."""
   rows = []
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  for name, q_len, kv_len, masked, transposed in shapes:
+  for name, q_len, kv_len, masked, transposed, *more in shapes:
+    heads = more[0] if more else HEADS
     for batch, dtype in RUNS:
       q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked,
-                                       transposed, dtype, gen)
+                                       transposed, dtype, gen, heads)
 
       def kernel(_=0):
         return attention.flash_attention(q, k, v, kv_mask=mask,
@@ -500,7 +527,7 @@ def kernel_phase(gen, stream, shapes=SHAPES):
               f"{l_err} (sum) > {STATS_TOLERANCE}")
         stats_note = (f"; statistics max {m_err:.3g}, sum {l_err:.3g} "
                       f"(tol {STATS_TOLERANCE})")
-      splits, _ = attention.kv_split(batch, HEADS, q_len, kv_len, sms,
+      splits, _ = attention.kv_split(batch, heads, q_len, kv_len, sms,
                                      *attention.fwd_tile(dtype))
       # SDPA yardstick on the same inputs: [b, h, l, d], additive mask.
       qs = q.transpose(1, 2).contiguous()
@@ -524,18 +551,18 @@ def kernel_phase(gen, stream, shapes=SHAPES):
                               graph_ms(library, iters, stream))
       eager_ms = cuda_ms(kernel, iters)
       bound, bound_by, bound_bf16 = bound_ms(batch, q_len, kv_len, masked,
-                                             dtype)
+                                             dtype, heads)
       dt = str(dtype).replace("torch.", "")
       route = "3xTF32" if dtype == torch.float32 else "bf16"
-      log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} {dt}: max_abs_err "
+      log(f"  {name} b={batch} h={heads} d={HEAD_DIM} {dt}: max_abs_err "
           f"{err:.3g} (tol {tol:.3g}), relative RMS {rms:.3g}{stats_note}; "
           f"bitwise reproducible; "
           f"{splits} split(s); on the card (CUDA graph): kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; kernel eager "
           f"{eager_ms:.4f} ms a call; bound {bound:.4f} ms ({bound_by}, "
           f"{route} peak), {bound_bf16:.4f} ms at the bf16 peak")
-      rows.append(dict(shape=name, dtype=dt, batch=batch, q_len=q_len,
-                       kv_len=kv_len, splits=splits, max_abs_err=err,
+      rows.append(dict(shape=name, dtype=dt, batch=batch, heads=heads,
+                       q_len=q_len, kv_len=kv_len, splits=splits, max_abs_err=err,
                        tolerance=tol, rel_rms=rms, ms=ms, eager_ms=eager_ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                        bound_by=bound_by, bound_bf16_ms=bound_bf16))
@@ -1303,15 +1330,15 @@ def training_experiment():
   return config.preset("context_base")
 
 
-def bwd_bound_ms(batch, q_len, kv_len, dtype=torch.float32):
+def bwd_bound_ms(batch, q_len, kv_len, dtype=torch.float32, heads=HEADS):
   """max(10 b h q kv d FLOPs at the route's peak for `dtype` (3xTF32 for
   f32), bytes at the HBM rate): q, out, dO, dQ and k, v, dK, dV in
   `dtype`, the f32 statistics and the key mask; and the operations at the
   bf16 peak."""
-  flops = 10.0 * batch * HEADS * q_len * kv_len * HEAD_DIM
+  flops = 10.0 * batch * heads * q_len * kv_len * HEAD_DIM
   elt = torch.finfo(dtype).bits // 8
-  nbytes = elt * (4 * batch * q_len + 4 * batch * kv_len) * HEADS * HEAD_DIM
-  nbytes += 4 * 2 * batch * HEADS * q_len + batch * kv_len
+  nbytes = elt * (4 * batch * q_len + 4 * batch * kv_len) * heads * HEAD_DIM
+  nbytes += 4 * 2 * batch * heads * q_len + batch * kv_len
   t_ops, t_bytes = flops / ROUTE_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
   t_bf16 = max(flops / PEAK_FLOPS[torch.bfloat16], t_bytes)
   return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -1334,12 +1361,14 @@ def sdpa_backward_ms(q, k, v, mask, dout, iters: int) -> float:
 
 def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
   """The backward kernel at the attention shapes of training (`shapes`;
-  the context model's four by default)."""
+  the context model's four by default; an optional sixth entry gives the
+  heads)."""
   rows = []
-  for name, q_len, kv_len, masked, _ in shapes:
+  for name, q_len, kv_len, masked, _, *more in shapes:
+    heads = more[0] if more else HEADS
     # Training attends over uncached K/V in [b, l, h, d].
     q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked, False,
-                                     torch.float32, gen)
+                                     torch.float32, gen, heads)
     out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
                                            return_stats=True)
     dout = torch.randn(out.shape, device="cuda", generator=gen)
@@ -1381,8 +1410,9 @@ def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
     # statistics output.
     fwd_ms = cuda_ms(lambda: attention.flash_attention(
         q, k, v, kv_mask=mask, return_stats=True), iters)
-    bound, bound_by, bound_bf16 = bwd_bound_ms(batch, q_len, kv_len)
-    log(f"  {name} b={batch} h={HEADS} d={HEAD_DIM} float32: max_abs_err "
+    bound, bound_by, bound_bf16 = bwd_bound_ms(batch, q_len, kv_len,
+                                               heads=heads)
+    log(f"  {name} b={batch} h={heads} d={HEAD_DIM} float32: max_abs_err "
         f"{max(errs):.3g} (tol {BWD_TOLERANCE} x max(1, |grad| max); at "
         f"worst {worst:.3g} of it), "
         f"finite{' with an all-masked row' if masked else ''}, bitwise "
@@ -1390,8 +1420,8 @@ def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
         f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms; bound "
         f"{bound:.4f} ms ({bound_by}, 3xTF32 peak), {bound_bf16:.4f} ms at "
         f"the bf16 peak; the forward kernel with statistics {fwd_ms:.4f} ms")
-    rows.append(dict(shape=name, batch=batch, q_len=q_len, kv_len=kv_len,
-                     max_abs_err=max(errs), ms=ms,
+    rows.append(dict(shape=name, batch=batch, heads=heads, q_len=q_len,
+                     kv_len=kv_len, max_abs_err=max(errs), ms=ms,
                      plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                      bound_by=bound_by, bound_bf16_ms=bound_bf16,
                      forward_ms=fwd_ms))
@@ -2990,6 +3020,287 @@ def dataset_phase(card: str, seed: int, synth, qmm_rows, records,
   return summary
 
 
+
+# Phase 28: evaluation. MT3 at its published geometry (MT3Config's
+# defaults, random weights) on a 10.24 s clip: 5 segments of 256 frames.
+# The evaluations run with --bootstrap 0: each CI resample takes one host
+# sqrtm per embedding space (0.6 s in TRILL's 512 dims), 200 of them
+# about 2 minutes an aggregate; the CIs are held against JAX's on the CPU
+# (tests/test_torch_evaluation.py).
+MT3_CLIP_SECONDS = 10.24
+MT3_BEAM = 4
+# Card vs CPU, the teacher-forced logits of one segment and its first
+# MT3_CHECK_TOKENS greedy tokens, max |card - CPU| relative to max |CPU|:
+# the card's attention kernels (3xTF32) and cuBLAS f32 (TF32 off) against
+# the CPU's plain f32, summed in other orders over 8 + 8 layers; the CPU
+# tests hold the port to JAX within the same 1e-4.
+MT3_LOGIT_TOLERANCE = 1e-4
+MT3_CHECK_TOKENS = 256
+# Kernel #1's new shapes (name, q_len, kv_len, key mask, cached K/V,
+# heads): MT3's encoder self-attention with the frames key mask; the
+# transcriber's training (cli/train_transcriber.py's defaults: emb 256, 4
+# heads of 64, 512 target tokens; an all-ones frames mask, so no key mask)
+# runs its encoder's self-attention and the teacher-forced
+# cross-attention through kernels #1 and #2.
+MT3_SHAPES = (("mt3_encoder_self_256x256", 256, 256, True, False, 6),)
+TRANSCRIBER_SHAPES = (
+    ("transcriber_encoder_self_256x256", 256, 256, False, False, 4),
+    ("transcriber_cross_512x256", 512, 256, False, False, 4))
+TRANSCRIBER_DIR = os.path.join("out", "chip_smoke_transcriber")
+TRANSCRIBER_DATA = os.path.join("out", "chip_smoke_transcriber_data.npz")
+TRANSCRIBER_SONGS, TRANSCRIBER_STEPS, TRANSCRIBER_BATCH = 64, 20, 32
+TRANSCRIBER_LAYERS = 4  # cli/train_transcriber.py --num_layers default
+EVAL_DIR = os.path.join("out", "chip_smoke_eval")
+EVAL_SONGS, EVAL_SONGS_PER_BATCH = 4, 2
+F1_KEYS = tuple(f"{who} Onset + program precision/recall/F1 (flat) F1"
+                for who in ("Model", "GT"))
+
+
+def start_transcriber_data(seed: int):
+  """The transcriber's segment set (--gen_only --data_cache), generated on
+  the host by a process started now and joined in phase 28."""
+  os.makedirs(os.path.dirname(TRANSCRIBER_DATA), exist_ok=True)
+  if os.path.exists(TRANSCRIBER_DATA):
+    os.remove(TRANSCRIBER_DATA)
+  proc = subprocess.Popen(
+      [sys.executable, "-m",
+       "music_spectrogram_diffusion_tpu_torch.cli.train_transcriber",
+       "--model_dir", TRANSCRIBER_DIR, "--synthetic_examples",
+       str(TRANSCRIBER_SONGS), "--seed", str(seed), "--gen_only",
+       "--data_cache", TRANSCRIBER_DATA],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+  atexit.register(proc.kill)
+  return proc, time.perf_counter()
+
+
+def synced_s(fn):
+  """(fn(), wall seconds with the card synchronized before and after)."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, time.perf_counter() - t0
+
+
+def mt3_phase(card: str, seed: int, gen, stream) -> dict:
+  """MT3 at full geometry: kernel #1 at its encoder's shape against the
+  plain version; greedy and beam decodes of 1024 tokens, captured against
+  eager bit for bit; the teacher-forced logits, card against CPU."""
+  from music_spectrogram_diffusion_tpu_torch.data import synthetic
+  from music_spectrogram_diffusion_tpu_torch.infer import mt3
+  rows = kernel_phase(gen, stream, MT3_SHAPES)
+  vocab_size = vocabularies.num_embeddings(vocabularies.vocabulary_from_codec(
+      vocabularies.build_codec(vocabularies.VocabularyConfig(
+          num_velocity_bins=1))))
+  cfg = mt3.MT3Config(vocab_size=vocab_size)
+  module = mt3.build_module(cfg, seed=seed, device="cuda")
+  n_params = sum(p.numel() for p in module.parameters())
+  rng = np.random.RandomState(seed)
+  ns = synthetic.random_note_sequence(rng, duration=MT3_CLIP_SECONDS)
+  audio = synthetic.render_note_sequence(
+      ns, mt3.SAMPLE_RATE, duration=MT3_CLIP_SECONDS)[
+          :int(round(MT3_CLIP_SECONDS * mt3.SAMPLE_RATE))]
+  spec = mt3.spectrogram(audio)
+  n_seg = len(spec) // mt3.INPUT_FRAMES
+  check(n_seg * mt3.INPUT_FRAMES == len(spec) == 1280,
+        f"the clip has {len(spec)} frames")
+  segs = torch.as_tensor(spec.reshape(n_seg, mt3.INPUT_FRAMES, -1),
+                         device="cuda")
+  mask = torch.ones(n_seg, mt3.INPUT_FRAMES, dtype=torch.bool,
+                    device="cuda")
+  decodes = {
+      "greedy": lambda g: mt3.greedy_decode(
+          module, segs, mask, mt3.MAX_OUTPUT_TOKENS, graphs=g),
+      f"beam{MT3_BEAM}": lambda g: mt3.beam_decode(
+          module, segs, mask, mt3.MAX_OUTPUT_TOKENS, beam_size=MT3_BEAM,
+          graphs=g)}
+  out, launches = {}, 0
+  for kind, decode in decodes.items():
+    eager, eager_s = synced_s(lambda: decode(False))
+    captures = module.step_graphs.capture_seconds
+    zero_counts()
+    first, first_s = synced_s(lambda: decode(True))
+    capture_s = module.step_graphs.capture_seconds - captures
+    replay, replay_s = synced_s(lambda: decode(True))
+    counts = launch_counts()
+    launches += counts[0]
+    check(counts == (2 * cfg.num_encoder_layers, 0),
+          f"MT3 {kind}: launches {counts}, expected "
+          f"({2 * cfg.num_encoder_layers}, 0)")
+    check(torch.equal(first, eager) and torch.equal(replay, eager),
+          f"MT3 {kind}: captured tokens differ from eager")
+    lengths = [int(np.argmax(r == 1)) + 1 if (r == 1).any() else len(r)
+               for r in eager.cpu().numpy()]
+    log(f"  MT3 {kind} ({cfg.emb_dim} emb, {cfg.num_heads} heads, "
+        f"{cfg.num_encoder_layers}+{cfg.num_decoder_layers} layers, "
+        f"{n_params / 1e6:.1f}M params, random weights from --seed): "
+        f"{n_seg} segments x {mt3.MAX_OUTPUT_TOKENS} tokens, captured equal "
+        f"to eager bit for bit (the capturing call and a replay); tokens to "
+        f"EOS {lengths}; [{card}] seconds per segment batch: eager "
+        f"{eager_s:.3f}, captured {replay_s:.3f} ({eager_s / replay_s:.1f}x; "
+        f"the capturing call {first_s:.3f}, capture {capture_s:.3f}); "
+        f"flash_attention launches {counts[0]} (the encoder's {2} calls x "
+        f"{cfg.num_encoder_layers} layers)")
+    out[kind] = dict(eager_s=eager_s, captured_s=replay_s,
+                     capturing_call_s=first_s, capture_s=capture_s,
+                     tokens_to_eos=lengths)
+  # Card vs CPU: the teacher-forced logits of the first segment on its
+  # greedy tokens.
+  tokens = decodes["greedy"](True)[:1, :MT3_CHECK_TOKENS]
+  inputs = F.pad(tokens, (1, 0))[:, :-1]
+  with torch.inference_mode():
+    card_logits = module(segs[:1], mask[:1], inputs, tokens).cpu()
+    cpu = mt3.build_module(cfg, seed=seed, device="cpu")
+    cpu_logits = cpu(segs[:1].cpu(), mask[:1].cpu(), inputs.cpu(),
+                     tokens.cpu())
+  err = (card_logits - cpu_logits).abs().max().item()
+  scale = cpu_logits.abs().max().item()
+  check(err <= MT3_LOGIT_TOLERANCE * scale,
+        f"MT3 logits card vs CPU: {err} > {MT3_LOGIT_TOLERANCE} x {scale}")
+  log(f"  MT3 teacher-forced logits (1 segment, {MT3_CHECK_TOKENS} greedy "
+      f"tokens), card vs CPU: max |diff| {err:.3g} = {err / scale:.3g} of "
+      f"max |logit| {scale:.3g} (tol {MT3_LOGIT_TOLERANCE})")
+  del module, cpu
+  torch.cuda.empty_cache()
+  return dict(rows=rows, launches=launches, decode=out,
+              logits_rel_err=err / scale, params=n_params)
+
+
+def transcriber_phase(card: str, seed: int, data) -> dict:
+  """cli/train_transcriber.py at its default geometry on the card, from
+  the segment set phase 2's process generated."""
+  from music_spectrogram_diffusion_tpu_torch.cli import train_transcriber
+  proc, started = data
+  stdout, stderr = proc.communicate()
+  check(proc.returncode == 0, f"the transcriber's data failed:\n{stderr}")
+  log(f"  segment set: {stdout.strip().splitlines()[0]} on the host in the "
+      f"background (joined {time.perf_counter() - started:.1f} s after its "
+      f"start)")
+  shutil.rmtree(TRANSCRIBER_DIR, ignore_errors=True)
+  zero_counts()
+  attention.flash_attention_bwd.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  out, wall = synced_s(lambda: train_transcriber.main([
+      "--model_dir", TRANSCRIBER_DIR, "--synthetic_examples",
+      str(TRANSCRIBER_SONGS), "--steps", str(TRANSCRIBER_STEPS), "--batch",
+      str(TRANSCRIBER_BATCH), "--seed", str(seed), "--data_cache",
+      TRANSCRIBER_DATA, "--device", "cuda"]))
+  launches = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+  # Each step: the encoder's self-attention and the decoder's
+  # cross-attention in every layer, forward and backward; the one eval
+  # (the last step: --log_period 100) forward only.
+  calls = 2 * TRANSCRIBER_LAYERS
+  expected = ((TRANSCRIBER_STEPS + 1) * calls, TRANSCRIBER_STEPS * calls)
+  check(launches == expected, f"transcriber training launched {launches}, "
+        f"expected {expected}")
+  check(quantize.quantized_matmul.launches == 0, "training launched int8")
+  for key in ("loss", "eval_loss"):
+    check(np.isfinite(out[key]), f"transcriber {key} {out[key]}")
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  log(f"  [{card}] {TRANSCRIBER_STEPS} steps at batch {TRANSCRIBER_BATCH}: "
+      f"loss {out['loss']:.4f}, acc {out['acc']:.3f}, eval_loss "
+      f"{out['eval_loss']:.4f}; {out['seconds_per_step']:.4f} s per step "
+      f"after the first; {wall:.2f} s in all (model, data to the card, "
+      f"steps, eval, checkpoint); peak memory {peak:.2f} GiB; launches "
+      f"flash_fwd {launches[0]}, flash_bwd {launches[1]} = expected "
+      f"({TRANSCRIBER_STEPS} steps + 1 eval) x {calls} and "
+      f"{TRANSCRIBER_STEPS} x {calls}")
+  return dict(launches=launches, peak_gib=peak, wall_s=wall,
+              **{k: v for k, v in out.items()})
+
+
+def evaluation_phase(card: str, seed: int, qmm_rows) -> dict:
+  """cli/evaluate.py on the card: int8 context_base renders and is scored
+  by every metric; then gt_encoded in 2 shards merged by
+  cli/merge_eval.py against the unsharded run."""
+  from music_spectrogram_diffusion_tpu_torch.cli import evaluate
+  from music_spectrogram_diffusion_tpu_torch.cli import merge_eval
+  from music_spectrogram_diffusion_tpu_torch.infer import trill, vggish
+  shutil.rmtree(EVAL_DIR, ignore_errors=True)
+  os.makedirs(EVAL_DIR)
+  weights = {}
+  for name, lib in (("vggish", vggish), ("trill", trill)):
+    weights[name] = os.path.join(EVAL_DIR, f"{name}_random.npz")
+    np.savez(weights[name], **lib.random_weights(seed))
+  scorers = ["--vocoder_checkpoint", vocoder.TRAINED_MAGNITUDE_GL,
+             "--vggish_weights", weights["vggish"], "--trill_weights",
+             weights["trill"], "--transcriber_checkpoint", TRANSCRIBER_DIR,
+             "--seed", str(seed), "--device", "cuda", "--synthetic",
+             "--songs", str(EVAL_SONGS), "--bootstrap", "0"]
+  experiment = serving_experiment()
+  zero_counts()
+  out, wall = synced_s(lambda: evaluate.main(scorers + [
+      "--preset", "context_base", "--compute_dtype", "int8",
+      "--songs_per_batch", str(EVAL_SONGS_PER_BATCH), "--steps", "100",
+      "--sampler", "sde-dpm++", "--guidance_interval", "0.1,0.8",
+      "--output_dir", os.path.join(EVAL_DIR, "int8")]))
+  launches = launch_counts()
+  agg, results = out["aggregate"], out["results"]
+  segments = [-(-len(r.mel_pred) // experiment.task_lengths.targets)
+               for r in results]
+  batches = sum(max(segments[i:i + EVAL_SONGS_PER_BATCH])
+                for i in range(0, len(segments), EVAL_SONGS_PER_BATCH))
+  # Kernel #1: the render's segment batches, and the transcriber's encoder
+  # once per transcription (each song's audio and its ground truth).
+  expected = (batches * attention_launches(experiment)
+              + 2 * len(results) * TRANSCRIBER_LAYERS,
+              batches * sum(r["launches_per_segment"] for r in qmm_rows))
+  check(launches == expected, f"evaluation launched {launches}, expected "
+        f"{expected}")
+  need = ["mel_l1", "mel_l2", "mel_frechet", *F1_KEYS] + [
+      f"frechet_audio_distance/{space}" for space in ("mel", "vggish",
+                                                     "trill")]
+  for key in need:
+    check(key in agg and np.isfinite(agg[key]), f"aggregate {key}: "
+          f"{agg.get(key)}")
+  check(agg["num_songs"] == EVAL_SONGS, f"{agg['num_songs']} songs")
+  stage = out["stage_seconds_per_song"]
+  log(f"  int8 context_base, {EVAL_SONGS} songs ({sum(segments)} segments, "
+      f"{batches} segment batches of {EVAL_SONGS_PER_BATCH} songs): " + ", "
+      .join(f"{k} {agg[k]:.4g}" for k in need) + f"; launches {launches} = "
+      f"expected ({batches} x {attention_launches(experiment)} + "
+      f"{2 * len(results)} transcriptions x {TRANSCRIBER_LAYERS}, {batches} "
+      f"x {expected[1] // batches})")
+  log(f"  [{card}] seconds per song by stage: " + ", ".join(
+      f"{k} {v:.3f}" for k, v in stage.items()) + f"; {wall:.2f} s in all "
+      f"(the model's build and quantization, the songs' data, the scorers' "
+      f"loading included)")
+  # Shards: gt_encoded (the ground-truth mel, vocoded and scored) in 2
+  # shards and unsharded; context_tiny is built only for its codec.
+  shard_args = scorers + ["--preset", "context_tiny", "--prediction_source",
+                          "gt_encoded"]
+  zero_counts()
+  whole = evaluate.main(shard_args)
+  dirs = [os.path.join(EVAL_DIR, f"shard{i}") for i in range(2)]
+  for i, d in enumerate(dirs):
+    evaluate.main(shard_args + ["--num_shards", "2", "--shard", str(i),
+                                "--output_dir", d])
+  shard_launches = launch_counts()
+  merged = merge_eval.main(["--shards", *dirs, "--bootstrap", "0",
+                            "--output", os.path.join(EVAL_DIR,
+                                                     "merged.json")])
+  want = json.loads(json.dumps({r.song_id: r.metrics
+                                for r in whole["results"]}))
+  check(merged["per_song"] == want, "merged shards differ from the "
+        "unsharded gt_encoded run")
+  check(merged["aggregate"]["num_songs"] == EVAL_SONGS, "merged songs")
+  expected_shards = (2 * 2 * EVAL_SONGS * TRANSCRIBER_LAYERS, 0)
+  check(shard_launches == expected_shards, f"gt_encoded runs launched "
+        f"{shard_launches}, expected {expected_shards}")
+  m = merged["aggregate"]
+  log(f"  gt_encoded, 2 shards merged by cli/merge_eval.py: per-song metrics "
+      f"equal to the unsharded run's ({len(want)} songs); merged "
+      f"frechet_audio_distance mel {m['frechet_audio_distance/mel']:.4g}, "
+      f"vggish {m['frechet_audio_distance/vggish']:.4g}, trill "
+      f"{m['frechet_audio_distance/trill']:.4g}, flat onset F1 model "
+      f"{m[F1_KEYS[0]]:.4g}, GT {m[F1_KEYS[1]]:.4g}; launches "
+      f"{shard_launches}")
+  return dict(launches=launches, shard_launches=shard_launches,
+              aggregate={k: agg[k] for k in need}, wall_s=wall,
+              stage_seconds_per_song=stage, segment_batches=batches)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -3015,6 +3326,7 @@ def main() -> int:
   # 4 nvcc processes at once: the three kernels, and phase 19's fault; and
   # phase 27's records, written in the background.
   records = start_dataset_records()
+  transcriber_data = start_transcriber_data(args.seed)
   fault_build = start_fault_build(os.path.join("out", "chip_smoke_fault"))
   _build.build("flash_fwd", "qmm", "flash_bwd")
   attention._library("flash_fwd")
@@ -3208,12 +3520,24 @@ def main() -> int:
       f"full-song render in int8, the vocoders on dataset audio, the host's "
       f"rates ({time.perf_counter() - t0:.2f} s)")
 
+  t0 = time.perf_counter()
+  mt3_summary = mt3_phase(card, args.seed, gen, capture)
+  transcriber_bwd_rows = bwd_kernel_phase(gen, TRANSCRIBER_BATCH,
+                                          TRANSCRIBER_SHAPES)
+  transcriber = transcriber_phase(card, args.seed, transcriber_data)
+  evaluation = evaluation_phase(card, args.seed, qmm_rows)
+  torch.cuda.empty_cache()
+  log(f"phase 28 main path, evaluation: MT3's captured greedy and beam "
+      f"decodes, the transcriber trained with cli/train_transcriber.py, "
+      f"cli/evaluate.py in int8 with every metric, 2 shards merged by "
+      f"cli/merge_eval.py ({time.perf_counter() - t0:.2f} s)")
+
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
   # The context model's int8 path, a segment (phase 7).
   qmm_ms_segment = sum(r["ms"] * r["launches_per_segment"] for r in qmm_rows)
-  rows = rows + family_rows
-  bwd_rows = bwd_rows + family_bwd_rows
+  rows = rows + family_rows + mt3_summary["rows"]
+  bwd_rows = bwd_rows + family_bwd_rows + transcriber_bwd_rows
   qmm_rows = qmm_rows + ar_qmm_rows
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
 
@@ -3233,7 +3557,10 @@ def main() -> int:
                    + ar_summary["launches"][0]
                    + sum(v["launches"][0] for v in family_train.values())
                    + data["training"]["launches"][0]
-                   + data["full_song"]["launches"][0]),
+                   + data["full_song"]["launches"][0]
+                   + mt3_summary["launches"] + transcriber["launches"][0]
+                   + evaluation["launches"][0]
+                   + evaluation["shard_launches"][0]),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
                            "training": train_launches[0],
@@ -3250,7 +3577,13 @@ def main() -> int:
                            "dataset_training_mega":
                                data["training"]["launches"][0],
                            "dataset_full_song_int8":
-                               data["full_song"]["launches"][0]},
+                               data["full_song"]["launches"][0],
+                           "mt3_decode": mt3_summary["launches"],
+                           "transcriber_training":
+                               transcriber["launches"][0],
+                           "evaluate_int8": evaluation["launches"][0],
+                           "evaluate_gt_encoded_shards":
+                               evaluation["shard_launches"][0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -3267,13 +3600,15 @@ def main() -> int:
       "launches": (int8_launches[1] + stream_launches[1]
                    + notes_summary["launches"][1]
                    + ar_summary["launches"][1]
-                   + data["full_song"]["launches"][1]),
+                   + data["full_song"]["launches"][1]
+                   + evaluation["launches"][1]),
       "launches_by_path": {"int8": int8_launches[1],
                            "int8_streamed": stream_launches[1],
                            "notes_only_int8": notes_summary["launches"][1],
                            "autoregressive_int8": ar_summary["launches"][1],
                            "dataset_full_song_int8":
-                               data["full_song"]["launches"][1]},
+                               data["full_song"]["launches"][1],
+                           "evaluate_int8": evaluation["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
       "ms": total("ms", qmm_rows),
       "plain_ms": total("plain_ms", qmm_rows),
@@ -3291,7 +3626,8 @@ def main() -> int:
       "launches": (train_launches[1] + bf16_launches[1]
                    + bf16_large_launches[1] + cli_train["launches"][1]
                    + sum(v["launches"][1] for v in family_train.values())
-                   + data["training"]["launches"][1]),
+                   + data["training"]["launches"][1]
+                   + transcriber["launches"][1]),
       "launches_by_path": {"training": train_launches[1],
                            "training_bf16_remat": bf16_launches[1],
                            "training_bf16_remat_batch_32":
@@ -3300,7 +3636,9 @@ def main() -> int:
                            **{f"training_{k}": v["launches"][1]
                               for k, v in family_train.items()},
                            "dataset_training_mega":
-                               data["training"]["launches"][1]},
+                               data["training"]["launches"][1],
+                           "transcriber_training":
+                               transcriber["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
       "ms": total("ms", bwd_rows),
       "plain_ms": total("plain_ms", bwd_rows),
@@ -3334,6 +3672,9 @@ def main() -> int:
                                     autoregressive=ar_summary,
                                     training=family_train)))
   log("datasets " + json.dumps(data))
+  log("evaluation " + json.dumps(dict(
+      mt3={k: v for k, v in mt3_summary.items() if k != "rows"},
+      transcriber=transcriber, evaluate=evaluation)))
   print(json.dumps(kernels))
   print(card)
   print(json.dumps({"ok": True, "device": {

@@ -114,7 +114,7 @@ class AutoregressiveModel:
         self._slots[key] = gen
     else:
       # The step graph reads the generation's buffers: refill them.
-      graphs_lib.copy_tree_(_buffers(gen.cache), _buffers(cache))
+      graphs_lib.copy_tree_(gen.cache.buffers(), cache.buffers())
       if draws is not None:
         gen.draws.copy_(draws)
       gen.frame.zero_()
@@ -152,7 +152,3 @@ class _Generation:
   draws: Optional[torch.Tensor]
   index: torch.Tensor
 
-
-def _buffers(cache: network.DecoderCache) -> tuple:
-  return (cache.cross_kv, cache.cross_bias,
-          [(kv.key, kv.value) for kv in cache.self_kv])

@@ -94,10 +94,14 @@ class EncoderLayer(nn.Module):
     network._init_children(self, generator)
 
   def forward(self, inputs: torch.Tensor,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """kv_mask: optional bool [b, l] key mask (None: every position is
+    attended, the autoregressive encoder's all-ones mask; MT3's encoder
+    masks its padded frames)."""
     rate = self.cfg.dropout_rate
     x = self.pre_attention_norm(inputs)
-    x = self.attention(x, x, generator=generator)
+    x = self.attention(x, x, kv_mask=kv_mask, generator=generator)
     x = _dropout(x, rate, generator) + inputs
     y = self.mlp(self.pre_mlp_norm(x), generator)
     return _dropout(y, rate, generator) + x
@@ -113,6 +117,12 @@ class DecoderCache:
                cross_bias: torch.Tensor):
     self.self_kv, self.cross_kv, self.cross_bias = (self_kv, cross_kv,
                                                     cross_bias)
+
+  def buffers(self) -> tuple:
+    """Every tensor a decode step reads or writes, for
+    `graphs.copy_tree_` (a captured step's static cache refilled)."""
+    return (self.cross_kv, self.cross_bias,
+            [(kv.key, kv.value) for kv in self.self_kv])
 
 
 class DecoderLayer(nn.Module):

@@ -21,14 +21,20 @@ repo's. The `.npz` holds:
   leaves are `params/params/conv_in/kernel` and so on);
 * `config_json`: the checkpoint's `config.json` sidecar as text (an
   ExperimentConfig for a model of any family, `{"arch": ..., "hidden":
-  ...}` for a vocoder), or "" if it has none; for a T5X directory, which
-  carries gin and no config.json, the ExperimentConfig of `--preset`;
+  ...}` for a vocoder, `{"kind": "mt3_transcriber", "arch": ..., "vocab":
+  ..., "max_tokens": ...}` for a transcriber of cli/train_transcriber.py),
+  or "" if it has none; for a T5X directory, which carries gin and no
+  config.json, the ExperimentConfig of `--preset` (none for MT3's
+  published checkpoint, which `infer/mt3.py load_mt3_checkpoint` reads);
 * `step`: the step of its METADATA (of a T5X directory: N of its
   `checkpoint_<N>` name), -1 if it has none.
 
 The port reads it with `music_spectrogram_diffusion_tpu_torch.convert
-.read_export`. This tool is the only place JAX is imported on the way to
-the port.
+.read_export`; a transcriber's export with `infer/mt3.py
+load_trained_transcriber`, so that a transcriber trained by the JAX
+package scores on the card (`cli/evaluate.py --transcriber_checkpoint
+<export>`). This tool is the only place JAX is imported on the way to the
+port.
 """
 
 from __future__ import annotations
@@ -107,8 +113,10 @@ def main(argv=None) -> None:
   args = p.parse_args(argv)
   arrays = export(args.checkpoint, args.output, args.preset)
   n_params = sum(v.size for k, v in arrays.items() if k.startswith("params/"))
-  print(f"wrote {args.output}: {len(arrays) - 2} leaves, {n_params} values, "
-        f"step {int(arrays['step'])}, config {arrays['config_json']}")
+  kind = ("a transcriber (read by infer/mt3.py load_trained_transcriber), "
+          if '"mt3_transcriber"' in str(arrays["config_json"]) else "")
+  print(f"wrote {args.output}: {kind}{len(arrays) - 2} leaves, {n_params} "
+        f"values, step {int(arrays['step'])}, config {arrays['config_json']}")
 
 
 if __name__ == "__main__":
