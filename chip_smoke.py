@@ -163,17 +163,24 @@ Phases, each printed on its own line with its seconds:
               version; greedy and beam (4) decodes of 1024 tokens, captured
               against eager bit for bit, their seconds per segment batch
               eager and captured and the capture's; the teacher-forced
-              logits, card against CPU. Kernel #2 at the transcriber's
-              training shapes (batch 32, 4 heads: 256x256 and 512x256);
+              logits, card against CPU; MT3Transcriber (greedy) on a 3 s
+              clip whose second segment is part padding, card against CPU:
+              the same tokens (or, where one differs, a CPU logit margin
+              under the tolerance there) and the same NoteSequence; the
+              beam transcriber on clips of 10.24, 3 and 36 s: device
+              memory flat across them (one captured step serves every
+              length). Kernel #2 at the transcriber's training shapes
+              (batch 32, 4 heads: 256x256 and 512x256);
               cli/train_transcriber.py --synthetic_examples 64 --steps 20
               --batch 32 (its data generated on the host by a process
-              started in phase 2): finite losses, kernels #1 and #2
-              launched as predicted, s per step. cli/evaluate.py --synthetic
-              --preset context_base --compute_dtype int8 --songs 4
-              --songs_per_batch 2 --bootstrap 0 (each CI resample costs
-              a host sqrtm a space) with the trained vocoder, VGGish and TRILL
-              on random weights written by the phase, and the transcriber
-              just trained: finite mel metrics, mel / VGGish / TRILL FAD and
+              started at the phase's start): finite losses, kernels #1 and
+              #2 launched as predicted, s per step. cli/evaluate.py
+              --synthetic --preset context_base --compute_dtype int8
+              --songs 4 --songs_per_batch 2 through `evaluate.score`,
+              aggregated without CIs (each CI resample costs a host sqrtm
+              a space), with the trained vocoder, VGGish and TRILL on
+              random weights written by the phase, and the transcriber just
+              trained: finite mel metrics, mel / VGGish / TRILL FAD and
               onset F1, kernels #1 and #3 launched as predicted, the seconds
               per song of each stage; then --prediction_source gt_encoded
               unsharded and in 2 shards merged by cli/merge_eval.py: the
@@ -3023,10 +3030,10 @@ def dataset_phase(card: str, seed: int, synth, qmm_rows, records,
 
 # Phase 28: evaluation. MT3 at its published geometry (MT3Config's
 # defaults, random weights) on a 10.24 s clip: 5 segments of 256 frames.
-# The evaluations run with --bootstrap 0: each CI resample takes one host
-# sqrtm per embedding space (0.6 s in TRILL's 512 dims), 200 of them
-# about 2 minutes an aggregate; the CIs are held against JAX's on the CPU
-# (tests/test_torch_evaluation.py).
+# The evaluations are aggregated without CIs (bootstrap 0): each CI
+# resample takes one host sqrtm per embedding space (0.6 s in TRILL's 512
+# dims), 200 of them about 2 minutes an aggregate; the CIs are held
+# against JAX's on the CPU (tests/test_torch_evaluation.py).
 MT3_CLIP_SECONDS = 10.24
 MT3_BEAM = 4
 # Card vs CPU, the teacher-forced logits of one segment and its first
@@ -3036,6 +3043,15 @@ MT3_BEAM = 4
 # tests hold the port to JAX within the same 1e-4.
 MT3_LOGIT_TOLERANCE = 1e-4
 MT3_CHECK_TOKENS = 256
+# MT3Transcriber card vs CPU: a 3 s clip (375 frames: 2 segments, the
+# second 119 frames and 137 of padding), greedy, MT3_CHECK_TOKENS tokens a
+# segment. The beam transcriber's device memory across clip lengths (5, 2
+# and 18 segments: one decode batch, one padded, two), MT3_CHECK_TOKENS
+# tokens; allocated and peak bytes of each call within MT3_MEMORY_SLACK of
+# the first's.
+MT3_TRANSCRIBE_SECONDS = 3.0
+MT3_MEMORY_CLIPS = (10.24, 3.0, 36.0)
+MT3_MEMORY_SLACK = 0.01
 # Kernel #1's new shapes (name, q_len, kv_len, key mask, cached K/V,
 # heads): MT3's encoder self-attention with the frames key mask; the
 # transcriber's training (cli/train_transcriber.py's defaults: emb 256, 4
@@ -3058,7 +3074,8 @@ F1_KEYS = tuple(f"{who} Onset + program precision/recall/F1 (flat) F1"
 
 def start_transcriber_data(seed: int):
   """The transcriber's segment set (--gen_only --data_cache), generated on
-  the host by a process started now and joined in phase 28."""
+  the host by a process (one BLAS thread) started at phase 28's start and
+  joined before the transcriber trains."""
   os.makedirs(os.path.dirname(TRANSCRIBER_DATA), exist_ok=True)
   if os.path.exists(TRANSCRIBER_DATA):
     os.remove(TRANSCRIBER_DATA)
@@ -3068,7 +3085,9 @@ def start_transcriber_data(seed: int):
        "--model_dir", TRANSCRIBER_DIR, "--synthetic_examples",
        str(TRANSCRIBER_SONGS), "--seed", str(seed), "--gen_only",
        "--data_cache", TRANSCRIBER_DATA],
-      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+      env=dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+               MKL_NUM_THREADS="1"))
   atexit.register(proc.kill)
   return proc, time.perf_counter()
 
@@ -3086,7 +3105,6 @@ def mt3_phase(card: str, seed: int, gen, stream) -> dict:
   """MT3 at full geometry: kernel #1 at its encoder's shape against the
   plain version; greedy and beam decodes of 1024 tokens, captured against
   eager bit for bit; the teacher-forced logits, card against CPU."""
-  from music_spectrogram_diffusion_tpu_torch.data import synthetic
   from music_spectrogram_diffusion_tpu_torch.infer import mt3
   rows = kernel_phase(gen, stream, MT3_SHAPES)
   vocab_size = vocabularies.num_embeddings(vocabularies.vocabulary_from_codec(
@@ -3095,12 +3113,7 @@ def mt3_phase(card: str, seed: int, gen, stream) -> dict:
   cfg = mt3.MT3Config(vocab_size=vocab_size)
   module = mt3.build_module(cfg, seed=seed, device="cuda")
   n_params = sum(p.numel() for p in module.parameters())
-  rng = np.random.RandomState(seed)
-  ns = synthetic.random_note_sequence(rng, duration=MT3_CLIP_SECONDS)
-  audio = synthetic.render_note_sequence(
-      ns, mt3.SAMPLE_RATE, duration=MT3_CLIP_SECONDS)[
-          :int(round(MT3_CLIP_SECONDS * mt3.SAMPLE_RATE))]
-  spec = mt3.spectrogram(audio)
+  spec = mt3.spectrogram(mt3_clip(seed, MT3_CLIP_SECONDS))
   n_seg = len(spec) // mt3.INPUT_FRAMES
   check(n_seg * mt3.INPUT_FRAMES == len(spec) == 1280,
         f"the clip has {len(spec)} frames")
@@ -3139,8 +3152,8 @@ def mt3_phase(card: str, seed: int, gen, stream) -> dict:
         f"EOS {lengths}; [{card}] seconds per segment batch: eager "
         f"{eager_s:.3f}, captured {replay_s:.3f} ({eager_s / replay_s:.1f}x; "
         f"the capturing call {first_s:.3f}, capture {capture_s:.3f}); "
-        f"flash_attention launches {counts[0]} (the encoder's {2} calls x "
-        f"{cfg.num_encoder_layers} layers)")
+        f"flash_attention launches {counts[0]} ({2} decodes x "
+        f"{cfg.num_encoder_layers} encoder layers)")
     out[kind] = dict(eager_s=eager_s, captured_s=replay_s,
                      capturing_call_s=first_s, capture_s=capture_s,
                      tokens_to_eos=lengths)
@@ -3160,15 +3173,169 @@ def mt3_phase(card: str, seed: int, gen, stream) -> dict:
   log(f"  MT3 teacher-forced logits (1 segment, {MT3_CHECK_TOKENS} greedy "
       f"tokens), card vs CPU: max |diff| {err:.3g} = {err / scale:.3g} of "
       f"max |logit| {scale:.3g} (tol {MT3_LOGIT_TOLERANCE})")
+  transcribed = transcriber_card_vs_cpu(seed, module, cpu, cfg)
+  memory = transcriber_memory(card, seed, module, cfg)
+  launches += transcribed["launches"] + memory["launches"]
   del module, cpu
   torch.cuda.empty_cache()
   return dict(rows=rows, launches=launches, decode=out,
-              logits_rel_err=err / scale, params=n_params)
+              logits_rel_err=err / scale, params=n_params,
+              transcription=transcribed, memory=memory)
+
+
+def mt3_clip(seed: int, seconds: float) -> np.ndarray:
+  """A synthetic song's audio at MT3's rate, `seconds` long."""
+  from music_spectrogram_diffusion_tpu_torch.data import synthetic
+  from music_spectrogram_diffusion_tpu_torch.infer import mt3
+  ns = synthetic.random_note_sequence(np.random.RandomState(seed),
+                                      duration=seconds)
+  return synthetic.render_note_sequence(ns, mt3.SAMPLE_RATE,
+                                        duration=seconds)[
+                                            :int(round(seconds
+                                                       * mt3.SAMPLE_RATE))]
+
+
+def mt3_transcriber(module, cfg, **kwargs):
+  """An MT3Transcriber on `module`'s device with its weights."""
+  from music_spectrogram_diffusion_tpu_torch.infer import mt3
+  return mt3.MT3Transcriber(state_dict=module.state_dict(), config=cfg,
+                            max_tokens=MT3_CHECK_TOKENS,
+                            device=module.device, **kwargs)
+
+
+def note_tuples(ns) -> list:
+  return [(n.pitch, n.velocity, n.start_time, n.end_time, n.program,
+           n.is_drum) for n in ns.notes]
+
+
+def transcriber_card_vs_cpu(seed: int, module, cpu, cfg) -> dict:
+  """MT3Transcriber (greedy) on one clip on the card and on the CPU with
+  the same weights: the frames mask of a part-padded segment, the decode
+  batch, the tokens and their notes at each segment's start time. The
+  tokens must be equal, or, where a segment's first differ, the CPU's
+  teacher-forced logits of the two tokens there must lie within the
+  logit tolerance; equal tokens must give equal NoteSequences."""
+  from music_spectrogram_diffusion_tpu_torch.infer import mt3
+  audio = mt3_clip(seed + 1, MT3_TRANSCRIBE_SECONDS)
+  seen, notes = {}, {}
+  for name, m in (("card", module), ("cpu", cpu)):
+    t = mt3_transcriber(m, cfg, decode_mode="greedy")
+
+    def recorded(segs, mask, decode=t.decode, name=name):
+      seen[name] = (segs, mask, decode(segs, mask))
+      return seen[name][2]
+    t.decode = recorded
+    zero_counts()
+    notes[name] = t(audio)
+    if name == "card":
+      launches = launch_counts()
+      check(launches == (cfg.num_encoder_layers, 0),
+            f"MT3Transcriber launched {launches}, expected one decode "
+            f"batch's encoder ({cfg.num_encoder_layers}, 0)")
+    del t
+  segs, mask, cpu_tokens = seen["cpu"]
+  card_tokens = seen["card"][2]
+  frames = int(mask.sum())
+  check(segs.shape[0] == 2 and 0 < frames - mt3.INPUT_FRAMES
+        < mt3.INPUT_FRAMES, f"the clip's segments: {segs.shape}, {frames} "
+        "frames")
+  margins = []
+  for row in range(len(cpu_tokens)):
+    diff = np.nonzero(card_tokens[row] != cpu_tokens[row])[0]
+    if not len(diff):
+      continue
+    step = int(diff[0])
+    targets = torch.as_tensor(cpu_tokens[row:row + 1])
+    with torch.inference_mode():
+      logits = cpu(torch.as_tensor(segs[row:row + 1]),
+                   torch.as_tensor(mask[row:row + 1]),
+                   F.pad(targets, (1, 0))[:, :-1],
+                   torch.ones_like(targets))[0]
+    pair = logits[step, [int(cpu_tokens[row, step]),
+                         int(card_tokens[row, step])]]
+    margin = abs(float(pair[0] - pair[1]))
+    tol = MT3_LOGIT_TOLERANCE * float(logits.abs().max())
+    check(margin < tol, f"MT3Transcriber segment {row}: card token "
+          f"{card_tokens[row, step]} and CPU token {cpu_tokens[row, step]} "
+          f"at step {step}, CPU logit margin {margin} >= {tol}")
+    margins.append((row, step, margin))
+  equal = not margins
+  if equal:
+    check(note_tuples(notes["card"]) == note_tuples(notes["cpu"])
+          and notes["card"].total_time == notes["cpu"].total_time,
+          "MT3Transcriber: equal tokens, but the card's NoteSequence "
+          "differs from the CPU's")
+  lengths = [int(np.argmax(r == 1)) + 1 if (r == 1).any() else len(r)
+             for r in card_tokens]
+  log(f"  MT3Transcriber (greedy, {MT3_CHECK_TOKENS} tokens) on a "
+      f"{MT3_TRANSCRIBE_SECONDS} s clip ({frames} frames: 2 segments, the "
+      f"second {frames - mt3.INPUT_FRAMES} frames and "
+      f"{2 * mt3.INPUT_FRAMES - frames} of padding, decoded as one batch "
+      f"of {mt3.DECODE_BATCH}), card vs CPU: "
+      + ("tokens equal, NoteSequences equal" if equal else
+         f"tokens differ at (segment, step, CPU logit margin) {margins}, "
+         f"each margin under the tolerance")
+      + f"; tokens to EOS {lengths}; {len(notes['card'].notes)} notes on "
+      f"the card, {len(notes['cpu'].notes)} on the CPU")
+  return dict(launches=cfg.num_encoder_layers, tokens_equal=equal,
+              notes=len(notes["card"].notes), margins=margins)
+
+
+def transcriber_memory(card: str, seed: int, module, cfg) -> dict:
+  """The beam transcriber on clips of different lengths: the first call
+  captures the decode step, and every later one, whatever its length,
+  ends with the memory allocated that the first left, and peaks within
+  MT3_MEMORY_SLACK of the second's (its slot refilled, where the first
+  filled it)."""
+  from music_spectrogram_diffusion_tpu_torch.infer import mt3
+  t = mt3_transcriber(module, cfg, decode_mode="beam", beam_size=MT3_BEAM)
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  calls, batches = [], 0
+  zero_counts()
+  for i, seconds in enumerate(MT3_MEMORY_CLIPS):
+    audio = mt3_clip(seed + 2 + i, seconds)
+    segments = -(-len(mt3.spectrogram(audio)) // mt3.INPUT_FRAMES)
+    batches += -(-segments // mt3.DECODE_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    ns, wall = synced_s(lambda: t(audio))
+    calls.append(dict(
+        seconds=seconds, segments=segments, wall_s=wall,
+        notes=len(ns.notes),
+        allocated_gib=(torch.cuda.memory_allocated() - base) / 2**30,
+        peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30))
+  launches = launch_counts()
+  expected = (batches * cfg.num_encoder_layers, 0)
+  check(launches == expected, f"the beam transcriber launched {launches}, "
+        f"expected {expected}")
+  check(len(t.module._slots) == 1 and len(t.module.step_graphs.graphs) == 1,
+        f"the beam transcriber keeps {len(t.module._slots)} slots and "
+        f"{len(t.module.step_graphs.graphs)} graphs, expected 1 each")
+  first, second = calls[0], calls[1]
+  for c in calls[1:]:
+    check(abs(c["allocated_gib"] - first["allocated_gib"])
+          <= MT3_MEMORY_SLACK * first["allocated_gib"]
+          and c["peak_gib"] <= (1 + MT3_MEMORY_SLACK) * second["peak_gib"],
+          f"the beam transcriber's memory grows with the clip: {calls}")
+  log(f"  MT3Transcriber (beam {MT3_BEAM}, {MT3_CHECK_TOKENS} tokens, "
+      f"decode batches of {mt3.DECODE_BATCH} segments) on clips of "
+      + ", ".join(f"{c['seconds']} s ({c['segments']} segments)"
+                  for c in calls)
+      + f": device memory above the phase's, GiB allocated after each call "
+      + ", ".join(f"{c['allocated_gib']:.3f}" for c in calls)
+      + ", peak " + ", ".join(f"{c['peak_gib']:.3f}" for c in calls)
+      + f" (flat within {MT3_MEMORY_SLACK:.0%}; one slot, one graph); "
+      f"[{card}] seconds " + ", ".join(f"{c['wall_s']:.3f}" for c in calls)
+      + f"; notes " + ", ".join(str(c["notes"]) for c in calls)
+      + f"; flash_attention launches {launches[0]} ({batches} decode "
+      f"batches x {cfg.num_encoder_layers} encoder layers)")
+  del t
+  return dict(launches=launches[0], calls=calls)
 
 
 def transcriber_phase(card: str, seed: int, data) -> dict:
   """cli/train_transcriber.py at its default geometry on the card, from
-  the segment set phase 2's process generated."""
+  the segment set the process started at phase 28's start generated."""
   from music_spectrogram_diffusion_tpu_torch.cli import train_transcriber
   proc, started = data
   stdout, stderr = proc.communicate()
@@ -3212,11 +3379,13 @@ def transcriber_phase(card: str, seed: int, data) -> dict:
 
 def evaluation_phase(card: str, seed: int, qmm_rows) -> dict:
   """cli/evaluate.py on the card: int8 context_base renders and is scored
-  by every metric; then gt_encoded in 2 shards merged by
-  cli/merge_eval.py against the unsharded run."""
+  by every metric (`evaluate.score`, aggregated without CIs); then
+  gt_encoded in 2 shards (`evaluate.main`) merged by cli/merge_eval.py
+  against the unsharded run."""
   from music_spectrogram_diffusion_tpu_torch.cli import evaluate
   from music_spectrogram_diffusion_tpu_torch.cli import merge_eval
-  from music_spectrogram_diffusion_tpu_torch.infer import trill, vggish
+  from music_spectrogram_diffusion_tpu_torch.infer import (evaluation, trill,
+                                                           vggish)
   shutil.rmtree(EVAL_DIR, ignore_errors=True)
   os.makedirs(EVAL_DIR)
   weights = {}
@@ -3227,16 +3396,18 @@ def evaluation_phase(card: str, seed: int, qmm_rows) -> dict:
              "--vggish_weights", weights["vggish"], "--trill_weights",
              weights["trill"], "--transcriber_checkpoint", TRANSCRIBER_DIR,
              "--seed", str(seed), "--device", "cuda", "--synthetic",
-             "--songs", str(EVAL_SONGS), "--bootstrap", "0"]
+             "--songs", str(EVAL_SONGS)]
   experiment = serving_experiment()
   zero_counts()
-  out, wall = synced_s(lambda: evaluate.main(scorers + [
-      "--preset", "context_base", "--compute_dtype", "int8",
-      "--songs_per_batch", str(EVAL_SONGS_PER_BATCH), "--steps", "100",
-      "--sampler", "sde-dpm++", "--guidance_interval", "0.1,0.8",
-      "--output_dir", os.path.join(EVAL_DIR, "int8")]))
+  out, wall = synced_s(lambda: evaluate.score(evaluate.parse_args(
+      scorers + ["--preset", "context_base", "--compute_dtype", "int8",
+                 "--songs_per_batch", str(EVAL_SONGS_PER_BATCH), "--steps",
+                 "100", "--sampler", "sde-dpm++", "--guidance_interval",
+                 "0.1,0.8", "--output_dir", os.path.join(EVAL_DIR,
+                                                         "int8")])))
   launches = launch_counts()
-  agg, results = out["aggregate"], out["results"]
+  results = out["results"]
+  agg = evaluation.aggregate(results, bootstrap=0)
   segments = [-(-len(r.mel_pred) // experiment.task_lengths.targets)
                for r in results]
   batches = sum(max(segments[i:i + EVAL_SONGS_PER_BATCH])
@@ -3271,7 +3442,7 @@ def evaluation_phase(card: str, seed: int, qmm_rows) -> dict:
   shard_args = scorers + ["--preset", "context_tiny", "--prediction_source",
                           "gt_encoded"]
   zero_counts()
-  whole = evaluate.main(shard_args)
+  whole = evaluate.score(evaluate.parse_args(shard_args))
   dirs = [os.path.join(EVAL_DIR, f"shard{i}") for i in range(2)]
   for i, d in enumerate(dirs):
     evaluate.main(shard_args + ["--num_shards", "2", "--shard", str(i),
@@ -3326,7 +3497,6 @@ def main() -> int:
   # 4 nvcc processes at once: the three kernels, and phase 19's fault; and
   # phase 27's records, written in the background.
   records = start_dataset_records()
-  transcriber_data = start_transcriber_data(args.seed)
   fault_build = start_fault_build(os.path.join("out", "chip_smoke_fault"))
   _build.build("flash_fwd", "qmm", "flash_bwd")
   attention._library("flash_fwd")
@@ -3521,6 +3691,7 @@ def main() -> int:
       f"rates ({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
+  transcriber_data = start_transcriber_data(args.seed)
   mt3_summary = mt3_phase(card, args.seed, gen, capture)
   transcriber_bwd_rows = bwd_kernel_phase(gen, TRANSCRIBER_BATCH,
                                           TRANSCRIBER_SHAPES)

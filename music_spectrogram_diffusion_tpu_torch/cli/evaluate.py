@@ -28,8 +28,9 @@ seed 0, of `--preset`'s model, in `--compute_dtype` (the JAX CLI applies
 that flag to checkpoints only).
 
 Beside the JAX CLI's report it prints the seconds per song of each stage
-(render, vocoder, each embedder, transcription); `--bootstrap` sets the
-CIs' resamples, which the JAX CLI fixes at 200.
+(render, vocoder, each embedder, transcription). `score` is the run
+without the aggregate and the files, for callers that aggregate the
+per-song results themselves (`evaluation.aggregate`).
 """
 
 from __future__ import annotations
@@ -90,11 +91,6 @@ def parse_args(argv: Optional[Sequence[str]] = None
                  help="serving dtype: bf16 cast or weight-only int8 "
                       "(ops/quantize.py)")
   p.add_argument("--seed", type=int, default=0)
-  p.add_argument("--bootstrap", type=int, default=200,
-                 help="bootstrap resamples of the CI95s (the JAX CLI's "
-                      "fixed 200; 0: no CIs). Each resample takes one "
-                      "sqrtm per embedding space on the host, 0.6 s in "
-                      "TRILL's 512 dims")
   p.add_argument("--vggish_weights", default=None,
                  help="converted VGGish .npz (tools/convert_vggish.py); "
                       "enables VGGish-space FAD (also honours "
@@ -274,11 +270,31 @@ def register_scorers(args: argparse.Namespace) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-  """Runs the evaluation; returns {"aggregate", "stage_seconds_per_song"}."""
+  """Runs the evaluation, prints the aggregate and writes `--output_dir`'s
+  files; returns `score`'s dict with the "aggregate"."""
+  from music_spectrogram_diffusion_tpu_torch.infer import evaluation
+
+  args = parse_args(argv)
+  out = score(args)
+  agg = evaluation.aggregate(out["results"])
+  print(json.dumps(agg, indent=2))
+  print("stage seconds per song: "
+        + json.dumps(out["stage_seconds_per_song"]))
+  if args.output_dir:
+    evaluation.write_outputs(out["results"], args.output_dir,
+                             sample_rate=out["sample_rate"])
+    print(f"wrote artifacts to {args.output_dir}")
+  return dict(out, aggregate=agg)
+
+
+def score(args: argparse.Namespace) -> Dict[str, Any]:
+  """Renders and scores the songs `args` (`parse_args`') select; returns
+  {"results": [SongEval], "stage_seconds_per_song", "sample_rate"}. The
+  results keep their arrays where `--output_dir` is given; `main` writes
+  them there, `score` writes nothing."""
   from music_spectrogram_diffusion_tpu_torch.infer import (postprocessors,
                                                            transcription)
 
-  args = parse_args(argv)
   model = build_model(args)
   experiment, lengths = model.experiment, model.task_lengths
   task = make_task(args, experiment, model.audio_codec)
@@ -340,16 +356,8 @@ def _evaluate(args: argparse.Namespace, model, songs) -> Dict[str, Any]:
   stage = {"render": (render.seconds
                       - (vocoder_s if render.seconds else 0.0)) / n}
   stage.update({name: t.seconds / n for name, t in timers.items()})
-  agg = evaluation.aggregate(results, bootstrap=args.bootstrap)
-  print(json.dumps(agg, indent=2))
-  print("stage seconds per song: " + json.dumps(stage))
-  if args.output_dir:
-    evaluation.write_outputs(results, args.output_dir,
-                             sample_rate=model.audio_codec.sample_rate,
-                             bootstrap=args.bootstrap)
-    print(f"wrote artifacts to {args.output_dir}")
-  return {"aggregate": agg, "stage_seconds_per_song": stage,
-          "results": results}
+  return {"results": results, "stage_seconds_per_song": stage,
+          "sample_rate": model.audio_codec.sample_rate}
 
 
 if __name__ == "__main__":

@@ -81,7 +81,6 @@ def evaluate_songs(
     keep_arrays: bool = False,
     prediction_source: str = "model",
     always_mask_context: bool = False,
-    graphs: Optional[bool] = None,
 ) -> List[SongEval]:
   """Render + score a set of songs.
 
@@ -97,8 +96,7 @@ def evaluate_songs(
   ablation flag).
 
   `seed` takes the place of JAX's `rng`: the chunk of songs starting at
-  song `start` renders with `chunk_noise(seed, start)`. `graphs` is
-  `render_songs`' option (captured steps on a CUDA device by default).
+  song `start` renders with `chunk_noise(seed, start)`.
   """
   device = synth.model.device
   results: List[SongEval] = []
@@ -111,8 +109,7 @@ def evaluate_songs(
     if prediction_source == "model":
       renders = synth.render_songs(
           token_lists, noise=chunk_noise(seed, start, device),
-          vocode=vocode, always_mask_context=always_mask_context,
-          graphs=graphs)
+          vocode=vocode, always_mask_context=always_mask_context)
     elif prediction_source == "gt_encoded":
       renders = []
       for _, segs in chunk:
@@ -308,14 +305,13 @@ def aggregate(results: Sequence[SongEval],
 
 
 def write_outputs(results: Sequence[SongEval], output_dir: str,
-                  sample_rate: int = 16000, bootstrap: int = 200) -> None:
+                  sample_rate: int = 16000) -> None:
   """Serialize per-song artifacts + aggregated metrics JSON.
 
   Also writes `fad_moments.npz` — per-song sufficient statistics for
   every embedding space — so sharded eval runs (`cli/evaluate.py
   --num_shards`, the Beam worker-sharding analog) can be combined into
   ONE population FAD + CI by `cli/merge_eval.py` without re-rendering.
-  `bootstrap` is `aggregate`'s (JAX's write_outputs takes its default).
   """
   from music_spectrogram_diffusion_tpu_torch.audio import wav_io
   os.makedirs(output_dir, exist_ok=True)
@@ -349,7 +345,7 @@ def write_outputs(results: Sequence[SongEval], output_dir: str,
     np.savez(os.path.join(output_dir, "fad_moments.npz"), **moments)
   with open(os.path.join(output_dir, "metrics.json"), "w") as f:
     json.dump({
-        "aggregate": aggregate(results, bootstrap=bootstrap),
+        "aggregate": aggregate(results),
         "per_song": {r.song_id: r.metrics for r in results},
     }, f, indent=2)
 

@@ -22,7 +22,13 @@ Decoding: JAX runs `max_tokens` steps as one `lax.scan` over the flax
 cache, with no early exit. Here one step reads its token and its index
 from device buffers and writes the next ones there, so that on a CUDA
 device it is captured once as a CUDA graph (`ops/graphs.py`) and replayed
-for every token; `graphs=False` runs the same step eagerly. Greedy takes
+for every token; `graphs=False` runs the same step eagerly. A captured
+decode keeps its static buffers (the KV caches) and its graph for as long
+as the module lives, one set per (kind, batch, frames, max_tokens), so
+`MT3Transcriber` decodes a song's segments in batches of a fixed
+`DECODE_BATCH`, the last one padded: one set serves songs of every length
+(JAX decodes a song's segments as one batch; each segment's tokens are
+the same either way). Greedy takes
 the first maximum (as `jnp.argmax`); beam search (t5x semantics) takes its
 top-k by a stable descending sort, which puts the lower index first among
 equal scores, as `jax.lax.top_k` does, and reorders the self-attention KV
@@ -76,6 +82,10 @@ FRAMES_PER_SECOND = SAMPLE_RATE // HOP_WIDTH  # 125
 
 INPUT_FRAMES = 256  # 2.048 s segments (mt3 gin inputs length)
 MAX_OUTPUT_TOKENS = 1024
+# Segments `MT3Transcriber` decodes at once. At the published geometry a
+# segment's decode buffers take 31 MB a beam (the 1024-long self-attention
+# caches of 8 layers, and the cross K/V).
+DECODE_BATCH = 16
 NEG_INF = -1e7  # the beam pools' empty score (JAX's)
 
 
@@ -457,9 +467,9 @@ def build_module(config: MT3Config, *,
 class MT3Transcriber:
   """audio [n_samples] @16 kHz -> NoteSequence.
 
-  Splits audio into 256-frame segments, decodes event tokens for all of
-  them as one batch on `device` (beam search or greedy), then decodes
-  tokens to notes with the shared state machine (reference
+  Splits audio into 256-frame segments, decodes their event tokens on
+  `device` (beam search or greedy) in batches of `DECODE_BATCH` segments,
+  then decodes tokens to notes with the shared state machine (reference
   transcription_inference.py:157-233 structure).
   """
 
@@ -504,15 +514,24 @@ class MT3Transcriber:
 
   def decode(self, segs: np.ndarray, mask: np.ndarray) -> np.ndarray:
     """Segments [n, 256, 512] and their frame mask -> tokens [n,
-    max_tokens] (numpy)."""
-    spec = torch.as_tensor(segs, device=self.device)
-    mask = torch.as_tensor(mask, device=self.device)
-    if self.decode_mode == "beam":
-      tokens = beam_decode(self.module, spec, mask, self.max_tokens,
-                           beam_size=self.beam_size, alpha=self.alpha)
-    else:
-      tokens = greedy_decode(self.module, spec, mask, self.max_tokens)
-    return tokens.cpu().numpy()
+    max_tokens] (numpy). Decoded `DECODE_BATCH` segments at a time, the
+    last batch padded with segments that have no valid frame, so that
+    every call reuses one captured step and its buffers."""
+    n = len(segs)
+    pad = -n % DECODE_BATCH
+    segs = np.pad(segs, ((0, pad), (0, 0), (0, 0)))
+    mask = np.pad(mask, ((0, pad), (0, 0)))
+    out = []
+    for i in range(0, n + pad, DECODE_BATCH):
+      spec = torch.as_tensor(segs[i:i + DECODE_BATCH], device=self.device)
+      frames = torch.as_tensor(mask[i:i + DECODE_BATCH], device=self.device)
+      if self.decode_mode == "beam":
+        tokens = beam_decode(self.module, spec, frames, self.max_tokens,
+                             beam_size=self.beam_size, alpha=self.alpha)
+      else:
+        tokens = greedy_decode(self.module, spec, frames, self.max_tokens)
+      out.append(tokens.cpu().numpy())
+    return np.concatenate(out)[:n]
 
   def __call__(self, audio: np.ndarray) -> sequences.NoteSequence:
     spec = spectrogram(audio)

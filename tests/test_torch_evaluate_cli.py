@@ -3,6 +3,8 @@ context_tiny (random weights, 2 sampler steps, 2 synthetic songs).
 
 * each prediction source runs and reports finite mel metrics and the mel
   FAD; `gt_encoded` scores the ground truth against itself (0 exactly);
+* `evaluate.score` gives main's per-song results without the aggregate
+  and the files;
 * two shards, merged by cli/merge_eval.py: exactly the JAX package's
   `merge_shard_outputs` of the same shard files, and the same per-song
   metrics as the unsharded run;
@@ -65,6 +67,22 @@ def test_prediction_sources(source, tmp_path):
   with open(tmp_path / "metrics.json") as f:
     assert json.load(f)["aggregate"] == agg
   assert len([n for n in os.listdir(tmp_path) if n.endswith("_pred.npy")]) == 2
+
+
+def test_score_is_main_without_aggregate_or_files(tmp_path):
+  """`evaluate.score`: main's per-song results and stage timings, with no
+  aggregate and no files written."""
+  argv = BASE + ["--prediction_source", "gt_encoded", "--output_dir",
+                 str(tmp_path / "main")]
+  whole = _run(argv[len(BASE):])
+  scored = evaluate.score(evaluate.parse_args(
+      argv[:-1] + [str(tmp_path / "score")]))
+  assert "aggregate" not in scored
+  assert not (tmp_path / "score").exists()
+  assert ([(r.song_id, r.metrics) for r in scored["results"]]
+          == [(r.song_id, r.metrics) for r in whole["results"]])
+  assert set(scored["stage_seconds_per_song"]) == set(
+      whole["stage_seconds_per_song"])
 
 
 def test_shards_merge_as_jax(tmp_path):

@@ -8,9 +8,13 @@ teacher-forced logits within 1e-4 of JAX's relative to the largest
 (JAX masks queries and keys, the port's kernel keys only, so the padded
 frames' rows differ, and the decoder's cross-attention masks them out);
 greedy and beam tokens equal JAX's, and where one differs the test shows
-JAX's margin at that step below the logit tolerance (greedy: the top-2
-logits; beam: the two sequences' total log-probabilities); the
-transcriber's NoteSequence equal to JAX's.
+JAX's margin at the first differing step below the logit tolerance
+(greedy: the top-2 logits; beam: the two competing candidates, whose
+scores extend one shared prefix and so differ by their two logits); beam
+tokens equal JAX's exactly where a hypothesis ends (EOS made a close
+second), so that the finished pool and the brevity penalty decide; the
+transcriber's NoteSequence equal to JAX's; the transcriber's fixed decode
+batches give the tokens of one decode of every segment.
 """
 
 import dataclasses
@@ -37,6 +41,7 @@ GEOMETRY = dict(emb_dim=64, num_heads=2, num_encoder_layers=2,
 MAX_TOKENS = 16
 BEAM = 2
 LOGIT_TOLERANCE = 1e-4  # relative to the largest |logit|
+EOS_COLUMN_SCALE = 0.98
 
 
 def _vocab_size():
@@ -76,15 +81,26 @@ def ref():
   out["greedy"] = np.asarray(jax.jit(functools.partial(
       jax_mt3.greedy_decode, module, max_tokens=MAX_TOKENS))(
           params, spec, mask))
-  out["beam"] = np.asarray(jax.jit(functools.partial(
-      jax_mt3.beam_decode, module, max_tokens=MAX_TOKENS, beam_size=BEAM))(
-          params, spec, mask))
+  beam = jax.jit(functools.partial(
+      jax_mt3.beam_decode, module, max_tokens=MAX_TOKENS, beam_size=BEAM))
+  out["beam"] = np.asarray(beam(params, spec, mask))
+  # The same weights with EOS made a close second to the token greedy
+  # picks most (its logits column 0.98 of that token's): a hypothesis
+  # ends inside MAX_TOKENS, so the finished pool, its merge and the
+  # brevity penalty decide the result.
+  values, counts = np.unique(out["greedy"], return_counts=True)
+  eos_params = jax.tree_util.tree_map(np.copy, params)
+  kernel = eos_params["decoder"]["logits_dense"]["kernel"]
+  kernel[:, 1] = EOS_COLUMN_SCALE * kernel[:, values[np.argmax(counts)]]
+  out["eos_params"] = eos_params
+  out["beam_eos"] = np.asarray(beam(eos_params, spec, mask))
   return out
 
 
-def _port_module(ref):
+def _port_module(ref, params_key="params"):
   config = mt3.MT3Config(vocab_size=ref["vocab"], **GEOMETRY)
-  state = convert.flax_to_state_dict(ref["params"], mt3.MT3Transformer(config))
+  state = convert.flax_to_state_dict(ref[params_key],
+                                     mt3.MT3Transformer(config))
   return mt3.build_module(config, state_dict=state, device="cpu")
 
 
@@ -120,6 +136,16 @@ def test_teacher_forced_logits_match_jax(ref):
                              atol=1e-4 * np.abs(ref["encoded"]).max())
 
 
+def _first_differences(got, want):
+  """(row, step) of each row's first token where `got` differs."""
+  out = []
+  for row in range(len(want)):
+    diff = np.nonzero(got[row] != want[row])[0]
+    if len(diff):
+      out.append((row, int(diff[0])))
+  return out
+
+
 def test_greedy_tokens_equal_jax(ref):
   got = mt3.greedy_decode(_port_module(ref), torch.as_tensor(ref["spec"]),
                           torch.as_tensor(ref["mask"]), MAX_TOKENS).numpy()
@@ -128,23 +154,9 @@ def test_greedy_tokens_equal_jax(ref):
   if not np.array_equal(got, want):
     logits = _jax_stepwise_logits(ref, want)
     tol = LOGIT_TOLERANCE * np.abs(logits).max()
-    for row in range(len(want)):
-      diff = np.nonzero(got[row] != want[row])[0]
-      if len(diff):
-        top2 = np.sort(logits[row, diff[0]])[-2:]
-        assert top2[1] - top2[0] < tol, (row, diff[0], top2)
-
-
-def _sequence_logprob(ref, tokens):
-  """JAX's total log-probability of each row of `tokens` up to and with
-  its first EOS."""
-  logp = jax.nn.log_softmax(_jax_stepwise_logits(ref, tokens).astype(
-      np.float64), axis=-1)
-  out = []
-  for row, seq in zip(logp, tokens):
-    end = int(np.argmax(seq == 1)) + 1 if (seq == 1).any() else len(seq)
-    out.append(float(sum(row[i, seq[i]] for i in range(end))))
-  return np.asarray(out)
+    for row, step in _first_differences(got, want):
+      top2 = np.sort(logits[row, step])[-2:]
+      assert top2[1] - top2[0] < tol, (row, step, top2)
 
 
 def test_beam_tokens_equal_jax(ref):
@@ -158,9 +170,26 @@ def test_beam_tokens_equal_jax(ref):
     if (row == 1).any():
       assert not row[int(np.argmax(row == 1)) + 1:].any()
   if not np.array_equal(got, want):
-    scale = np.abs(_jax_stepwise_logits(ref, want)).max()
-    gap = np.abs(_sequence_logprob(ref, got) - _sequence_logprob(ref, want))
-    assert np.all(gap < LOGIT_TOLERANCE * scale * MAX_TOKENS), gap
+    # At a row's first differing step both tokens extend the same prefix,
+    # so JAX's scores of the two candidates differ by exactly the
+    # difference of their logits there (log_softmax shares the
+    # normalizer): that margin must be below the logit tolerance.
+    logits = _jax_stepwise_logits(ref, want)
+    tol = LOGIT_TOLERANCE * np.abs(logits).max()
+    for row, step in _first_differences(got, want):
+      pair = logits[row, step, [want[row, step], got[row, step]]]
+      assert abs(pair[0] - pair[1]) < tol, (row, step, pair)
+
+
+def test_beam_finished_pool_equals_jax(ref):
+  """Beam search where a hypothesis ends (EOS a close second, see `ref`):
+  the tokens equal JAX's exactly, EOS included."""
+  assert (ref["beam_eos"] == 1).any()
+  got = mt3.beam_decode(_port_module(ref, "eos_params"),
+                        torch.as_tensor(ref["spec"]),
+                        torch.as_tensor(ref["mask"]), MAX_TOKENS,
+                        beam_size=BEAM).numpy()
+  np.testing.assert_array_equal(got, ref["beam_eos"])
 
 
 def test_stable_top_k_puts_lower_index_first():
@@ -202,6 +231,26 @@ def test_transcriber_equals_jax(ref, decode_mode):
   got = port(audio)
   assert _notes(got) == _notes(want)
   assert got.total_time == want.total_time
+
+
+def test_transcriber_decodes_in_fixed_batches(ref):
+  """More segments than DECODE_BATCH: two batches, the second padded with
+  frameless segments; each segment's tokens are those of one greedy decode
+  of all of them."""
+  n = mt3.DECODE_BATCH + 3
+  rng = np.random.RandomState(6)
+  segs = (rng.randn(n, 256, mt3.NUM_MEL_BINS) * 2.0).astype(np.float32)
+  mask = np.ones((n, 256), bool)
+  mask[-1, 100:] = False
+  port = mt3.MT3Transcriber(
+      ref["params"], max_tokens=MAX_TOKENS, decode_mode="greedy",
+      config=mt3.MT3Config(vocab_size=ref["vocab"], **GEOMETRY),
+      device="cpu")
+  got = port.decode(segs, mask)
+  want = mt3.greedy_decode(port.module, torch.as_tensor(segs),
+                           torch.as_tensor(mask), MAX_TOKENS).numpy()
+  assert got.shape == (n, MAX_TOKENS)
+  np.testing.assert_array_equal(got, want)
 
 
 def test_transcriber_decodes_song_tokens_as_jax(ref):
