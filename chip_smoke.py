@@ -59,7 +59,8 @@ Phases, each printed on its own line with its seconds:
               cli/train.py --synthetic (tasks 2048/256/256, batch 8, dropout
               0.1): loss and grad_norm of each step finite, seconds per step,
               target frames/s, peak memory; both attention kernels' launch
-              counts must match the config's;
+              counts must match the config's; its final checkpoint is phase
+              29's teacher;
  12. check    one training step at full width (batch 1, injected draws, no
               dropout) on the card against the same step on the CPU: the
               loss and every parameter's gradient;
@@ -185,9 +186,39 @@ Phases, each printed on its own line with its seconds:
               per song of each stage; then --prediction_source gt_encoded
               unsharded and in 2 shards merged by cli/merge_eval.py: the
               merged per-song metrics equal the unsharded run's.
+ 29. main     distillation and vocoder training. cli/distill.py --teacher
+              phase 11's checkpoint (context_base at full width, f32)
+              --synthetic --rounds 2 --steps_per_round 3 --batch 8: DDPM
+              1000 -> DDIM 500 -> DDIM 250, finite losses, the teacher's
+              weights unchanged in each round (its digest, and round 0's
+              against the checkpoint file), kernels #1 and #2 launched as
+              the config predicts (per step the teacher's encoders and two
+              decoder passes under no_grad, the student's forward and
+              backward; no int8 GEMM), s a step and peak memory by round
+              (flat across rounds; also above what earlier phases hold);
+              one step profiled through
+              utils/profiling.trace and timed with CUDA events (the
+              teacher's target against the whole step); one step at batch
+              1 with injected draws, card vs CPU (phase 12's tolerances).
+              The round-1 student through load_checkpoint in int8 renders
+              phase 7's first segment with DDIM 250: one forward of one row
+              a step (no CFG pair), launches as predicted, captured equal
+              to eager bit for bit, s a segment beside phase 7's.
+              cli/train_vocoder.py at full width (SoundStream base 512,
+              batch 8, 64 frames): reconstruction 3 steps, --adversarial
+              --resume (the generator warm-started) 2, --resume again (the
+              whole GAN state) 2, --arch magnitude_gl 3, --dataset
+              maestrov3 on phase 27's records 2: finite losses, s a step,
+              peak memory; one step of each trainer card vs CPU (metrics,
+              gradients and updated weights; SoundStream's from seeded
+              weights, the MagnitudeNet's from the trained export: from
+              seeded weights only its loss is held, and its gradient's
+              rounding-decided L1 signs are counted, card vs CPU and
+              float32 vs float64); the magnitude_gl checkpoint through
+              load_trained vocodes phase 7's mel to finite audio.
 Then the vocoder phases' numbers as one JSON line, the families' phases'
 as another, phase 26's as another, phase 27's as another, phase 28's as
-another, one JSON line of the kernels, the
+another, phase 29's as another, one JSON line of the kernels, the
 nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
@@ -197,6 +228,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import copy
 import ctypes
 import dataclasses
@@ -700,9 +732,15 @@ def graph_ms(fn, iters: int, stream: torch.cuda.Stream) -> float:
 
 def guided_steps(experiment):
   """(paired, single): sampler steps inside the guidance interval (the
-  two-row CFG forward) and outside it (one conditional row)."""
+  two-row CFG forward) and outside it (one conditional row); at guidance
+  weight 1 (a distilled student) every step is one conditional forward."""
   sampler = experiment.diffusion.sampler
-  lo, hi = (np.float32(x) for x in experiment.diffusion.guidance.interval)
+  guidance = experiment.diffusion.guidance
+  if guidance.eval_condition_weight == 1.0:
+    return 0, sampler.num_steps  # guidance folded in: one forward a step
+  if guidance.interval is None:
+    return sampler.num_steps, 0
+  lo, hi = (np.float32(x) for x in guidance.interval)
   times = (np.arange(sampler.num_steps, dtype=np.float32) + 1) / np.float32(
       sampler.num_steps)
   paired = int(((times >= lo) & (times <= hi)).sum())
@@ -1486,7 +1524,7 @@ def train_phase(seed: int, card: str, bwd_rows):
   final = os.path.join(model_dir, f"step_{TRAIN_STEPS}")
   check(os.path.exists(os.path.join(final, "METADATA")),
         "no final checkpoint")
-  shutil.rmtree(final)  # 1.6 GB of weights; the metrics stay
+  # The final checkpoint (1.6 GB) is phase 29's teacher; it goes there.
   steady = lines[1:]
   s_per_step = float(np.mean([m["timing/seconds_per_step"] for m in steady]))
   frames_per_s = float(np.mean([m["timing/target_frames_per_second"]
@@ -3472,6 +3510,604 @@ def evaluation_phase(card: str, seed: int, qmm_rows) -> dict:
               stage_seconds_per_song=stage, segment_batches=batches)
 
 
+# Phase 29: distillation and vocoder training. Two rounds of 3 steps at
+# batch 8 from phase 11's checkpoint (context_base, DDPM 1000 -> DDIM 500
+# -> DDIM 250); the round-1 student served in int8; the vocoder trainers at
+# full width (SoundStream base 512, batch 8, 64 frames).
+DISTILL_DIR = os.path.join("out", "chip_smoke_distill")
+DISTILL_ROUNDS, DISTILL_STEPS = 2, 3
+# Peak device memory of round 1 within this share of round 0's: the old
+# teacher goes before the next student is made.
+DISTILL_MEMORY_TOLERANCE = 0.05
+# One distillation step card vs CPU, at phase 12's tolerances (the loss
+# relative, each gradient's relative RMS), with the CPU's timing embedding
+# on both sides; the student's time is the grid's middle (t = 1/2).
+DISTILL_CHECK_T = 0.5
+VOCODER_TRAIN_DIR = os.path.join("out", "chip_smoke_vocoder_train")
+VOCODER_TRAIN_BATCH, VOCODER_TRAIN_FRAMES = 8, 64
+# One step of each vocoder trainer card (TF32 off) vs CPU, batch 2, from
+# the same seeded weights: the metrics relative; each gradient's relative
+# RMS, of the loss the step takes (the discriminator's at the starting
+# generator's audio), at VOCODER_GRAD_TOLERANCE: the log-magnitude loss
+# takes 1 / |STFT| at bins near its 1e-5 clamp, which turns the conv
+# stacks' float32 rounding into 1e-4-scale gradient differences (measured
+# 1.39e-4 for SoundStream's on an H100 at 700 W), and a discriminator
+# pre-activation within rounding of a leaky ReLU's kink takes slope 1 on
+# one side and 0.2 on the other (tests/test_torch_vocoder_train.py); and
+# the updated weights. AdamW's first step moves a weight by lr x g / (|g| + 1e-8): a
+# gradient within rounding of zero, or near 1e-8, turns its rounding into
+# up to 2 x lr (measured 0.04-0.14% of the weights past 1e-3 lr there):
+# at most VOCODER_STEP_FLIPS of a trainer's weights may differ by more
+# than 1e-3 x lr, none by more than 2 x lr.
+VOCODER_STEP_METRIC_TOLERANCE = 1e-4
+VOCODER_GRAD_TOLERANCE = 1e-3
+VOCODER_STEP_FLIPS = 1e-2
+
+
+def distill_launches(experiment) -> tuple:
+  """Kernels #1 and #2 launched by one distillation step: the teacher's
+  encoders once and its decoder twice (two half-steps; the CFG pair is one
+  forward, its cross-attention on the conditional rows only), under
+  no_grad; the student's forward and backward, attention_calls_per_step
+  each."""
+  enc = encoder_attention_launches(experiment)
+  dec = attention_calls_per_step(experiment) - enc
+  student = attention_calls_per_step(experiment)
+  return enc + 2 * dec + student, student
+
+
+def metrics_lines(model_dir: str) -> list:
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    return [json.loads(l) for l in f]
+
+
+def distill_phase(card: str, seed: int) -> dict:
+  """(a) cli/distill.py, two rounds from phase 11's checkpoint; the
+  teacher's digest against the checkpoint's file; launches, s a step,
+  peak memory by round; one profiled step, the teacher's share."""
+  from music_spectrogram_diffusion_tpu_torch.cli import distill as distill_cli
+  from music_spectrogram_diffusion_tpu_torch.train import distill
+  teacher_dir = os.path.join("out", "chip_smoke_train",
+                             f"step_{TRAIN_STEPS}")
+  check(os.path.exists(os.path.join(teacher_dir, "state.pt")),
+        f"no teacher checkpoint at {teacher_dir} (phase 11's)")
+  file_digest = distill.param_digest(torch.load(
+      os.path.join(teacher_dir, "state.pt"), map_location="cpu",
+      weights_only=True)["params"].values())
+  shutil.rmtree(DISTILL_DIR, ignore_errors=True)
+  experiment = training_experiment()
+  argv = ["--teacher", teacher_dir, "--model_dir", DISTILL_DIR, "--rounds",
+          str(DISTILL_ROUNDS), "--steps_per_round", str(DISTILL_STEPS),
+          "--batch", str(TRAIN_BATCH), "--synthetic", "--synthetic_examples",
+          str(TRAIN_SONGS), "--log_period", "1", "--seed", str(seed),
+          "--device", "cuda"]
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  quantize.quantized_matmul.launches = 0
+  resident = torch.cuda.memory_allocated() / 2**30
+  t0 = time.perf_counter()
+  rounds = distill_cli.main(argv)
+  wall = time.perf_counter() - t0
+  launches = (attention.flash_attention.launches,
+              attention.flash_attention_bwd.launches)
+  check(quantize.quantized_matmul.launches == 0,
+        "distillation launched the int8 GEMM")
+  per_step = distill_launches(experiment)
+  steps = DISTILL_ROUNDS * DISTILL_STEPS
+  expected = (steps * per_step[0], steps * per_step[1])
+  check(launches == expected,
+        f"distillation launched flash_fwd {launches[0]} and flash_bwd "
+        f"{launches[1]} times, expected {expected}")
+  check(rounds[0]["teacher_digest"] == file_digest,
+        "round 0's teacher differs from its checkpoint file")
+  check([(r["teacher_steps"], r["student_steps"]) for r in rounds]
+        == [(1000, 500), (500, 250)], f"rounds {rounds}")
+  summary = dict(rounds=[], launches=launches, wall_s=wall,
+                 resident_gib=resident)
+  for r in rounds:
+    lines = metrics_lines(r["model_dir"])
+    check([m["step"] for m in lines] == list(range(1, DISTILL_STEPS + 1)),
+          f"round {r['round']} logged {[m['step'] for m in lines]}")
+    for m in lines:
+      check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+            f"round {r['round']} step {m['step']}: loss {m['loss']}")
+    s_step = float(np.mean([m["timing/seconds_per_step"]
+                            for m in lines[1:]]))
+    summary["rounds"].append(dict(
+        round=r["round"], steps=f"{r['teacher_steps']} -> "
+        f"{r['student_steps']}", losses=[m["loss"] for m in lines],
+        seconds_per_step=s_step, peak_gib=r["peak_gib"],
+        run_peak_gib=r["peak_gib"] - resident, seconds=r["seconds"]))
+    log(f"  [{card}] round {r['round']} ({r['teacher_steps']} -> "
+        f"{r['student_steps']} steps): losses "
+        + ", ".join(f"{m['loss']:.6g}" for m in lines)
+        + f"; {s_step:.3f} s a step after the first (first "
+        f"{lines[0]['timing/seconds_per_step']:.3f} s), peak memory "
+        f"{r['peak_gib'] - resident:.2f} GiB above the {resident:.2f} GiB "
+        f"that earlier phases hold ({r['peak_gib']:.2f} in all), "
+        f"{r['seconds']:.2f} s with the student's "
+        f"build, data and checkpoint; the teacher's weights unchanged "
+        f"(digest {r['teacher_digest']})")
+  peaks = [r["peak_gib"] for r in rounds]
+  check(abs(peaks[1] - peaks[0]) <= DISTILL_MEMORY_TOLERANCE * peaks[0],
+        f"peak memory by round {peaks}: not flat")
+  log(f"  launches: flash_fwd {launches[0]}, flash_bwd {launches[1]} = "
+      f"expected ({steps} steps x ({per_step[0] - per_step[1]} teacher + "
+      f"{per_step[1]} student forward), {steps} x {per_step[1]} backward)")
+  return summary
+
+
+def distill_models(experiment, student_steps: int, device):
+  """Phase 11's checkpoint as a frozen f32 teacher on `device`, and a
+  DistillModel of a student at `student_steps` (guidance 5 folded in)."""
+  from music_spectrogram_diffusion_tpu_torch.train import distill
+  teacher = inference.load_checkpoint(
+      os.path.join("out", "chip_smoke_train", f"step_{TRAIN_STEPS}"),
+      device=device, compute_dtype="float32")
+  student_exp = distill.student_experiment(teacher.experiment,
+                                           student_steps)
+  return distill.DistillModel(distill.new_student(student_exp, device),
+                              teacher.model, student_steps), student_exp
+
+
+def distill_step_phase(card: str, seed: int) -> dict:
+  """One distillation step (500 student steps, the CFG pair path) on the
+  card: profiled through utils/profiling.trace (the teacher's and the
+  student's device time), timed with CUDA events; then at batch 1 with
+  injected draws, card vs CPU."""
+  from music_spectrogram_diffusion_tpu_torch.train import distill
+  from music_spectrogram_diffusion_tpu_torch.utils import profiling
+  experiment = training_experiment()
+  dm, student_exp = distill_models(experiment, 500, "cuda")
+  t = trainer.Trainer(dm, student_exp.train)
+  state = t.create_state()
+  batch = training_batches(experiment, TRAIN_BATCH, 1, seed)[0]
+  state, _ = t.train_step(state, batch, seed)  # the first step's set-up
+  log_dir = os.path.join("out", "chip_smoke_distill_trace")
+  shutil.rmtree(log_dir, ignore_errors=True)
+  torch.cuda.synchronize()
+  with profiling.trace(log_dir) as prof:
+    t0 = time.perf_counter()
+    state, metrics = t.train_step(state, batch, seed)
+    check(np.isfinite(profiling.device_sync(metrics["loss"])),
+          "profiled distillation step's loss")
+    wall = time.perf_counter() - t0
+  trace_files = [f for f in os.listdir(log_dir) if f.endswith(".json")]
+  check(len(trace_files) == 1, f"trace files {trace_files}")
+  events = prof.key_averages()
+  # The annotated regions appear on the device's timeline too: the kernels
+  # alone make the busy time.
+  regions = {e.key: e.device_time_total / 1e3 for e in events
+             if e.key.startswith("distill/")}
+  busy = sum(e.self_device_time_total for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.key not in regions) / 1e3
+  check(busy > 0, "the profiler saw no device time")
+  # The same split with CUDA events: the teacher's target alone, and the
+  # whole step.
+  b = trainer.batch_to_device(batch, "cuda")
+  targets = dm.audio_codec.scale_features(
+      b["decoder_target_tokens"], output_range=(-1.0, 1.0), clip=True)
+  gen = torch.Generator("cuda").manual_seed(seed)
+  time_, eps = distill.generator_draws(gen)(targets, 500)
+  alpha, sigma = distill._alpha_sigma(time_, dm.schedule, targets.shape)
+  z_t = alpha * targets + sigma * eps
+  teacher_ms = event_ms(lambda: dm.teacher_target(b, z_t, time_))
+  step_ms = event_ms(lambda: t.train_step(state, batch, seed))
+  log(f"  [{card}] one distillation step, batch {TRAIN_BATCH}, profiled "
+      f"through utils/profiling.trace ({log_dir}/{trace_files[0]}): "
+      f"{1e3 * wall:.1f} ms wall, the card busy {busy:.1f} ms; device ms "
+      f"by region: " + ", ".join(f"{k} {v:.1f}" for k, v in regions.items())
+      + f"; CUDA events: the teacher's target {teacher_ms:.1f} ms of a "
+      f"{step_ms:.1f} ms step ({100 * teacher_ms / step_ms:.1f}%), the "
+      f"student's forward, backward and Adafactor "
+      f"{step_ms - teacher_ms:.1f} ms")
+  profile = dict(wall_ms=1e3 * wall, busy_ms=busy, regions_ms=regions,
+                 teacher_ms=teacher_ms, step_ms=step_ms,
+                 teacher_share=teacher_ms / step_ms)
+  del t, state, metrics, b, targets, z_t
+  torch.cuda.empty_cache()
+
+  # Card vs CPU: batch 1 (the batch's first row), the student time 1/2,
+  # eps from a seed.
+  one = {k: v[:1] for k, v in batch.items()}
+  eps = torch.randn(tuple(one["decoder_target_tokens"].shape),
+                    generator=torch.Generator().manual_seed(seed))
+  time_ = torch.tensor([DISTILL_CHECK_T])
+  cpu = distill.DistillModel(
+      model_on_cpu(dm.student), model_on_cpu(dm.teacher), 500)
+  # The card's student has taken the steps above: the CPU's takes its
+  # weights (DistillModel started it as the teacher).
+  cpu.module.load_state_dict(dm.module.state_dict())
+  device_embedding = dops.timing_embedding
+
+  def cpu_embedding(position, *args, **kwargs):
+    return device_embedding(position.cpu(), *args, **kwargs).to(
+        position.device)
+
+  def step(m, embedding=device_embedding):
+    dev = m.device
+    draws = lambda x0, n: (time_.to(dev), eps.to(dev))
+    dops.timing_embedding = embedding
+    try:
+      metrics, grads = trainer.Trainer(m, student_exp.train).loss_and_grads(
+          trainer.batch_to_device(one, dev), draws, None)
+    finally:
+      dops.timing_embedding = device_embedding
+    return metrics["loss"].item(), {n: g.cpu() for n, g in grads.items()}
+
+  card_loss, card_g = step(dm)
+  same_loss, same_g = step(dm, cpu_embedding)
+  cpu_loss, cpu_g = step(cpu)
+  del cpu
+  loss_err = abs(same_loss - cpu_loss) / abs(cpu_loss)
+  config_loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+  check(np.isfinite(card_loss), "card distillation loss finite")
+  check(config_loss_err <= STEP_LOSS_TOLERANCE,
+        f"distillation loss card vs CPU {card_loss} vs {cpu_loss}")
+  check(loss_err <= STEP_LOSS_TOLERANCE,
+        f"distillation loss card vs CPU, the same timing embedding: "
+        f"{same_loss} vs {cpu_loss}")
+  for name, g in card_g.items():
+    check(bool(torch.isfinite(g).all()), f"{name} grad finite")
+  same_err, same_leaf = max((rel_rms(same_g[n], g), n)
+                            for n, g in cpu_g.items())
+  check(same_err <= STEP_GRAD_TOLERANCE,
+        f"distillation gradient of {same_leaf} card vs CPU: relative RMS "
+        f"{same_err} above {STEP_GRAD_TOLERANCE}")
+  config_err, config_leaf = max((rel_rms(card_g[n], g), n)
+                                for n, g in cpu_g.items())
+  log(f"  one distillation step card vs CPU (batch 1, t = "
+      f"{DISTILL_CHECK_T}, CFG 5, {len(cpu_g)} parameters), with the CPU's "
+      f"timing embedding on both: loss {same_loss:.7g} vs {cpu_loss:.7g} "
+      f"(relative {loss_err:.3g}, tol {STEP_LOSS_TOLERANCE}), gradient "
+      f"relative RMS largest {same_err:.3g} ({same_leaf}; tol "
+      f"{STEP_GRAD_TOLERANCE}); as configured: loss {card_loss:.7g} "
+      f"(relative {config_loss_err:.3g}, tol {STEP_LOSS_TOLERANCE}), "
+      f"gradient relative RMS largest {config_err:.3g} ({config_leaf})")
+  del dm
+  torch.cuda.empty_cache()
+  return dict(profile=profile, card_vs_cpu=dict(
+      loss_rel=loss_err, grad_rel_rms=same_err,
+      loss_rel_as_configured=config_loss_err,
+      grad_rel_rms_as_configured=config_err))
+
+
+def event_ms(fn) -> float:
+  """ms of one call of fn() on the card (CUDA events; already warm)."""
+  start = torch.cuda.Event(enable_timing=True)
+  stop = torch.cuda.Event(enable_timing=True)
+  start.record()
+  fn()
+  stop.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(stop)
+
+
+def model_on_cpu(m):
+  """A CPU copy of a diffusion model (its module deep-copied)."""
+  out = copy.copy(m)
+  out.module = copy.deepcopy(m.module).cpu()
+  return out
+
+
+def student_phase(card: str, segments, phase7_segment_s: float) -> dict:
+  """(c) The round-1 student (DDIM 250, guidance folded in) served in int8
+  through load_checkpoint: phase 7's first segment rendered eagerly (one
+  conditional decoder forward of one row each step: no CFG pair) and
+  captured (bit for bit, phase 26's checks), launches against the
+  config's."""
+  round_dir = os.path.join(DISTILL_DIR, f"round_{DISTILL_ROUNDS - 1}")
+  t0 = time.perf_counter()
+  served = inference.load_checkpoint(round_dir, device="cuda",
+                                     compute_dtype="int8")
+  load_s = time.perf_counter() - t0
+  experiment = served.experiment
+  sampler = experiment.diffusion.sampler
+  check((sampler.name, sampler.num_steps) == ("ddim", 250)
+        and experiment.diffusion.guidance.eval_condition_weight == 1.0,
+        f"the student serves {sampler} at weight "
+        f"{experiment.diffusion.guidance.eval_condition_weight}")
+  synth = served.synthesizer()
+  rows = []
+  hook = served.model.module.decoder.register_forward_pre_hook(
+      lambda module, args: rows.append(args[1].shape[0]))
+  eager = eager_render(synth, segments[:1])
+  hook.remove()
+  check(rows == [1] * sampler.num_steps,
+        f"the eager student ran decoder forwards of {sorted(set(rows))} "
+        f"rows, {len(rows)} times: not one row a step")
+  l_in = synth._input_length(len(segments[0]))
+  shapes = qmm_shapes(experiment, l_in)
+  expected = (attention_launches(experiment), sum(r[4] for r in shapes))
+  check(eager["launches"] == expected,
+        f"the student launched {eager['launches']}, expected {expected}")
+  case = graph_check("int8 distilled student, DDIM 250", card, synth,
+                     segments[:1], eager, experiment)
+  log(f"  [{card}] the round-1 student (load_checkpoint {round_dir}, int8, "
+      f"{load_s:.2f} s): {sampler.name} {sampler.num_steps} steps, one "
+      f"forward of 1 row a step (no CFG pair); launches (flash_attention, "
+      f"quantized_matmul) {eager['launches']} = expected {expected}; "
+      f"segment captured {case['captured_wall_s']:.3f} s, eager "
+      f"{eager['wall_s']:.3f} s, against phase 7's steady segment "
+      f"{phase7_segment_s:.3f} s (100 steps, 71 CFG pairs)")
+  return dict(case=case, launches=eager["launches"], expected=expected,
+              segment_s=case["captured_wall_s"],
+              phase7_segment_s=phase7_segment_s, load_s=load_s)
+
+
+def vocoder_cli(card: str, label: str, argv) -> dict:
+  """One cli/train_vocoder.py run on the card: s a step after the first,
+  peak memory, finite losses."""
+  from music_spectrogram_diffusion_tpu_torch.cli import train_vocoder
+  model_dir = argv[argv.index("--model_dir") + 1]
+  before = (len(metrics_lines(model_dir))
+            if os.path.exists(os.path.join(model_dir, "metrics.jsonl"))
+            else 0)
+  torch.cuda.reset_peak_memory_stats()
+  resident = torch.cuda.memory_allocated() / 2**30
+  t0 = time.perf_counter()
+  state, trainer_ = train_vocoder.main(argv + ["--device", "cuda"])
+  wall = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  lines = metrics_lines(model_dir)[before:]
+  check(bool(lines), f"{label}: no steps logged")
+  for m in lines:
+    for k, v in m.items():
+      check(np.isfinite(v), f"{label} step {m['step']}: {k} = {v}")
+  loss_key = "g_loss" if "g_loss" in lines[0] else "loss"
+  s_step = float(np.mean([1.0 / m["steps_per_second"] for m in lines[1:]]))
+  log(f"  [{card}] {label}: steps {[m['step'] for m in lines]}, {loss_key} "
+      + ", ".join(f"{m[loss_key]:.5g}" for m in lines)
+      + (", d_loss " + ", ".join(f"{m['d_loss']:.5g}" for m in lines)
+         if "d_loss" in lines[0] else "")
+      + f"; {s_step:.3f} s a step after the first, peak memory "
+      f"{peak - resident:.2f} GiB above the {resident:.2f} GiB that earlier "
+      f"phases hold ({peak:.2f} in all), {wall:.2f} s in all")
+  return dict(steps=[m["step"] for m in lines],
+              losses=[m[loss_key] for m in lines], seconds_per_step=s_step,
+              peak_gib=peak, resident_gib=resident,
+              run_peak_gib=peak - resident, wall_s=wall)
+
+
+def vocoder_step_check(label: str, make, batch, seed=0) -> dict:
+  """One step of a vocoder trainer, card vs CPU, from weights drawn from
+  `seed` (None: those `make` gives): the gradients of its loss, the
+  metrics, the updated weights."""
+  results = []
+  for device in ("cuda", "cpu"):
+    trainer_ = make(device)
+    state = trainer_.create_state(seed=seed)
+    before = {k: v.detach().cpu().clone() for k, v in params_of(state)}
+    grads = first_grads(trainer_, state, batch)
+    state, metrics = trainer_.train_step(state, *batch)
+    results.append(({k: v.item() for k, v in metrics.items()}, before,
+                    {k: v.detach().cpu() for k, v in params_of(state)},
+                    grads, trainer_))
+  (card_m, card_0, card_1, card_g, t), (cpu_m, cpu_0, cpu_1, cpu_g, _) = (
+      results)
+  for k in card_0:
+    check(torch.equal(card_0[k], cpu_0[k]), f"{label}: {k} seeded apart")
+  metric_err = max(abs(card_m[k] - v) / max(abs(v), 1e-12)
+                   for k, v in cpu_m.items())
+  check(metric_err <= VOCODER_STEP_METRIC_TOLERANCE,
+        f"{label}: metrics card {card_m} vs CPU {cpu_m}")
+  grad_err, grad_leaf = max((rel_rms(card_g[k], g), k)
+                            for k, g in cpu_g.items())
+  check(grad_err <= VOCODER_GRAD_TOLERANCE,
+        f"{label}: gradient of {grad_leaf} card vs CPU: relative RMS "
+        f"{grad_err}")
+  lrs = lr_of(t)
+  worst, flips, total = 0.0, 0, 0
+  for k, v in cpu_1.items():
+    lr = lrs[k]
+    diff = (card_1[k] - v).abs()
+    worst = max(worst, float(diff.max()) / lr)
+    flips += int((diff > 1e-3 * lr).sum())
+    total += v.numel()
+  check(worst <= 2.0 + 1e-3, f"{label}: a weight moved {worst} x lr apart")
+  check(flips <= VOCODER_STEP_FLIPS * total,
+        f"{label}: {flips} of {total} weights apart by more than 1e-3 lr")
+  log(f"  {label}, one step card vs CPU (batch {batch[0].shape[0]}): "
+      f"metrics relative {metric_err:.3g} (tol "
+      f"{VOCODER_STEP_METRIC_TOLERANCE}); gradient relative RMS largest "
+      f"{grad_err:.3g} ({grad_leaf}; tol {VOCODER_GRAD_TOLERANCE}); "
+      f"weights apart by more than 1e-3 lr {flips} of {total} "
+      f"({100 * flips / total:.3f}%), largest {worst:.3g} lr")
+  del results, t
+  return dict(metric_rel=metric_err, grad_rel_rms=grad_err,
+              grad_leaf=grad_leaf, weights_apart=flips, weights=total,
+              largest_lr=worst)
+
+
+def first_grads(t, state, batch) -> dict:
+  """The gradients of the trainer's loss at its starting weights (the
+  discriminator's at the starting generator's audio), on the CPU, by
+  params_of's names."""
+  from music_spectrogram_diffusion_tpu_torch.audio import vocoder_train
+  mel, audio = (vocoder_train._to(x, t.device) for x in batch)
+  if hasattr(state, "params"):
+    loss, _ = t.loss_fn(mel, audio)
+    grads = vocoder_train._grads(loss, state.params)
+    return {k: v.cpu() for k, v in grads.items()}
+  g_loss, _ = t.g_loss_fn(mel, audio)
+  out = {f"g.{k}": v.cpu()
+         for k, v in vocoder_train._grads(g_loss, state.g_params).items()}
+  d_grads = vocoder_train._grads(t.d_loss_fn(mel, audio), state.d_params)
+  out.update({f"d.{k}": v.cpu() for k, v in d_grads.items()})
+  return out
+
+
+def trained_magnitude_net():
+  """MagnitudeNet with the repo's trained weights (from seeded weights the
+  gradient is ill-conditioned: zero_head_reading)."""
+  from music_spectrogram_diffusion_tpu_torch import convert
+  params, _, _ = convert.read_export(vocoder.TRAINED_MAGNITUDE_GL)
+  net = vocoder.MagnitudeNet()
+  net.load_state_dict(convert.flax_convs_to_state_dict(params["params"],
+                                                       net))
+  return net
+
+
+def zero_head_reading(batch) -> dict:
+  """MagnitudeTrainer's loss from seeded weights, card vs CPU and, on the
+  CPU, float32 vs float64. The seeded head is zero, so the prediction is
+  the mel pseudo-inverse, which gives back the target magnitude exactly
+  (to rounding) at the low bins, where a mel filter spans about one STFT
+  bin. There the sign of the log-magnitude L1 term, log(true) -
+  log(pred), is decided by rounding, and each such bin adds +-4 / N to
+  its conv_out.bias gradient (d log(pred) / d head is 4 at a zero head):
+  the gradient differs between any two roundings, so vocoder_step_check
+  starts the MagnitudeTrainer from the trained export. Checks the loss;
+  reports, for both pairs, the bins whose L1 sign or 1e-5 clamp differs
+  and conv_out's gradient relative RMS."""
+  from music_spectrogram_diffusion_tpu_torch.audio import vocoder_train
+  from music_spectrogram_diffusion_tpu_torch.ops import stft as stft_ops
+  codec = codecs.MelGan()
+  runs = {}
+  for name, device, dtype in (("card", "cuda", torch.float32),
+                              ("cpu", "cpu", torch.float32),
+                              ("cpu64", "cpu", torch.float64)):
+    t = vocoder_train.MagnitudeTrainer(vocoder.MagnitudeNet(), codec,
+                                       device=device)
+    t.create_state(seed=0)
+    t.net.to(dtype)
+    mel, audio = (torch.as_tensor(x, dtype=dtype, device=t.device)
+                  for x in batch)
+    loss, _ = t.loss_fn(mel, audio)
+    grads = torch.autograd.grad(loss, [t.net.conv_out.weight,
+                                       t.net.conv_out.bias])
+    with torch.no_grad():
+      pred = t.net(mel)
+      true = stft_ops.stft_magnitude(
+          audio, frame_length=t.frame_length, frame_step=codec.hop_size,
+          fft_length=t.fft_length)
+    n = min(pred.shape[1], true.shape[1])
+    pred, true = pred[:, :n].double().cpu(), true[:, :n].double().cpu()
+    runs[name] = dict(
+        loss=loss.item(), grads=[g.double().cpu() for g in grads],
+        pred=pred, l1=(torch.log(torch.clamp(true, min=1e-5))
+                       - torch.log(torch.clamp(pred, min=1e-5))))
+  exact = runs["cpu64"]["l1"].abs() < 1e-6
+  out = dict(bins=exact.numel(), exact_bins=int(exact.sum()),
+             exact_highest_bin=int(exact.nonzero()[:, 2].max()))
+  for a, b in (("card", "cpu"), ("cpu", "cpu64")):
+    ra, rb = runs[a], runs[b]
+    out[f"{a}_vs_{b}"] = dict(
+        loss_rel=abs(ra["loss"] - rb["loss"]) / abs(rb["loss"]),
+        sign_flips=int((torch.sign(ra["l1"]) != torch.sign(rb["l1"])).sum()),
+        clamp_flips=int(((ra["pred"] >= 1e-5)
+                         != (rb["pred"] >= 1e-5)).sum()),
+        conv_out_weight_grad_rel_rms=rel_rms(ra["grads"][0], rb["grads"][0]),
+        conv_out_bias_grad_rel_rms=rel_rms(ra["grads"][1], rb["grads"][1]))
+  check(out["card_vs_cpu"]["loss_rel"] <= VOCODER_STEP_METRIC_TOLERANCE,
+        f"MagnitudeTrainer zero head: loss card {runs['card']['loss']} vs "
+        f"CPU {runs['cpu']['loss']}")
+  log(f"  MagnitudeTrainer from seeded weights (the zero head), batch "
+      f"{batch[0].shape[0]}: {out['exact_bins']} of {out['bins']} bins "
+      f"reconstructed to within 1e-6 in log by the pseudo-inverse (STFT "
+      f"bins up to {out['exact_highest_bin']}); "
+      + "; ".join(
+          f"{pair.replace('_vs_', ' vs ')}: loss relative "
+          f"{r['loss_rel']:.3g}, L1 sign flips {r['sign_flips']}, clamp "
+          f"flips {r['clamp_flips']}, conv_out gradient relative RMS "
+          f"{r['conv_out_weight_grad_rel_rms']:.3g} (weight), "
+          f"{r['conv_out_bias_grad_rel_rms']:.3g} (bias)"
+          for pair, r in out.items() if isinstance(r, dict)))
+  return out
+
+
+def params_of(state):
+  if hasattr(state, "params"):
+    return list(state.params.items())
+  return ([(f"g.{k}", v) for k, v in state.g_params.items()]
+          + [(f"d.{k}", v) for k, v in state.d_params.items()])
+
+
+def lr_of(t) -> dict:
+  """Each weight's learning rate (params_of's names)."""
+  if hasattr(t, "optimizer"):
+    lr = t.optimizer.learning_rate(0)
+    return collections.defaultdict(lambda: lr)
+  g, d = t.g_optimizer.learning_rate(0), t.d_optimizer.learning_rate(0)
+  return {**{f"g.{k}": g for k, _ in t.decoder.named_parameters()},
+          **{f"d.{k}": d for k, _ in t.disc.named_parameters()}}
+
+
+def vocoder_train_phase(card: str, seed: int, mel: np.ndarray) -> dict:
+  """(d) cli/train_vocoder.py at full width: reconstruction, the
+  adversarial warm start, the full GAN restart, magnitude_gl and the
+  dataset's audio; one step of each trainer card vs CPU; the magnitude_gl
+  checkpoint served by load_trained on phase 7's mel."""
+  from music_spectrogram_diffusion_tpu_torch.audio import vocoder_train
+  shutil.rmtree(VOCODER_TRAIN_DIR, ignore_errors=True)
+  base = ["--batch", str(VOCODER_TRAIN_BATCH), "--segment_frames",
+          str(VOCODER_TRAIN_FRAMES), "--log_period", "1", "--seed",
+          str(seed)]
+  gan = ["--model_dir", os.path.join(VOCODER_TRAIN_DIR, "soundstream"),
+         "--synthetic"] + base
+  mag = os.path.join(VOCODER_TRAIN_DIR, "magnitude_gl")
+  runs = {
+      "soundstream reconstruction": vocoder_cli(
+          card, "soundstream reconstruction, 3 steps",
+          gan + ["--steps", "3"]),
+      "soundstream adversarial warm start": vocoder_cli(
+          card, "--adversarial --resume (the generator warm-started), 2 "
+          "steps", gan + ["--steps", "5", "--adversarial", "--resume"]),
+      "soundstream adversarial restart": vocoder_cli(
+          card, "--adversarial --resume (the whole GAN state), 2 steps",
+          gan + ["--steps", "7", "--adversarial", "--resume"]),
+      "magnitude_gl": vocoder_cli(
+          card, "--arch magnitude_gl, 3 steps",
+          ["--model_dir", mag, "--synthetic", "--arch", "magnitude_gl",
+           "--steps", "3"] + base),
+      "soundstream on maestrov3": vocoder_cli(
+          card, "--dataset maestrov3 (phase 27's records), 2 steps",
+          ["--model_dir", os.path.join(VOCODER_TRAIN_DIR, "dataset"),
+           "--dataset", "maestrov3", "--data_root", DATA_ROOT, "--steps",
+           "2"] + base)}
+  check([runs[k]["steps"] for k in runs] == [[1, 2, 3], [4, 5], [6, 7],
+                                             [1, 2, 3], [1, 2]],
+        f"vocoder runs' steps {[runs[k]['steps'] for k in runs]}")
+  disc = os.path.join(VOCODER_TRAIN_DIR, "soundstream", "disc", "step_7")
+  check(os.path.exists(disc), f"no {disc}")
+
+  codec = codecs.MelGan()
+  r = np.random.RandomState(seed)
+  frames = VOCODER_TRAIN_FRAMES
+  audio = (r.randn(2, frames * codec.hop_size) * 0.1).astype(np.float32)
+  batch = (codec.encode(torch.from_numpy(audio))[:, :frames].numpy(), audio)
+
+  def soundstream():
+    return vocoder.SoundStreamDecoder(vocoder.SoundStreamConfig())
+
+  steps = {
+      "VocoderTrainer": vocoder_step_check(
+          "VocoderTrainer (base 512)", lambda dev: vocoder_train
+          .VocoderTrainer(soundstream(), codec, device=dev), batch),
+      "MagnitudeTrainer": vocoder_step_check(
+          "MagnitudeTrainer (hidden 512, from the trained export)",
+          lambda dev: vocoder_train.MagnitudeTrainer(trained_magnitude_net(),
+                                                     codec, device=dev),
+          batch, seed=None),
+      "AdversarialVocoderTrainer": vocoder_step_check(
+          "AdversarialVocoderTrainer (base 512)", lambda dev: vocoder_train
+          .AdversarialVocoderTrainer(soundstream(), codec, device=dev),
+          batch),
+      "MagnitudeTrainer zero head": zero_head_reading(batch)}
+  voc = vocoder.load_trained(mag, device="cuda")
+  check(isinstance(voc, vocoder.HybridGLVocoder),
+        f"load_trained({mag}) gave {type(voc).__name__}")
+  audio = voc(torch.as_tensor(mel[None], device="cuda"))
+  check(tuple(audio.shape) == (1, mel.shape[0] * codec.hop_size)
+        and bool(torch.isfinite(audio).all()),
+        f"the trained magnitude_gl's audio {tuple(audio.shape)}")
+  log(f"  load_trained({mag}) -> HybridGLVocoder; phase 7's mel "
+      f"{mel.shape} -> finite audio {tuple(audio.shape)}")
+  shutil.rmtree(VOCODER_TRAIN_DIR, ignore_errors=True)
+  return dict(runs=runs, card_vs_cpu=steps)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -3703,6 +4339,26 @@ def main() -> int:
       f"cli/evaluate.py in int8 with every metric, 2 shards merged by "
       f"cli/merge_eval.py ({time.perf_counter() - t0:.2f} s)")
 
+  t0 = time.perf_counter()
+  distillation = distill_phase(card, args.seed)
+  distillation["step"] = distill_step_phase(card, args.seed)
+  # Phase 11's final checkpoint served as the teacher; it goes now.
+  shutil.rmtree(os.path.join("out", "chip_smoke_train",
+                             f"step_{TRAIN_STEPS}"))
+  distillation["student"] = student_phase(
+      card, segments, int8_case["captured_steady_segment_s"])
+  shutil.rmtree(DISTILL_DIR)  # 2 x 1.6 GB of students; logged above
+  torch.cuda.empty_cache()
+  distillation["vocoder_training"] = vocoder_train_phase(card, args.seed,
+                                                         render.mel)
+  torch.cuda.empty_cache()
+  log(f"phase 29 main path, distillation and vocoder training: "
+      f"cli/distill.py 2 rounds at full width, one step card vs CPU, the "
+      f"round-1 student in int8 with DDIM 250, cli/train_vocoder.py's five "
+      f"runs and each trainer card vs CPU ({time.perf_counter() - t0:.2f} "
+      f"s)")
+  student_launches = distillation["student"]["case"]["launches_captured"]
+
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
   # The context model's int8 path, a segment (phase 7).
@@ -3731,7 +4387,8 @@ def main() -> int:
                    + data["full_song"]["launches"][0]
                    + mt3_summary["launches"] + transcriber["launches"][0]
                    + evaluation["launches"][0]
-                   + evaluation["shard_launches"][0]),
+                   + evaluation["shard_launches"][0]
+                   + distillation["launches"][0] + student_launches[0]),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
                            "training": train_launches[0],
@@ -3754,7 +4411,9 @@ def main() -> int:
                                transcriber["launches"][0],
                            "evaluate_int8": evaluation["launches"][0],
                            "evaluate_gt_encoded_shards":
-                               evaluation["shard_launches"][0]},
+                               evaluation["shard_launches"][0],
+                           "distillation": distillation["launches"][0],
+                           "distilled_student_int8": student_launches[0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -3772,14 +4431,15 @@ def main() -> int:
                    + notes_summary["launches"][1]
                    + ar_summary["launches"][1]
                    + data["full_song"]["launches"][1]
-                   + evaluation["launches"][1]),
+                   + evaluation["launches"][1] + student_launches[1]),
       "launches_by_path": {"int8": int8_launches[1],
                            "int8_streamed": stream_launches[1],
                            "notes_only_int8": notes_summary["launches"][1],
                            "autoregressive_int8": ar_summary["launches"][1],
                            "dataset_full_song_int8":
                                data["full_song"]["launches"][1],
-                           "evaluate_int8": evaluation["launches"][1]},
+                           "evaluate_int8": evaluation["launches"][1],
+                           "distilled_student_int8": student_launches[1]},
       "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
       "ms": total("ms", qmm_rows),
       "plain_ms": total("plain_ms", qmm_rows),
@@ -3798,7 +4458,8 @@ def main() -> int:
                    + bf16_large_launches[1] + cli_train["launches"][1]
                    + sum(v["launches"][1] for v in family_train.values())
                    + data["training"]["launches"][1]
-                   + transcriber["launches"][1]),
+                   + transcriber["launches"][1]
+                   + distillation["launches"][1]),
       "launches_by_path": {"training": train_launches[1],
                            "training_bf16_remat": bf16_launches[1],
                            "training_bf16_remat_batch_32":
@@ -3809,7 +4470,8 @@ def main() -> int:
                            "dataset_training_mega":
                                data["training"]["launches"][1],
                            "transcriber_training":
-                               transcriber["launches"][1]},
+                               transcriber["launches"][1],
+                           "distillation": distillation["launches"][1]},
       "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
       "ms": total("ms", bwd_rows),
       "plain_ms": total("plain_ms", bwd_rows),
@@ -3846,6 +4508,7 @@ def main() -> int:
   log("evaluation " + json.dumps(dict(
       mt3={k: v for k, v in mt3_summary.items() if k != "rows"},
       transcriber=transcriber, evaluate=evaluation)))
+  log("distillation " + json.dumps(distillation))
   print(json.dumps(kernels))
   print(card)
   print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ Port of music_spectrogram_diffusion_tpu/audio/vocoder.py:
   restores mel(magnitude) ~= mel, then PGHI and fast Griffin-Lim.
 * `SoundStreamDecoder` (with `ResidualUnit`, `DecoderBlock`): the GAN
   mel-inverter architecture, for converted or trained weights.
-* `load_trained` / `load_soundstream`: the weights from an `.npz` (a JAX
-  checkpoint exported by tools/export_jax_checkpoint.py, or the converted
-  SoundStream weights of tools/convert_soundstream.py).
+* `load_trained` / `load_soundstream`: the weights from a checkpoint of
+  the port's cli/train_vocoder.py, or from an `.npz` (a JAX checkpoint
+  exported by tools/export_jax_checkpoint.py, or the converted SoundStream
+  weights of tools/convert_soundstream.py).
 
 Every vocoder is a callable `[B, T, mel] log-mel -> [B, T * hop] audio` on
 its device. On a CUDA device the convolutions run through cuDNN, which
@@ -25,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -134,7 +135,7 @@ class MagnitudeNet(nn.Module):
 
   The output is the mel pseudo-inverse baseline times a learned bounded
   correction, exp(max_log_correction * tanh(x)), so an untrained head (a
-  zero `conv_out`) gives the pinv exactly. Parameters `conv_in`,
+  zero `conv_out`, as `reset_parameters` makes it) gives the pinv exactly. Parameters `conv_in`,
   `conv_mid` (k=5, SAME) and `conv_out` (k=1), as the JAX module names
   them (`convert.flax_convs_to_state_dict`).
   """
@@ -149,11 +150,18 @@ class MagnitudeNet(nn.Module):
     self.conv_in = _conv1d(mel_bins, hidden, kernel_size)
     self.conv_mid = _conv1d(hidden, hidden, kernel_size)
     self.conv_out = _conv1d(hidden, out_bins, 1)
+    self.reset_parameters()
     basis = self.mel_basis()
     # The pseudo-inverse in float32 on the host, as the JAX module's
     # mel_to_linear computes it (np.linalg.pinv), not torch.linalg.pinv.
     self.register_buffer("pinv", torch.from_numpy(
         np.linalg.pinv(basis)), persistent=False)
+
+  def reset_parameters(self) -> None:
+    """`conv_out` to zero, as the JAX module initializes it (the pinv
+    magnitude at init); the other convolutions keep their own draws."""
+    nn.init.zeros_(self.conv_out.weight)
+    nn.init.zeros_(self.conv_out.bias)
 
   def mel_basis(self) -> np.ndarray:
     """The filterbank [out_bins, mel_bins], upper edge sample_rate / 2."""
@@ -173,12 +181,13 @@ class MagnitudeNet(nn.Module):
 class HybridGLVocoder(_StagedGriffinLim):
   """Trained magnitude (MagnitudeNet) + PGHI + fast Griffin-Lim.
 
-  `params` is the Flax variables dict of MagnitudeNet, `{"params": {...}}`,
-  as the JAX package's HybridGLVocoder takes it (a vocoder checkpoint
-  stores it so: `load_trained` passes it on as it is).
+  `state_dict` is MagnitudeNet's (`load_trained` reads it from a
+  checkpoint of cli/train_vocoder.py, or converts an exported JAX
+  checkpoint's Flax tree with `convert.flax_convs_to_state_dict`).
   """
 
-  def __init__(self, params: Mapping[str, Any], *, n_fft: int = 1024,
+  def __init__(self, state_dict: Mapping[str, torch.Tensor], *,
+               n_fft: int = 1024,
                hop_length: int = 320, win_length: int = 640,
                hidden: int = 512, num_iters: int = 32,
                mel_consistency: bool = True, phase_init: str = "pghi",
@@ -188,13 +197,8 @@ class HybridGLVocoder(_StagedGriffinLim):
     self._init_gl(n_fft=n_fft, hop_length=hop_length, win_length=win_length,
                   num_iters=num_iters, phase_init=phase_init,
                   momentum=momentum, device=device)
-    if set(params) != {"params"}:
-      raise ValueError("HybridGLVocoder takes the Flax variables dict "
-                       f"{{'params': ...}}, got keys {sorted(params)}")
     self.net = MagnitudeNet(hidden=hidden, out_bins=n_fft // 2 + 1)
-    self.net.load_state_dict(
-        convert.flax_convs_to_state_dict(params["params"], self.net),
-        strict=True)
+    self.net.load_state_dict(state_dict, strict=True)
     self.net.to(self.device).eval().requires_grad_(False)
     self.mel_consistency = mel_consistency
     self.basis = torch.from_numpy(self.net.mel_basis()).to(self.device)
@@ -251,7 +255,10 @@ class ConvTranspose1d(nn.Module):
     self.padding = conv_transpose_padding(kernel_size, stride)
     self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size))
     self.bias = nn.Parameter(torch.empty(out_ch))
-    fan_in = in_ch * kernel_size
+    self.reset_parameters()
+
+  def reset_parameters(self) -> None:
+    fan_in = self.weight.shape[1] * self.weight.shape[2]
     nn.init.uniform_(self.weight, -fan_in ** -0.5, fan_in ** -0.5)
     nn.init.zeros_(self.bias)
 
@@ -337,11 +344,11 @@ class SoundStreamVocoder:
                                         device=self.device))
 
 
-def _soundstream(params: Mapping[str, Any], base_channels: int,
+def _soundstream(state_dict: Mapping[str, torch.Tensor], base_channels: int,
                  device) -> SoundStreamVocoder:
+  """From SoundStreamDecoder's state_dict."""
   decoder = SoundStreamDecoder(SoundStreamConfig(base_channels=base_channels))
-  decoder.load_state_dict(convert.flax_convs_to_state_dict(params, decoder),
-                          strict=True)
+  decoder.load_state_dict(state_dict, strict=True)
   return SoundStreamVocoder(decoder, device)
 
 
@@ -357,32 +364,68 @@ def load_soundstream(npz_path: str, base_channels: int = 512,
       for part in parts[:-1]:
         node = node.setdefault(part, {})
       node[parts[-1]] = raw[key]
-  return _soundstream(params, base_channels, device)
+  return _soundstream(_soundstream_state(params, base_channels),
+                      base_channels, device)
+
+
+def _soundstream_state(params: Mapping[str, Any],
+                       base_channels: int) -> Dict[str, torch.Tensor]:
+  """SoundStreamDecoder's Flax params tree as its state_dict."""
+  return convert.flax_convs_to_state_dict(
+      params, SoundStreamDecoder(SoundStreamConfig(
+          base_channels=base_channels)))
+
+
+ARCHS = ("soundstream", "magnitude_gl")
 
 
 def load_trained(path: str, base_channels: int = 512, num_iters: int = 32,
                  phase_init: str = "pghi", momentum: float = 0.9,
                  device="cuda"):
-  """A trained vocoder from an exported checkpoint (`.npz` of
-  tools/export_jax_checkpoint.py on a cli/train_vocoder.py checkpoint).
+  """A trained vocoder: a checkpoint of the port's cli/train_vocoder.py (a
+  step_<N> directory, or its model directory, where the latest step is
+  taken, as the JAX package's load_trained does), or an exported JAX
+  checkpoint (`.npz` of tools/export_jax_checkpoint.py on a JAX
+  cli/train_vocoder.py checkpoint).
 
-  Its config_json routes: arch 'magnitude_gl' -> HybridGLVocoder(hidden);
-  'soundstream' or none -> SoundStreamDecoder (base_channels from the
-  config, else the argument). Both store the Flax variables dict, an extra
-  `params` level. Anything that is not an export (an orbax directory)
-  raises ValueError naming the export tool.
+  The config's `arch` routes: 'magnitude_gl' -> HybridGLVocoder(hidden);
+  'soundstream' or none (checkpoints older than the sidecar) ->
+  SoundStreamDecoder (base_channels from the config, else the argument);
+  another raises ValueError. An export stores the Flax variables dict, an
+  extra `params` level, which is converted here to the module's
+  state_dict; anything that is neither (an orbax directory) raises
+  ValueError naming the export tool.
   """
-  params, config_json, _ = convert.read_export(path)
-  cfg = json.loads(config_json) if config_json else {}
-  if "params" not in params:
-    raise ValueError(f"{os.fspath(path)}: a vocoder export holds the Flax "
-                     "variables dict (params/params/...)")
-  if cfg.get("arch") == "magnitude_gl":
-    return HybridGLVocoder(params, hidden=cfg.get("hidden", 512),
-                           num_iters=num_iters, phase_init=phase_init,
-                           momentum=momentum, device=device)
-  return _soundstream(params["params"],
-                      cfg.get("base_channels", base_channels), device)
+  from music_spectrogram_diffusion_tpu_torch.train import checkpoints
+  if os.path.isdir(path) and (
+      os.path.exists(os.path.join(path, checkpoints.STATE_FILE))
+      or checkpoints.latest_checkpoint(path) is not None):
+    restored = checkpoints.restore_checkpoint(path)
+    params, exported = restored["params"], False
+    cfg = json.loads(restored.get("config_json") or "{}")
+  else:
+    variables, config_json, _ = convert.read_export(path)
+    cfg = json.loads(config_json) if config_json else {}
+    if "params" not in variables:
+      raise ValueError(f"{os.fspath(path)}: a vocoder export holds the "
+                       "Flax variables dict (params/params/...)")
+    params, exported = variables["params"], True
+  arch = cfg.get("arch", "soundstream")
+  if arch not in ARCHS:
+    raise ValueError(f"{os.fspath(path)}: unknown vocoder arch {arch!r}; "
+                     f"known: {ARCHS}")
+  if arch == "magnitude_gl":
+    hidden = cfg.get("hidden", 512)
+    if exported:
+      params = convert.flax_convs_to_state_dict(
+          params, MagnitudeNet(hidden=hidden))
+    return HybridGLVocoder(params, hidden=hidden, num_iters=num_iters,
+                           phase_init=phase_init, momentum=momentum,
+                           device=device)
+  base_channels = cfg.get("base_channels", base_channels)
+  if exported:
+    params = _soundstream_state(params, base_channels)
+  return _soundstream(params, base_channels, device)
 
 
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(

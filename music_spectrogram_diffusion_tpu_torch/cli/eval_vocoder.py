@@ -17,7 +17,8 @@ inverted by each vocoder, and scored against the ground-truth audio with
 the multi-resolution STFT loss (`audio/vocoder_train.py stft_loss`), the
 mel round-trip L2 (re-encode and compare) and the time-domain SNR.
 Griffin-Lim is always scored; `--checkpoint` (a vocoder exported to .npz
-by tools/export_jax_checkpoint.py) adds `trained`.
+by tools/export_jax_checkpoint.py, or a model or step directory of the
+port's cli/train_vocoder.py) adds `trained`.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   p.add_argument("--checkpoint", default=None,
                  help="a trained vocoder exported to .npz "
-                      "(tools/export_jax_checkpoint.py); omit to score only "
-                      "the Griffin-Lim baseline")
+                      "(tools/export_jax_checkpoint.py) or a directory of "
+                      "cli/train_vocoder.py; omit to score only the "
+                      "Griffin-Lim baseline")
   p.add_argument("--base_channels", type=int, default=512)
   p.add_argument("--synthetic", action="store_true")
   p.add_argument("--dataset", default=None,

@@ -15,7 +15,8 @@ vocoded.
 tools/export_jax_checkpoint.py (its config_json names the family), or a
 port training checkpoint; without one the weights are random from `--seed`
 (a smoke test of the pipeline), of the context model of `--size` or of
-`--preset`'s model (any family). `--vocoder_checkpoint` is an exported vocoder (`load_trained`:
+`--preset`'s model (any family). `--vocoder_checkpoint` is an exported vocoder, or a
+model or step directory of the port's cli/train_vocoder.py (`load_trained`:
 the trained MagnitudeNet + Griffin-Lim, or a SoundStream decoder of
 `--vocoder_base_channels`); without one, `--vocoder griffin_lim` is the
 weights-free vocoder. Tokenization follows the experiment
@@ -120,7 +121,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                  choices=["griffin_lim", "none"])
   p.add_argument("--vocoder_checkpoint", default=None,
                  help="a trained vocoder exported to .npz "
-                      "(tools/export_jax_checkpoint.py); overrides --vocoder")
+                      "(tools/export_jax_checkpoint.py), or a model or "
+                      "step directory of cli/train_vocoder.py; overrides "
+                      "--vocoder")
   p.add_argument("--vocoder_base_channels", type=int, default=512,
                  help="the width of a 'soundstream' --vocoder_checkpoint "
                       "whose config does not name it")

@@ -19,7 +19,8 @@ What it computes as the JAX CLI does:
   gathered there and cast back to float32;
 * AdamW (weight decay 1e-4) under optax's
   `warmup_cosine_decay_schedule(0, lr, warmup, max(steps, warmup + 1))`,
-  both written out by hand (`AdamW`, `lr_schedule`) as optax computes them;
+  both written out by hand (`train/trainer.py AdamW`, `lr_schedule`) as
+  optax computes them;
 * the loss: cross-entropy over tokens > 0, an all-ones frames mask (the
   attention kernels run without a key mask).
 Its random numbers are its own: the initial weights (Flax's initializers
@@ -44,6 +45,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from music_spectrogram_diffusion_tpu_torch.train.trainer import AdamW
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -169,45 +172,6 @@ def lr_schedule(learning_rate: float, warmup: int,
     cosine = f32(0.5) * (f32(1.0) + f32(np.cos(f32(np.pi) * frac)))
     return float(f32(learning_rate) * cosine)
   return schedule
-
-
-class AdamW:
-  """optax.adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
-  weight_decay): Adam's bias-corrected moments, the decayed weight added
-  to the update, then the update times -learning_rate(count), count
-  starting at 0; every parameter decays (optax's mask None)."""
-
-  def __init__(self, learning_rate: Callable[[int], float],
-               weight_decay: float = 1e-4, b1: float = 0.9,
-               b2: float = 0.999, eps: float = 1e-8):
-    self.learning_rate, self.weight_decay = learning_rate, weight_decay
-    self.b1, self.b2, self.eps = b1, b2, eps
-
-  def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    return {"count": 0,
-            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
-
-  @torch.no_grad()
-  def step_(self, params: Dict[str, torch.Tensor],
-            grads: Dict[str, torch.Tensor],
-            state: Dict[str, Any]) -> Dict[str, Any]:
-    """Update `params` in place; returns the new state."""
-    count = state["count"]
-    t = count + 1
-    c1 = 1.0 - float(np.float32(self.b1) ** np.float32(t))
-    c2 = 1.0 - float(np.float32(self.b2) ** np.float32(t))
-    lr = self.learning_rate(count)
-    new = {"count": t, "mu": {}, "nu": {}}
-    for name, p in params.items():
-      g = grads[name]
-      mu = (1.0 - self.b1) * g + self.b1 * state["mu"][name]
-      nu = (1.0 - self.b2) * (g * g) + self.b2 * state["nu"][name]
-      update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-      update = update + self.weight_decay * p
-      p.add_(update * -lr)
-      new["mu"][name], new["nu"][name] = mu, nu
-    return new
 
 
 def shift_right(t: torch.Tensor) -> torch.Tensor:

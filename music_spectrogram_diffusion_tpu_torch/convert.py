@@ -18,9 +18,13 @@ exactly, as int8 and float32, and load into the DenseGeneral's int8 form
 (`infer.inference.load_serving_state_`). Float leaves of such a tree (bf16
 after the serving cast) are copied exactly in float32, like any other.
 
-The vocoders' convolutions map with `flax_convs_to_state_dict`: a Flax
-`Conv` / `ConvTranspose` kernel [k, in, out] becomes torch's conv weight
-[out, in, k], its bias is copied as it is.
+The vocoders' and their discriminators' convolutions map with
+`flax_convs_to_state_dict`: a Flax 1-d `Conv` / `ConvTranspose` kernel
+[k, in / groups, out] becomes torch's conv weight [out, in / groups, k], a
+2-d kernel [h, w, in, out] (HWIO) becomes [out, in, h, w] (OIHW), a bias
+is copied as it is. `audio/discriminators.py` names its convolutions as
+Flax does (`waves/scale_<i>/Conv_<j>`, `stft/Conv_<j>`), so a
+`VocoderDiscriminators` tree maps with it too.
 
 The trees of all three model families map this way: the context and
 notes-only diffusion networks and the autoregressive one (whose position
@@ -176,17 +180,19 @@ def read_export(path: str) -> Tuple[Dict[str, Any], str, int]:
 
 def conv_weight(kernel: np.ndarray) -> torch.Tensor:
   """A Flax Conv/ConvTranspose kernel [k, in, out] -> torch [out, in, k],
-  exactly, in float32."""
+  or a 2-d one [h, w, in, out] -> [out, in, h, w], exactly, in float32."""
   arr = np.asarray(kernel)
-  if arr.ndim != 3:
-    raise ValueError(f"a 1-d conv kernel has 3 dims, got {arr.shape}")
+  axes = {3: (2, 1, 0), 4: (3, 2, 0, 1)}.get(arr.ndim)
+  if axes is None:
+    raise ValueError(f"a 1-d or 2-d conv kernel has 3 or 4 dims, got "
+                     f"{arr.shape}")
   return torch.from_numpy(np.ascontiguousarray(
-      np.array(arr, dtype=np.float32).transpose(2, 1, 0)))
+      np.array(arr, dtype=np.float32).transpose(axes)))
 
 
 def flax_convs_to_state_dict(params: Mapping[str, Any],
                              module: nn.Module) -> Dict[str, torch.Tensor]:
-  """Map a Flax params tree of 1-d convolutions onto `module`'s state_dict:
+  """Map a Flax params tree of convolutions onto `module`'s state_dict:
   'a/b/kernel' -> 'a.b.weight' (`conv_weight`), 'a/b/bias' -> 'a.b.bias'.
   Raises if a leaf has no counterpart, a counterpart has no leaf, or a
   shape differs."""

@@ -5,8 +5,11 @@ the event layout of the JAX package's tokenizer (midi/run_length.py,
 midi/sequences.py): each segment opens with a tie section naming the notes
 still sounding (program, pitch ... tie), then per event time a shift token
 holding the absolute step within the segment, then program, velocity bin
-(1 = onset, 0 = offset) and pitch; EOS closes the segment. MIDI-file
-parsing and the full task pipeline are not ported yet (ROADMAP).
+(1 = onset, 0 = offset) and pitch; EOS closes the segment. It makes
+token segments from random notes without a MIDI file or the task pipeline
+(chip_smoke's float32 song, the synthesis and export tests); MIDI files go
+through midi/midi_io.py and cli/synthesize_midi.py `segment_midi`, and
+datasets through data/tasks.py.
 """
 
 from __future__ import annotations

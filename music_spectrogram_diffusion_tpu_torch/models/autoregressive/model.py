@@ -36,6 +36,8 @@ class AutoregressiveModel:
   """Continuous-output encoder-decoder with an output head."""
 
   USES_CONTEXT = False
+  # The loss takes no draws (train.trainer.Trainer).
+  takes_draws = False
 
   def __init__(self, module: network.ARTransformer, output_function,
                audio_codec: codecs.MelGan):

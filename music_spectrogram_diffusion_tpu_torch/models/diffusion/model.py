@@ -52,6 +52,8 @@ class DiffusionModelBase:
 
   # Whether predict() takes the previous segment's features as context.
   USES_CONTEXT = False
+  # The loss takes a step's draws (train.trainer.Trainer).
+  takes_draws = True
 
   def __init__(self, module: nn.Module,
                diffusion_config: dops.DiffusionConfig,
@@ -80,6 +82,11 @@ class DiffusionModelBase:
 
   def encode(self, batch: Mapping[str, torch.Tensor]):
     raise NotImplementedError
+
+  @staticmethod
+  def draws(generator: torch.Generator) -> dops.DrawsFn:
+    """`loss_fn`'s draws from a step's generator."""
+    return dops.generator_draws(generator)
 
   def _apply_train(self, batch: Mapping[str, torch.Tensor], z_t, time,
                    include: torch.Tensor,

@@ -1,6 +1,8 @@
 """The train step: Adafactor written out by hand, the warmup-constant LR,
 MultiSteps accumulation, and one step of a model of any family (context or
-notes-only diffusion, or autoregressive).
+notes-only diffusion, autoregressive, or a distillation round); and AdamW,
+written out as optax computes it, for the trainers that use it (the
+vocoders', the transcriber's).
 
 Port of music_spectrogram_diffusion_tpu/train/trainer.py on one device
 (the mesh waits for the port's parallelism). The JAX package trains with
@@ -16,8 +18,13 @@ used, as Flax's param_dtype); the optimizer works on a dict of its
 trainable parameters by name. A step's randomness (the diffusion draws and
 dropout; the autoregressive loss takes no draws) is seeded from (seed,
 step), as JAX folds the step into its key,
-so a resumed run reproduces the steps it continues. `Trainer.eval_step`
-is JAX's deterministic eval pass.
+so a resumed run reproduces the steps it continues. A model states
+whether its loss takes draws (`takes_draws`); one that does makes them
+from the step's generator with its `draws(generator)`, as JAX's
+`aux_params` models take their frozen tree and the step's key. (The
+distillation model holds its frozen teacher as a module of its own, so
+`Trainer.params` are the student's only.) `Trainer.eval_step` is JAX's
+deterministic eval pass.
 """
 
 from __future__ import annotations
@@ -31,8 +38,6 @@ import torch
 from music_spectrogram_diffusion_tpu_torch import config as cfg_lib
 from music_spectrogram_diffusion_tpu_torch.data import core
 from music_spectrogram_diffusion_tpu_torch.infer import inference
-from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
-    model as diffusion_model)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 
 Tensors = Dict[str, torch.Tensor]
@@ -161,6 +166,51 @@ class MultiSteps:
                                    for k, a in acc.items()}}
 
 
+class AdamW:
+  """optax.adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
+  weight_decay): Adam's bias-corrected moments, the decayed weight added
+  to the update, then the update times -learning_rate(count), count
+  starting at 0; every parameter decays (optax's mask None).
+  `torch.optim.AdamW` is another algorithm here (weight decay 1e-2 by
+  default, applied before the Adam step)."""
+
+  def __init__(self, learning_rate: Callable[[int], float],
+               weight_decay: float = 1e-4, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8):
+    self.learning_rate, self.weight_decay = learning_rate, weight_decay
+    self.b1, self.b2, self.eps = b1, b2, eps
+
+  def init(self, params: Tensors) -> Dict[str, Any]:
+    return {"count": 0,
+            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+  @torch.no_grad()
+  def step_(self, params: Tensors, grads: Tensors,
+            state: Dict[str, Any]) -> Dict[str, Any]:
+    """Update `params` in place; returns the new state."""
+    count = state["count"]
+    t = count + 1
+    c1 = 1.0 - float(np.float32(self.b1) ** np.float32(t))
+    c2 = 1.0 - float(np.float32(self.b2) ** np.float32(t))
+    lr = self.learning_rate(count)
+    new = {"count": t, "mu": {}, "nu": {}}
+    for name, p in params.items():
+      g = grads[name]
+      mu = (1.0 - self.b1) * g + self.b1 * state["mu"][name]
+      nu = (1.0 - self.b2) * (g * g) + self.b2 * state["nu"][name]
+      update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+      update = update + self.weight_decay * p
+      p.add_(update * -lr)
+      new["mu"][name], new["nu"][name] = mu, nu
+    return new
+
+
+def constant_schedule(learning_rate: float) -> Callable[[int], float]:
+  """optax's constant learning rate (a float given to optax.adamw)."""
+  return lambda count: learning_rate
+
+
 def make_optimizer(train_cfg: cfg_lib.TrainConfig):
   """Adafactor as the JAX trainer configures it (and MultiSteps with
   microbatches)."""
@@ -226,9 +276,9 @@ class Trainer:
   def __init__(self, model: inference.Model,
                train_cfg: cfg_lib.TrainConfig):
     self.model = model
-    # The diffusion loss takes the step's draws; the autoregressive one
-    # takes none (JAX's trainer calls either signature).
-    self.takes_draws = isinstance(model, diffusion_model.DiffusionModelBase)
+    # The diffusion and distillation losses take the step's draws; the
+    # autoregressive one takes none (JAX's trainer calls either signature).
+    self.takes_draws = model.takes_draws
     self.train_cfg = train_cfg
     self.optimizer = make_optimizer(train_cfg)
     self.params: Tensors = {n: p for n, p in model.module.named_parameters()
@@ -265,8 +315,12 @@ class Trainer:
     they are not JAX's threefry draws for its PRNGKey(0)."""
     batch = batch_to_device(batch, self.device)
     draws = torch.Generator(device=self.device).manual_seed(EVAL_DRAWS_SEED)
-    _, metrics = self._loss_fn(batch, dops.generator_draws(draws), None)
+    _, metrics = self._loss_fn(batch, self._draws(draws), None)
     return metrics
+
+  def _draws(self, generator: torch.Generator):
+    """The model's draws from `generator` (None for a model without)."""
+    return self.model.draws(generator) if self.takes_draws else None
 
   def _loss_fn(self, batch, draws, dropout_generator):
     if self.takes_draws:
@@ -282,8 +336,7 @@ class Trainer:
     """
     batch = batch_to_device(batch, self.device)
     draws_gen, dropout_gen = step_generators(seed, state.step, self.device)
-    metrics, grads = self.loss_and_grads(batch,
-                                         dops.generator_draws(draws_gen),
+    metrics, grads = self.loss_and_grads(batch, self._draws(draws_gen),
                                          dropout_gen)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = torch.sqrt(sum(torch.sum(g * g)

@@ -2,8 +2,9 @@
 and the port's card tools, tools/torch_*.py) pulls in neither JAX nor the
 JAX package, and a request for the card on a
 machine without one raises instead of running on the CPU: serving (every
-model family), the MIDI CLI, the vocoders (weights-free and trained), and
-training (the trainer and cli/train.py)."""
+model family), the MIDI CLI, the vocoders (weights-free and trained),
+training (the trainer and cli/train.py), distillation's student and the
+vocoder trainers and their CLI."""
 
 import os
 import subprocess
@@ -37,6 +38,9 @@ from music_spectrogram_diffusion_tpu_torch.cli import synthesize_midi
 from music_spectrogram_diffusion_tpu_torch.cli import train as train_cli
 from music_spectrogram_diffusion_tpu_torch.infer import inference
 from music_spectrogram_diffusion_tpu_torch.train import trainer
+from music_spectrogram_diffusion_tpu_torch.audio import codecs, vocoder_train
+from music_spectrogram_diffusion_tpu_torch.cli import train_vocoder
+from music_spectrogram_diffusion_tpu_torch.train import distill
 import tempfile
 never_written = tempfile.mkdtemp()
 for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
@@ -56,7 +60,15 @@ for make in (lambda: inference.InferenceModel(config.preset("context_tiny")),
              lambda: trainer.build_model(config.preset("context_tiny")),
              lambda: train_cli.main(["--synthetic", "--preset",
                                      "context_tiny", "--model_dir",
-                                     never_written])):
+                                     never_written]),
+             lambda: distill.new_student(config.preset("context_tiny"),
+                                         "cuda"),
+             lambda: vocoder_train.AdversarialVocoderTrainer(
+                 vocoder.SoundStreamDecoder(vocoder.SoundStreamConfig(
+                     base_channels=16)), codecs.MelGan()),
+             lambda: train_vocoder.main(["--model_dir", never_written,
+                                         "--synthetic", "--arch",
+                                         "magnitude_gl"])):
   try:
     make()
   except RuntimeError as e:

@@ -88,11 +88,13 @@ def _hybrid_matches(variables, hidden, log_mel, num_iters=4):
       variables, hidden=hidden, num_iters=num_iters, mel_consistency=False)
   theirs = jax_vocoder.HybridGLVocoder(variables, hidden=hidden,
                                        num_iters=num_iters)
-  ours_raw = vocoder.HybridGLVocoder(variables, hidden=hidden,
+  state = convert.flax_convs_to_state_dict(
+      variables["params"], vocoder.MagnitudeNet(hidden=hidden))
+  ours_raw = vocoder.HybridGLVocoder(state, hidden=hidden,
                                      num_iters=num_iters,
                                      mel_consistency=False, device="cpu")
-  ours = vocoder.HybridGLVocoder(variables, hidden=hidden,
-                                 num_iters=num_iters, device="cpu")
+  ours = vocoder.HybridGLVocoder(state, hidden=hidden, num_iters=num_iters,
+                                 device="cpu")
   x = torch.from_numpy(log_mel)
   raw = np.array(theirs_raw._apply(variables, jnp.asarray(log_mel)))
   _close(ours_raw.magnitude(x).numpy(), raw, MAG_REL)
