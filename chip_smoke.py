@@ -172,10 +172,13 @@ Phases, each printed on its own line with its seconds:
               memory flat across them (one captured step serves every
               length). Kernel #2 at the transcriber's training shapes
               (batch 32, 4 heads: 256x256 and 512x256);
-              cli/train_transcriber.py --synthetic_examples 64 --steps 20
-              --batch 32 (its data generated on the host by a process
+              cli/train_transcriber.py --synthetic_examples 128 --steps
+              600 --batch 32 (its data generated on the host by a process
               started at the phase's start): finite losses, kernels #1 and
-              #2 launched as predicted, s per step. cli/evaluate.py
+              #2 launched as predicted, s per step; the trained
+              transcriber on 4 new 8 s songs: tens of notes on each, a
+              mean onset F1 above 0 against their notes, the first song's
+              notes on the card equal to the CPU's. cli/evaluate.py
               --synthetic --preset context_base --compute_dtype int8
               --songs 4 --songs_per_batch 2 through `evaluate.score`,
               aggregated without CIs (each CI resample costs a host sqrtm
@@ -216,10 +219,32 @@ Phases, each printed on its own line with its seconds:
               rounding-decided L1 signs are counted, card vs CPU and
               float32 vs float64); the magnitude_gl checkpoint through
               load_trained vocodes phase 7's mel to finite audio.
+ 30. main     the ('data', 'model') mesh and the native reader. (a) Kernels
+              #1 and #2 at the local heads of the 1x2 and 1x4 meshes (6
+              and 3 of 12) at the four attention shapes (phase 3's and
+              phase 10's checks), and #3 on every column shard (N / 2,
+              N / 4) and row shard (K / 2, K / 4, the float32 partial) of
+              the int8 path, each against its plain version, timed and
+              bounded. (b) Full-width context_base float32 training, 3
+              steps at global batch 8 with the preset's dropout, at 2x1
+              and at 1x2 over two gloo ranks sharing the card
+              (torch.multiprocessing), from the same seed and batches as
+              the one-rank run: each parameter's update, the loss,
+              n_frames and grad_norm held to the one-rank run's; s a step
+              and each rank's peak memory and launches. (c) cli/train.py
+              --distributed --mesh 1x1 as one rank over NCCL (coordinator
+              on localhost), 2 steps. (d) int8 context_base renders one
+              segment eagerly with InferenceModel(mesh=1x2) over the two
+              gloo ranks, held to the one-rank eager render at the int8
+              network tolerance; s a segment and each rank's launches of
+              #1 and #3. (e) The C++ TFRecord splitter and the plain Python
+              reader on phase 27's records, with and without the CRC check:
+              MB/s and records a second, the records equal. Two ranks on
+              one card say nothing of NVLink or NCCL scaling.
 Then the vocoder phases' numbers as one JSON line, the families' phases'
 as another, phase 26's as another, phase 27's as another, phase 28's as
-another, phase 29's as another, one JSON line of the kernels, the
-nvidia-smi line again, and last
+another, phase 29's as another, phase 30's as another, one JSON line of
+the kernels, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
 """
@@ -520,14 +545,15 @@ def fwd_tolerance(dtype, plain) -> float:
   return TOLERANCE[dtype] * scale
 
 
-def kernel_phase(gen, stream, shapes=SHAPES):
+def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS):
   """The forward kernel at `shapes` ((name, q_len, kv_len, masked,
-  transposed[, heads]); HEADS where heads is not given)."""
+  transposed[, heads]); HEADS where heads is not given), each at the
+  (batch, dtype) of `runs`."""
   rows = []
   sms = torch.cuda.get_device_properties(0).multi_processor_count
   for name, q_len, kv_len, masked, transposed, *more in shapes:
     heads = more[0] if more else HEADS
-    for batch, dtype in RUNS:
+    for batch, dtype in runs:
       q, k, v, mask = attention_inputs(batch, q_len, kv_len, masked,
                                        transposed, dtype, gen, heads)
 
@@ -750,9 +776,15 @@ def guided_steps(experiment):
 def qmm_shapes(experiment, l_in: int) -> list:
   """Every int8 GEMM of one segment of the int8 path, from the config:
   [(M, K, N, dtype, launches per segment, what)], one row per distinct
-  (M, K, N, dtype). Batch 1; the CFG pair doubles the decoder's rows
-  inside the guidance interval, and cross-attention runs on the
-  conditional rows only, its K/V projected once per segment."""
+  (M, K, N, dtype)."""
+  return merge_qmm_rows(qmm_calls(experiment, l_in))
+
+
+def qmm_calls(experiment, l_in: int) -> list:
+  """`qmm_shapes`' rows before they are merged, one a projection. Batch
+  1; the CFG pair doubles the decoder's rows inside the guidance
+  interval, and cross-attention runs on the conditional rows only, its
+  K/V projected once per segment."""
   net = experiment.network()
   tl = experiment.task_lengths
   e, hd, f, c = (net.emb_dim, net.num_heads * net.head_dim, net.mlp_dim,
@@ -787,7 +819,7 @@ def qmm_shapes(experiment, l_in: int) -> list:
     add(rows_, c, 2 * e, f32, 2 * dec * steps, f"FiLM, {tag} (f32)")
     add(rows_, e, c, bf16, steps, f"time_emb_dense0, {tag}")
     add(rows_, c, c, bf16, steps, f"time_emb_dense1, {tag}")
-  return merge_qmm_rows(rows)
+  return [r for r in rows if r[4]]
 
 
 def merge_qmm_rows(rows) -> list:
@@ -807,11 +839,13 @@ def merge_qmm_rows(rows) -> list:
               merged.items(), key=lambda kv: (-kv[0][0], kv[0][1:3]))]
 
 
-def qmm_bound_ms(m, k, n, dtype):
-  """max(2MKN at the bf16 tensor-core peak, bytes at the HBM rate): x and
-  the output in `dtype`, the weight int8, the scales f32."""
+def qmm_bound_ms(m, k, n, dtype, out_dtype=None):
+  """max(2MKN at the bf16 tensor-core peak, bytes at the HBM rate): x in
+  `dtype` and the output in `out_dtype` (default `dtype`), the weight
+  int8, the scales f32."""
   elt = torch.finfo(dtype).bits // 8
-  nbytes = m * k * elt + k * n + 4 * n + m * n * elt
+  out_elt = torch.finfo(out_dtype or dtype).bits // 8
+  nbytes = m * k * elt + k * n + 4 * n + m * n * out_elt
   t_ops = 2.0 * m * k * n / PEAK_FLOPS[torch.bfloat16]
   t_bytes = nbytes / HBM_BYTES_PER_S
   return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -832,22 +866,25 @@ def eager_ms(fn, iters: int) -> float:
 
 
 def qmm_phase(shapes, gen, stream):
+  """The int8 GEMM at `shapes` ((M, K, N, x dtype, launches a segment,
+  what[, out dtype]); the output in x's dtype where none is given)."""
   rows = []
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  for m, k, n, dtype, per_segment, what in shapes:
+  for m, k, n, dtype, per_segment, what, *more in shapes:
+    out_dtype = more[0] if more else dtype
     copies = int(np.ceil(L2_BYTES / (k * n))) + 1
     q, s = quantize.quantize_kernel(
         torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5)
     qs = [q] + [q.clone() for _ in range(copies - 1)]
     ss = [s] + [s.clone() for _ in range(copies - 1)]
     x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
-    got = quantize.quantized_matmul(x, q, s)
-    again = quantize.quantized_matmul(x, q, s)
+    got = quantize.quantized_matmul(x, q, s, out_dtype=out_dtype)
+    again = quantize.quantized_matmul(x, q, s, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    want = quantize.qmm_reference(x, q, s)
+    want = quantize.qmm_reference(x, q, s, out_dtype)
     check(bool(torch.isfinite(got).all()), f"qmm {m}x{k}x{n} finite")
     err = (got.float() - want.float()).abs().max().item()
-    tol = QMM_TOLERANCE[dtype] * want.float().abs().max().item()
+    tol = QMM_TOLERANCE[out_dtype] * want.float().abs().max().item()
     check(err <= tol, f"qmm M={m} K={k} N={n} {dtype}: max |kernel - "
           f"plain| {err} > {tol}")
     check(torch.equal(got, again), f"qmm M={m} K={k} N={n} {dtype}: two "
@@ -860,14 +897,17 @@ def qmm_phase(shapes, gen, stream):
     xb = x.to(torch.bfloat16)
     iters = max(2 * copies, 50)
     ms = graph_ms(lambda i: quantize.quantized_matmul(
-        x, qs[i % copies], ss[i % copies]), iters, stream)
+        x, qs[i % copies], ss[i % copies], out_dtype=out_dtype), iters,
+                  stream)
     eager = eager_ms(lambda i: quantize.quantized_matmul(
-        x, qs[i % copies], ss[i % copies]), iters)
+        x, qs[i % copies], ss[i % copies], out_dtype=out_dtype), iters)
     plain_ms = graph_ms(lambda i: quantize.qmm_reference(
-        x, qs[i % copies], ss[i % copies]), iters, stream)
+        x, qs[i % copies], ss[i % copies], out_dtype), iters, stream)
     lib_ms = graph_ms(lambda i: xb @ wb[i % copies], iters, stream)
-    bound, bound_by = qmm_bound_ms(m, k, n, dtype)
+    bound, bound_by = qmm_bound_ms(m, k, n, dtype, out_dtype)
     dt = str(dtype).replace("torch.", "")
+    if out_dtype != dtype:
+      dt += " -> " + str(out_dtype).replace("torch.", "")
     log(f"  M={m} K={k} N={n} {dt} ({what}; {per_segment} per segment): "
         f"{route}, {plan.splits} split(s); max_abs_err {err:.3g} (tol "
         f"{tol:.3g}), two launches bitwise equal; kernel {ms:.4f} ms, eager "
@@ -3102,7 +3142,17 @@ TRANSCRIBER_SHAPES = (
     ("transcriber_cross_512x256", 512, 256, False, False, 4))
 TRANSCRIBER_DIR = os.path.join("out", "chip_smoke_transcriber")
 TRANSCRIBER_DATA = os.path.join("out", "chip_smoke_transcriber_data.npz")
-TRANSCRIBER_SONGS, TRANSCRIBER_STEPS, TRANSCRIBER_BATCH = 64, 20, 32
+# The transcriber trains long enough to transcribe: at 20 steps (its
+# warm-up's first tenth) it emitted no notes, so the card-vs-CPU check of
+# its transcription compared one note a side; at 200-800 steps on 64 songs
+# it emits 22-29 notes on an 8 s song of 24 with an onset F1 of 0-0.08,
+# memorizing its songs (train accuracy 1.0; measured on one H100 80GB
+# HBM3 at 700 W). 128 songs and 600 steps: about 30 s on the card.
+TRANSCRIBER_SONGS, TRANSCRIBER_STEPS, TRANSCRIBER_BATCH = 128, 600, 32
+# Its check (trained_transcription_check): songs of the kind it trained on
+# (8 s, TRANSCRIBER_CHECK_SONGS of them): tens of notes, an onset F1 above
+# 0 against their notes on average; the first song's notes card vs CPU.
+TRANSCRIBER_CHECK_SONGS, TRANSCRIBER_CHECK_SECONDS = 4, 8.0
 TRANSCRIBER_LAYERS = 4  # cli/train_transcriber.py --num_layers default
 EVAL_DIR = os.path.join("out", "chip_smoke_eval")
 EVAL_SONGS, EVAL_SONGS_PER_BATCH = 4, 2
@@ -3277,6 +3327,30 @@ def transcriber_card_vs_cpu(seed: int, module, cpu, cfg) -> dict:
   check(segs.shape[0] == 2 and 0 < frames - mt3.INPUT_FRAMES
         < mt3.INPUT_FRAMES, f"the clip's segments: {segs.shape}, {frames} "
         "frames")
+  margins = token_margins(cpu, seen["cpu"], card_tokens, notes)
+  equal = not margins
+  lengths = [int(np.argmax(r == 1)) + 1 if (r == 1).any() else len(r)
+             for r in card_tokens]
+  log(f"  MT3Transcriber (greedy, {MT3_CHECK_TOKENS} tokens) on a "
+      f"{MT3_TRANSCRIBE_SECONDS} s clip ({frames} frames: 2 segments, the "
+      f"second {frames - mt3.INPUT_FRAMES} frames and "
+      f"{2 * mt3.INPUT_FRAMES - frames} of padding, decoded as one batch "
+      f"of {mt3.DECODE_BATCH}), card vs CPU: "
+      + ("tokens equal, NoteSequences equal" if equal else
+         f"tokens differ at (segment, step, CPU logit margin) {margins}, "
+         f"each margin under the tolerance")
+      + f"; tokens to EOS {lengths}; {len(notes['card'].notes)} notes on "
+      f"the card, {len(notes['cpu'].notes)} on the CPU")
+  return dict(launches=cfg.num_encoder_layers, tokens_equal=equal,
+              notes=len(notes["card"].notes), margins=margins)
+
+
+def token_margins(cpu, seen_cpu, card_tokens, notes) -> list:
+  """Card against CPU tokens of one transcription: where a segment's
+  first differ, the CPU module's teacher-forced logits of the two tokens
+  there must lie within the logit tolerance; (segment, step, margin) of
+  each. Equal tokens must give equal NoteSequences (`notes`: by device)."""
+  segs, mask, cpu_tokens = seen_cpu
   margins = []
   for row in range(len(cpu_tokens)):
     diff = np.nonzero(card_tokens[row] != cpu_tokens[row])[0]
@@ -3297,26 +3371,69 @@ def transcriber_card_vs_cpu(seed: int, module, cpu, cfg) -> dict:
           f"{card_tokens[row, step]} and CPU token {cpu_tokens[row, step]} "
           f"at step {step}, CPU logit margin {margin} >= {tol}")
     margins.append((row, step, margin))
-  equal = not margins
-  if equal:
+  if not margins:
     check(note_tuples(notes["card"]) == note_tuples(notes["cpu"])
           and notes["card"].total_time == notes["cpu"].total_time,
           "MT3Transcriber: equal tokens, but the card's NoteSequence "
           "differs from the CPU's")
-  lengths = [int(np.argmax(r == 1)) + 1 if (r == 1).any() else len(r)
-             for r in card_tokens]
-  log(f"  MT3Transcriber (greedy, {MT3_CHECK_TOKENS} tokens) on a "
-      f"{MT3_TRANSCRIBE_SECONDS} s clip ({frames} frames: 2 segments, the "
-      f"second {frames - mt3.INPUT_FRAMES} frames and "
-      f"{2 * mt3.INPUT_FRAMES - frames} of padding, decoded as one batch "
-      f"of {mt3.DECODE_BATCH}), card vs CPU: "
-      + ("tokens equal, NoteSequences equal" if equal else
+  return margins
+
+
+def trained_transcription_check(card: str, seed: int) -> dict:
+  """The transcriber phase 28 trained, on TRANSCRIBER_CHECK_SONGS new
+  synthetic songs of the kind it trained on: it must emit tens of notes
+  with an onset F1 above 0 on average against the songs' notes; the
+  first song's transcription on the card must equal the CPU's (tokens,
+  or the logit margin rule of `token_margins`, and notes)."""
+  from music_spectrogram_diffusion_tpu_torch.data import synthetic
+  from music_spectrogram_diffusion_tpu_torch.infer import mt3
+  from music_spectrogram_diffusion_tpu_torch.infer import transcription
+  t0 = time.perf_counter()
+  songs = []
+  for i in range(TRANSCRIBER_CHECK_SONGS):
+    ns = synthetic.random_note_sequence(np.random.RandomState(seed + 500 + i),
+                                        duration=TRANSCRIBER_CHECK_SECONDS)
+    songs.append((ns, synthetic.render_note_sequence(
+        ns, mt3.SAMPLE_RATE, duration=TRANSCRIBER_CHECK_SECONDS)))
+  seen, notes, f1s, counts = {}, {}, [], []
+  for device in ("cuda", "cpu"):
+    t = mt3.load_trained_transcriber(TRANSCRIBER_DIR, device=device)
+
+    def recorded(segs, mask, decode=t.decode, device=device):
+      tokens = decode(segs, mask)
+      seen.setdefault(device, (segs, mask, tokens))  # the first song's
+      return tokens
+    t.decode = recorded
+    name = "card" if device == "cuda" else "cpu"
+    notes[name] = t(songs[0][1])
+    if device == "cuda":
+      for i, (ns, audio) in enumerate(songs):
+        est = notes["card"] if i == 0 else t(audio)
+        counts.append(len(est.notes))
+        f1s.append(transcription.note_onset_scores(ns, est)[
+            "Onset + program precision/recall/F1 (flat) F1"])
+    else:
+      cpu_module = t.module
+  margins = token_margins(cpu_module, seen["cpu"], seen["cuda"][2], notes)
+  mean_f1 = float(np.mean(f1s))
+  check(min(counts) >= 10, f"the trained transcriber emits {counts} notes "
+        "on the check songs, not tens")
+  check(mean_f1 > 0, f"the trained transcriber's onset F1 {f1s}: none "
+        "above 0")
+  seconds = time.perf_counter() - t0
+  log(f"  [{card}] the trained transcriber on {TRANSCRIBER_CHECK_SONGS} new "
+      f"{TRANSCRIBER_CHECK_SECONDS} s songs: notes "
+      + ", ".join(map(str, counts)) + " (the songs "
+      + ", ".join(str(len(ns.notes)) for ns, _ in songs)
+      + f"), onset F1 " + ", ".join(f"{f:.3f}" for f in f1s)
+      + f" (mean {mean_f1:.3f}); the first song card vs CPU: "
+      + ("tokens equal, NoteSequences equal" if not margins else
          f"tokens differ at (segment, step, CPU logit margin) {margins}, "
          f"each margin under the tolerance")
-      + f"; tokens to EOS {lengths}; {len(notes['card'].notes)} notes on "
-      f"the card, {len(notes['cpu'].notes)} on the CPU")
-  return dict(launches=cfg.num_encoder_layers, tokens_equal=equal,
-              notes=len(notes["card"].notes), margins=margins)
+      + f" ({len(notes['card'].notes)} notes on the card, "
+      f"{len(notes['cpu'].notes)} on the CPU); {seconds:.1f} s")
+  return dict(notes=counts, f1=f1s, tokens_equal=not margins,
+              card_vs_cpu_notes=len(notes["card"].notes), seconds=seconds)
 
 
 def transcriber_memory(card: str, seed: int, module, cfg) -> dict:
@@ -3389,12 +3506,13 @@ def transcriber_phase(card: str, seed: int, data) -> dict:
       "--model_dir", TRANSCRIBER_DIR, "--synthetic_examples",
       str(TRANSCRIBER_SONGS), "--steps", str(TRANSCRIBER_STEPS), "--batch",
       str(TRANSCRIBER_BATCH), "--seed", str(seed), "--data_cache",
-      TRANSCRIBER_DATA, "--device", "cuda"]))
+      TRANSCRIBER_DATA, "--log_period", str(TRANSCRIBER_STEPS),
+      "--checkpoint_period", str(TRANSCRIBER_STEPS), "--device", "cuda"]))
   launches = (attention.flash_attention.launches,
               attention.flash_attention_bwd.launches)
   # Each step: the encoder's self-attention and the decoder's
   # cross-attention in every layer, forward and backward; the one eval
-  # (the last step: --log_period 100) forward only.
+  # (the last step: --log_period TRANSCRIBER_STEPS) forward only.
   calls = 2 * TRANSCRIBER_LAYERS
   expected = ((TRANSCRIBER_STEPS + 1) * calls, TRANSCRIBER_STEPS * calls)
   check(launches == expected, f"transcriber training launched {launches}, "
@@ -3412,6 +3530,7 @@ def transcriber_phase(card: str, seed: int, data) -> dict:
       f"({TRANSCRIBER_STEPS} steps + 1 eval) x {calls} and "
       f"{TRANSCRIBER_STEPS} x {calls}")
   return dict(launches=launches, peak_gib=peak, wall_s=wall,
+              check=trained_transcription_check(card, seed),
               **{k: v for k, v in out.items()})
 
 
@@ -4108,6 +4227,482 @@ def vocoder_train_phase(card: str, seed: int, mel: np.ndarray) -> dict:
   return dict(runs=runs, card_vs_cpu=steps)
 
 
+
+# Phase 30: the ('data', 'model') mesh (parallel/mesh.py) and the native
+# TFRecord reader. The card is one H100, so the sharded runs are two ranks
+# that share it over gloo (NCCL refuses two ranks on one device); their
+# times say nothing of NVLink or NCCL scaling. One rank at 1x1 takes the
+# NCCL path through cli/train.py --distributed.
+SHARD_MODELS = (2, 4)  # the model groups of the 1x2 and 1x4 meshes
+PARALLEL_DIR = os.path.join("out", "chip_smoke_parallel")
+PARALLEL_STEPS = 3
+PARALLEL_MESHES = ("2x1", "1x2")
+# Sharded vs one-rank training at full width, float32, 3 steps with the
+# preset's dropout (draws at the global shape): the steps' loss, n_frames
+# and grad_norm relative within PARALLEL_METRIC_TOLERANCE (the same
+# arithmetic summed in another order over the shards, and the embedding's
+# backward adds with atomics on CUDA: measured 1.9e-6 at 2x1 on an H100
+# 80GB HBM3 at 700 W), and each parameter's gap over its total update
+# (relative RMS) within PARALLEL_UPDATE_TOLERANCE: Adafactor's g / sqrt(v)
+# turns a gradient's last bits into a visible share of an update of 1e-5
+# (measured 1.2e-3 at 2x1, at a norm scale; 2.9e-3 on the CPU against
+# JAX, tests/test_torch_parallel.py).
+PARALLEL_METRIC_TOLERANCE, PARALLEL_UPDATE_TOLERANCE = 1e-4, 1e-2
+# Sharded vs one-rank int8 serving: one decoder forward (the CFG pair's
+# rows) within the int8 network tolerance of tests/test_torch_quantize.py,
+# 2.5% of the peak and 2% RMS (a row-parallel product's partials are summed
+# in f32 and rounded to bf16 once, the one-rank kernel's sum likewise in
+# another order); the rendered segment (100 SDE-DPM++ steps) within its 2%
+# RMS, its largest bin reported: the sampler carries a forward's rounding
+# flips through 100 steps into single bins (measured 6.1% of the peak at
+# one bin, 0.74% RMS, on an H100 80GB HBM3 at 700 W).
+PARALLEL_SERVE_MAX, PARALLEL_SERVE_RMS = 2.5e-2, 2e-2
+# The native reader's share of phase 27's records.
+READER_BYTES = 48 * 2 ** 20
+
+
+def shard_qmm_shapes(experiment, l_in: int) -> list:
+  """Kernel #3's calls on the shards of the 1x2 and 1x4 meshes, from the
+  int8 path's (qmm_shapes): a projection split on N (q/k/v, the cross
+  K/V, the MLP's wi: 'joined_kv' and 'mlp') on its columns, in the
+  activations' dtype; one split on K (the attention outputs, wo, FiLM and
+  the time embedding's: 'joined_kv', 'mlp' and 'vocab' inputs) on its
+  rows, writing the float32 partial the model group sums."""
+  rows = {}
+  for m, k, n, dtype, count, what in qmm_calls(experiment, l_in):
+    column = any(w in what for w in ("q/k/v", "cross K/V", "mlp wi",
+                                     "cross q"))
+    for model in SHARD_MODELS:
+      if column:
+        key = (m, k, n // model, dtype, dtype)
+      else:
+        key = (m, k // model, n, dtype, torch.float32)
+      tag = f"1x{model} {'N' if column else 'K'} shard of {what}"
+      old = rows.get(key, (0, []))
+      rows[key] = (old[0] + count, old[1] + [tag])
+  return [(m, k, n, dtype, count, "; ".join(tags), out)
+          for (m, k, n, dtype, out), (count, tags) in sorted(
+              rows.items(), key=lambda kv: (-kv[0][0], kv[0][1:3]))]
+
+
+def shard_kernel_phase(gen, stream) -> dict:
+  """Phase 30 (a): kernels #1 and #2 at the local heads of 1x2 and 1x4
+  (6 and 3 of context_base's 12) at every attention shape, #3 on every
+  column and row shard, each against its plain version."""
+  fwd_shapes = [(f"{name}_{12 // model}h", q_len, kv_len, masked, tr,
+                 12 // model) for model in SHARD_MODELS
+                for name, q_len, kv_len, masked, tr in SHAPES]
+  # Each shape at the CFG pair's b=2, in float32 and bfloat16.
+  fwd = kernel_phase(gen, stream, fwd_shapes, RUNS[:2])
+  bwd = bwd_kernel_phase(gen, TRAIN_BATCH, fwd_shapes)
+  experiment = serving_experiment()
+  qmm = qmm_phase(shard_qmm_shapes(experiment, experiment.task_lengths.inputs),
+                  gen, stream)
+  return dict(fwd=fwd, bwd=bwd, qmm=qmm)
+
+
+def job_tag(job: dict) -> str:
+  return f"{job['mesh']}_{job['kind']}"
+
+
+def parallel_rank(rank: int, world: int, jobs: list) -> None:
+  """One rank of phase 30's runs on the card (torch.multiprocessing):
+  joins a gloo group of `world` ranks through a file under PARALLEL_DIR
+  and runs each job ('train' or 'serve' on its 'mesh') in turn, freeing
+  the card's memory between them; writes each job's numbers to
+  PARALLEL_DIR/<mesh>_<kind>_rank<r>.json (rank 0 also its full result
+  tensors, .pt)."""
+  import gc
+  from music_spectrogram_diffusion_tpu_torch.parallel import multihost
+  from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  multihost.initialize(
+      init_method="file://" + os.path.abspath(
+          os.path.join(PARALLEL_DIR, "rendezvous")),
+      num_processes=world, process_id=rank, backend="gloo", device="cuda")
+  try:
+    for job in jobs:
+      mesh = multihost.global_mesh(*mesh_lib.parse_mesh(job["mesh"]))
+      run = parallel_train if job["kind"] == "train" else parallel_serve
+      torch.cuda.reset_peak_memory_stats()
+      stats, tensors = run(mesh, job)
+      out = os.path.join(PARALLEL_DIR, f"{job_tag(job)}_rank{rank}")
+      with open(out + ".json", "w") as f:
+        json.dump(stats, f)
+      if rank == 0:
+        torch.save(tensors, out + ".pt")
+      del stats, tensors
+      gc.collect()
+      torch.cuda.empty_cache()
+  finally:
+    multihost.shutdown()
+
+
+def load_batches(path: str) -> list:
+  with np.load(path) as f:
+    flat = {k: f[k] for k in f.files}
+  count = 1 + max(int(k.split("/")[0]) for k in flat)
+  return [{k.split("/", 1)[1]: v for k, v in flat.items()
+           if k.startswith(f"{i}/")} for i in range(count)]
+
+
+def train_steps(t, batches, seed: int) -> dict:
+  """PARALLEL_STEPS steps (each rank its rows of the global batch): the
+  metrics, s a step after the first, the launches of #1 and #2, peak
+  memory."""
+  state = t.create_state()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  attention.flash_attention.launches = 0
+  attention.flash_attention_bwd.launches = 0
+  quantize.quantized_matmul.launches = 0
+  rows, stamps = [], []
+  for batch in batches:
+    state, metrics = t.train_step(state, t.shard_batch(batch), seed)
+    rows.append({k: float(metrics[k]) for k in
+                 ("loss", "n_frames", "grad_norm", "loss_per_frame")})
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+  return dict(metrics=rows,
+              s_per_step=(stamps[-1] - stamps[0]) / (len(stamps) - 1),
+              launches=[attention.flash_attention.launches,
+                        attention.flash_attention_bwd.launches,
+                        quantize.quantized_matmul.launches],
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def parallel_train(mesh, job):
+  experiment = training_experiment()
+  model = trainer.build_model(experiment, seed=job["seed"], device="cuda")
+  t = trainer.Trainer(model, experiment.train, mesh=mesh)
+  stats = train_steps(t, load_batches(job["batches"]), job["seed"] + 1)
+  params = {k: v.cpu() for k, v in t.full_params().items()}
+  return stats, params
+
+
+def serve_forward(served, batch, seed: int) -> torch.Tensor:
+  """One decoder forward of `served` on `batch` (its CFG pair's rows: the
+  conditional row and the unconditional one, which skips
+  cross-attention) at t = 0.5 from seeded z: the output on the host."""
+  model = served.model
+  tensors = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+  tensors["encoder_input_tokens"] = tensors["encoder_input_tokens"].long()
+  z = torch.randn(tensors["decoder_target_tokens"].shape, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(seed))
+  with torch.inference_mode():
+    encodings = model.encode(tensors)
+    out = model.module.decode(encodings, torch.cat([z, z]),
+                              torch.full((2,), 0.5, device="cuda"),
+                              cond_rows=1)
+  return out.float().cpu()
+
+
+def parallel_serve(mesh, job):
+  served = inference.InferenceModel(serving_experiment(), seed=job["seed"],
+                                    device="cuda", compute_dtype="int8",
+                                    mesh=mesh)
+  batch = dict(np.load(job["batch"]))
+  forward = serve_forward(served, batch, job["seed"])
+  torch.cuda.synchronize()
+  zero_counts()
+  t0 = time.perf_counter()
+  mel = served.predict(batch, seed=job["seed"], graphs=False)
+  wall = time.perf_counter() - t0
+  return dict(segment_s=wall, launches=list(launch_counts()),
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30), {
+                  "mel": torch.from_numpy(mel), "forward": forward}
+
+
+def run_ranks(jobs: list) -> dict:
+  """`jobs` on two ranks sharing the card, started once: {tag: (the
+  job's stats by rank, rank 0's tensors)}."""
+  import torch.multiprocessing as mp
+  rendezvous = os.path.join(PARALLEL_DIR, "rendezvous")
+  if os.path.exists(rendezvous):
+    os.remove(rendezvous)
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  mp.start_processes(parallel_rank, args=(2, jobs), nprocs=2, join=True,
+                     start_method="spawn")
+  out = {}
+  for job in jobs:
+    tag = job_tag(job)
+    stats = []
+    for rank in range(2):
+      with open(os.path.join(PARALLEL_DIR, f"{tag}_rank{rank}.json")) as f:
+        stats.append(json.load(f))
+    path = os.path.join(PARALLEL_DIR, f"{tag}_rank0.pt")
+    out[tag] = (stats, torch.load(path, weights_only=True))
+    os.remove(path)
+  return out
+
+
+def train_reference(seed: int) -> dict:
+  """Phase 30 (b), one rank: full-width context_base, float32, 3 steps at
+  batch 8 with the preset's dropout; the batches written for the ranks;
+  the initial and final parameters on the host."""
+  experiment = training_experiment()
+  batches = training_batches(experiment, TRAIN_BATCH, PARALLEL_STEPS, seed)
+  path = os.path.join(PARALLEL_DIR, "batches.npz")
+  np.savez(path, **{f"{i}/{k}": np.asarray(v) for i, b in enumerate(batches)
+                    for k, v in b.items()})
+  model = trainer.build_model(experiment, seed=seed, device="cuda")
+  start = {k: v.detach().cpu().clone()
+           for k, v in model.module.state_dict().items()}
+  t = trainer.Trainer(model, experiment.train)
+  one = train_steps(t, batches, seed + 1)
+  final = {k: v.detach().cpu() for k, v in model.module.state_dict().items()}
+  del t, model
+  torch.cuda.empty_cache()
+  return dict(batches=path, start=start, final=final, one=one)
+
+
+def check_training(card: str, mesh_spec: str, stats, params, ref) -> dict:
+  """Phase 30 (b), a mesh's run over two gloo ranks sharing the card,
+  from the same initial weights (the seed) and batches as the one-rank
+  run: its updated parameters, loss, n_frames and grad_norm held to the
+  one-rank run's."""
+  start, final, one = ref["start"], ref["final"], ref["one"]
+  worst, worst_name, param_gap = 0.0, None, 0.0
+  for name, want in final.items():
+    param_gap = max(param_gap, rel_rms(params[name], want))
+    update = (want - start[name]).float()
+    if not update.abs().max() > 0:
+      check(torch.equal(params[name], want), f"{mesh_spec}: {name} "
+            "moved where the one-rank run left it")
+      continue
+    gap = rel_rms(params[name] - start[name], update)
+    if gap > worst:
+      worst, worst_name = gap, name
+  metric_gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(stats[0]["metrics"], one["metrics"])
+                   for k in ("loss", "n_frames", "grad_norm"))
+  check(worst <= PARALLEL_UPDATE_TOLERANCE
+        and metric_gap <= PARALLEL_METRIC_TOLERANCE,
+        f"{mesh_spec} training vs one rank: parameter update gap {worst} "
+        f"({worst_name}; tol {PARALLEL_UPDATE_TOLERANCE}), metrics "
+        f"{metric_gap} (tol {PARALLEL_METRIC_TOLERANCE})")
+  check(all(s["metrics"] == stats[0]["metrics"] for s in stats),
+        f"{mesh_spec}: the ranks' metrics differ")
+  launches = [sum(s["launches"][i] for s in stats) for i in range(3)]
+  check(all(s["launches"][0] > 0 and s["launches"][1] > 0 for s in stats)
+        and launches[2] == 0, f"{mesh_spec}: launches {stats}")
+  out = dict(
+      s_per_step=max(s["s_per_step"] for s in stats),
+      peak_gib=[s["peak_gib"] for s in stats], launches=launches,
+      launches_by_rank=[s["launches"] for s in stats],
+      update_gap=worst, worst_param=worst_name, param_gap=param_gap,
+      metric_gap=metric_gap,
+      metrics=stats[0]["metrics"])
+  log(f"  [{card}] {mesh_spec} over 2 gloo ranks on one card, "
+      f"{PARALLEL_STEPS} steps at global batch {TRAIN_BATCH}: loss "
+      + ", ".join(f"{m['loss']:.2f}" for m in stats[0]["metrics"])
+      + f"; against one rank: parameter update gap {worst:.3g} "
+      f"({worst_name}; tol {PARALLEL_UPDATE_TOLERANCE}), parameters "
+      f"{param_gap:.3g} relative RMS, loss/n_frames/grad_norm "
+      f"{metric_gap:.3g} (tol {PARALLEL_METRIC_TOLERANCE}); "
+      f"{out['s_per_step']:.3f} s per "
+      f"step (one rank: {one['s_per_step']:.3f}); peak memory by rank "
+      + ", ".join(f"{p:.2f}" for p in out["peak_gib"])
+      + f" GiB (one rank {one['peak_gib']:.2f}); launches by rank "
+      f"(#1, #2, #3) {out['launches_by_rank']}")
+  return out
+
+
+def nccl_phase(card: str, seed: int) -> dict:
+  """Phase 30 (c): cli/train.py --distributed --mesh 1x1 as one rank over
+  NCCL (a coordinator on localhost), 2 steps of context_base."""
+  import socket
+  with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+  model_dir = os.path.join(PARALLEL_DIR, "nccl")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, "-m", "music_spectrogram_diffusion_tpu_torch.cli.train",
+       "--synthetic", "--preset", "context_base", "--batch",
+       str(TRAIN_BATCH), "--steps", "2", "--synthetic_examples",
+       str(TRAIN_SONGS), "--log_period", "1", "--seed", str(seed),
+       "--model_dir", model_dir, "--distributed", "--mesh", "1x1",
+       "--coordinator", f"localhost:{port}", "--num_processes", "1",
+       "--process_id", "0"], capture_output=True, text=True, timeout=600)
+  wall = time.perf_counter() - t0
+  check(proc.returncode == 0, f"cli/train.py over NCCL failed:\n"
+        f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+  lines = metrics_lines(model_dir)
+  check([m["step"] for m in lines] == [1, 2]
+        and all(np.isfinite(m["loss"]) for m in lines),
+        f"cli/train.py over NCCL logged {lines}")
+  mesh_line = [l for l in proc.stdout.splitlines() if l.startswith("mesh:")]
+  log(f"  [{card}] cli/train.py --distributed --mesh 1x1 over NCCL "
+      f"(coordinator localhost): {mesh_line[0] if mesh_line else ''}; "
+      f"losses " + ", ".join(f"{m['loss']:.2f}" for m in lines)
+      + f"; {wall:.1f} s in all (a process: start, model, data, 2 steps)")
+  shutil.rmtree(model_dir, ignore_errors=True)
+  return dict(losses=[m["loss"] for m in lines], wall_s=wall)
+
+
+def serve_reference(seed: int) -> dict:
+  """Phase 30 (d), one rank: int8 context_base, one decoder forward and
+  one segment rendered eagerly (timed after a first render); the batch
+  written for the ranks."""
+  experiment = serving_experiment()
+  tl = experiment.task_lengths
+  tokens = song_tokens(seed, experiment)[0]
+  batch = {"encoder_input_tokens": np.zeros((1, tl.inputs), np.int32),
+           "encoder_continuous_inputs": np.zeros(
+               (1, tl.targets_context, 128), np.float32),
+           "encoder_continuous_mask": np.zeros((1, tl.targets_context),
+                                               bool),
+           "decoder_target_tokens": np.zeros((1, tl.targets, 128),
+                                             np.float32)}
+  batch["encoder_input_tokens"][0, :len(tokens)] = tokens
+  path = os.path.join(PARALLEL_DIR, "segment.npz")
+  np.savez(path, **batch)
+  served = inference.InferenceModel(experiment, seed=seed, device="cuda",
+                                    compute_dtype="int8")
+  want_forward = serve_forward(served, batch, seed)
+  served.predict(batch, seed=seed, graphs=False)
+  torch.cuda.synchronize()
+  zero_counts()
+  t0 = time.perf_counter()
+  want = served.predict(batch, seed=seed, graphs=False)
+  one_s = time.perf_counter() - t0
+  one_launches = launch_counts()
+  del served
+  torch.cuda.empty_cache()
+  return dict(batch=path, forward=want_forward, mel=want, one_s=one_s,
+              launches=one_launches, tokens=len(tokens))
+
+
+def check_serving(card: str, stats, tensors, ref) -> dict:
+  """Phase 30 (d): the int8 render with InferenceModel(mesh=1x2) over the
+  two gloo ranks (its single render, after one decoder forward, timed as
+  it is: it takes seconds of all_reduces, a first call's own costs
+  milliseconds) against the one-rank render."""
+  want_forward, want = ref["forward"], ref["mel"]
+  one_s, one_launches = ref["one_s"], ref["launches"]
+  got_forward = tensors["forward"]
+  f_err = (got_forward - want_forward).abs().max().item()
+  f_peak = want_forward.abs().max().item()
+  f_rms = rel_rms(got_forward, want_forward)
+  check(f_err <= PARALLEL_SERVE_MAX * f_peak and f_rms <= PARALLEL_SERVE_RMS,
+        f"1x2 int8 decoder forward vs one rank: max {f_err} (tol "
+        f"{PARALLEL_SERVE_MAX} x {f_peak}), relative RMS {f_rms} (tol "
+        f"{PARALLEL_SERVE_RMS})")
+  got = tensors["mel"].numpy()
+  peak = np.abs(want).max()
+  err = np.abs(got - want).max()
+  rms = float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
+  check(got.shape == want.shape and bool(np.isfinite(got).all()),
+        f"sharded render {got.shape}")
+  check(rms <= PARALLEL_SERVE_RMS, f"1x2 int8 render vs one rank: relative "
+        f"RMS {rms} > {PARALLEL_SERVE_RMS}")
+  for s in stats:
+    check(s["launches"][0] == one_launches[0]
+          and s["launches"][1] == one_launches[1],
+          f"1x2 rank launches {s['launches']}, one rank {one_launches}")
+  log(f"  [{card}] int8 context_base, one segment (tokens {ref['tokens']}), "
+      f"eager, the serving sampler: 1x2 over 2 gloo ranks on one card "
+      f"against one rank: one decoder forward max |diff| {f_err / f_peak:.3g}"
+      f" of the peak (tol {PARALLEL_SERVE_MAX}), relative RMS {f_rms:.3g} "
+      f"(tol {PARALLEL_SERVE_RMS}); the segment max |diff| {err:.3g} "
+      f"({err / peak:.3g} of the peak, reported), relative RMS {rms:.3g} "
+      f"(tol {PARALLEL_SERVE_RMS}); s a segment: 1x2 "
+      + ", ".join(f"{s['segment_s']:.3f}" for s in stats)
+      + f" by rank, one rank {one_s:.3f}; launches (#1, #3) by rank "
+      + ", ".join(str(tuple(s["launches"])) for s in stats)
+      + f", one rank {one_launches}; peak memory by rank "
+      + ", ".join(f"{s['peak_gib']:.2f}" for s in stats) + " GiB")
+  return dict(forward_max_rel_err=f_err / f_peak, forward_rel_rms=f_rms,
+              max_rel_err=float(err / peak), rel_rms=rms,
+              segment_s=[s["segment_s"] for s in stats], one_rank_s=one_s,
+              launches_by_rank=[s["launches"] for s in stats],
+              launches=[sum(s["launches"][i] for s in stats)
+                        for i in range(2)],
+              one_rank_launches=list(one_launches))
+
+
+def native_reader_phase(card: str) -> dict:
+  """Phase 30 (e): phase 27's records through the C++ splitter and the
+  plain Python reader, with and without the CRC check: MB/s and records
+  (examples) a second of each, on the host; the records equal."""
+  import glob
+  from music_spectrogram_diffusion_tpu_torch.data import datasets
+  from music_spectrogram_diffusion_tpu_torch.data import native
+  files = sorted(p for p in glob.glob(os.path.join(DATA_ROOT, "**", "*"),
+                                      recursive=True)
+                 if os.path.isfile(p) and ".tfrecord" in p)
+  check(len(files) >= 14, f"phase 27's records: {len(files)} files")
+  # The first files in path order up to READER_BYTES (the plain reader's
+  # CRC takes 0.14 s a MB).
+  paths, size = [], 0
+  for p in files:
+    if size and size + os.path.getsize(p) > READER_BYTES:
+      break
+    paths.append(p)
+    size += os.path.getsize(p)
+  rates = {}
+  for verify in (False, True):
+    for name, read in (("cpp", lambda p, v: native.split_tfrecords(
+        open(p, "rb").read(), v)), ("python", lambda p, v: list(
+            datasets.iter_tfrecords_py(p, v)))):
+      t0 = time.perf_counter()
+      records = [read(p, verify) for p in paths]
+      wall = time.perf_counter() - t0
+      rates[f"{name}{'_crc' if verify else ''}"] = dict(
+          mb_per_s=size / 1e6 / wall,
+          examples_per_s=sum(len(r) for r in records) / wall, seconds=wall)
+      if name == "cpp":
+        reference = records
+      else:
+        check(records == reference, f"the C++ and Python readers differ "
+              f"(crc {verify})")
+  n = sum(len(r) for r in reference)
+  log(f"  [host] the TFRecord reader on phase 27's {len(paths)} files "
+      f"({size / 2**20:.1f} MiB, {n} records), records equal: "
+      + "; ".join(f"{k} {v['mb_per_s']:.1f} MB/s, {v['examples_per_s']:.1f} "
+                  f"examples/s" for k, v in rates.items()))
+  return dict(files=len(paths), bytes=size, records=n, rates=rates)
+
+
+def parallel_phase(card: str, seed: int, gen, stream) -> dict:
+  """Phase 30, (a) to (e). The one-rank references of (b) and (d) run
+  here first; then two ranks started once run (b) at 2x1 and 1x2 and (d)
+  at 1x2, one after the other."""
+  shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+  os.makedirs(PARALLEL_DIR)
+  t0 = time.perf_counter()
+  kernels = shard_kernel_phase(gen, stream)
+  times = {"kernels_s": time.perf_counter() - t0}
+  t0 = time.perf_counter()
+  train_ref, serve_ref = train_reference(seed), serve_reference(seed)
+  times["one_rank_s"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  jobs = [dict(mesh=m, kind="train", seed=seed, batches=train_ref["batches"])
+          for m in PARALLEL_MESHES]
+  jobs.append(dict(mesh="1x2", kind="serve", seed=seed,
+                   batch=serve_ref["batch"]))
+  results = run_ranks(jobs)
+  times["two_ranks_s"] = time.perf_counter() - t0
+  training = {"1x1": train_ref["one"]}
+  for m in PARALLEL_MESHES:
+    training[m] = check_training(card, m, *results[f"{m}_train"], train_ref)
+  serving = check_serving(card, *results["1x2_serve"], serve_ref)
+  t0 = time.perf_counter()
+  nccl = nccl_phase(card, seed)
+  times["nccl_s"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  reader = native_reader_phase(card)
+  times["reader_s"] = time.perf_counter() - t0
+  shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+  torch.cuda.empty_cache()
+  return dict(kernels=kernels, training=training, nccl=nccl,
+              serving=serving, reader=reader, seconds=times)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -4359,13 +4954,27 @@ def main() -> int:
       f"s)")
   student_launches = distillation["student"]["case"]["launches_captured"]
 
+  t0 = time.perf_counter()
+  parallel = parallel_phase(card, args.seed, gen, capture)
+  log(f"phase 30 main path, the mesh and the native reader: kernels #1-#3 "
+      f"at the 1x2 and 1x4 shards, context_base training at 2x1 and 1x2 "
+      f"and int8 serving at 1x2 over two gloo ranks on one card, "
+      f"cli/train.py over NCCL at 1x1, the C++ TFRecord splitter "
+      f"({time.perf_counter() - t0:.2f} s: "
+      + ", ".join(f"{k} {v:.1f}" for k, v in parallel["seconds"].items())
+      + ")")
+  sharded = {f"sharded_training_{m}": parallel["training"][m]["launches"]
+             for m in PARALLEL_MESHES}
+  sharded_serve = parallel["serving"]["launches"]
+
   # Each kernel's numbers: one call at each of its main-path shapes (the
   # attention kernel's f32 calls at b=2), summed.
   # The context model's int8 path, a segment (phase 7).
   qmm_ms_segment = sum(r["ms"] * r["launches_per_segment"] for r in qmm_rows)
-  rows = rows + family_rows + mt3_summary["rows"]
-  bwd_rows = bwd_rows + family_bwd_rows + transcriber_bwd_rows
-  qmm_rows = qmm_rows + ar_qmm_rows
+  rows = rows + family_rows + mt3_summary["rows"] + parallel["kernels"]["fwd"]
+  bwd_rows = (bwd_rows + family_bwd_rows + transcriber_bwd_rows
+              + parallel["kernels"]["bwd"])
+  qmm_rows = qmm_rows + ar_qmm_rows + parallel["kernels"]["qmm"]
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
 
   def total(key, rows_):
@@ -4388,7 +4997,9 @@ def main() -> int:
                    + mt3_summary["launches"] + transcriber["launches"][0]
                    + evaluation["launches"][0]
                    + evaluation["shard_launches"][0]
-                   + distillation["launches"][0] + student_launches[0]),
+                   + distillation["launches"][0] + student_launches[0]
+                   + sum(v[0] for v in sharded.values())
+                   + sharded_serve[0]),
       "launches_by_path": {"float32": f32_launches,
                            "int8": int8_launches[0],
                            "training": train_launches[0],
@@ -4413,7 +5024,9 @@ def main() -> int:
                            "evaluate_gt_encoded_shards":
                                evaluation["shard_launches"][0],
                            "distillation": distillation["launches"][0],
-                           "distilled_student_int8": student_launches[0]},
+                           "distilled_student_int8": student_launches[0],
+                           **{k: v[0] for k, v in sharded.items()},
+                           "sharded_serving_1x2_int8": sharded_serve[0]},
       "max_abs_err": max(r["max_abs_err"] for r in f32),
       "ms": total("ms", f32),
       "plain_ms": total("plain_ms", f32),
@@ -4431,7 +5044,8 @@ def main() -> int:
                    + notes_summary["launches"][1]
                    + ar_summary["launches"][1]
                    + data["full_song"]["launches"][1]
-                   + evaluation["launches"][1] + student_launches[1]),
+                   + evaluation["launches"][1] + student_launches[1]
+                   + sharded_serve[1]),
       "launches_by_path": {"int8": int8_launches[1],
                            "int8_streamed": stream_launches[1],
                            "notes_only_int8": notes_summary["launches"][1],
@@ -4439,7 +5053,8 @@ def main() -> int:
                            "dataset_full_song_int8":
                                data["full_song"]["launches"][1],
                            "evaluate_int8": evaluation["launches"][1],
-                           "distilled_student_int8": student_launches[1]},
+                           "distilled_student_int8": student_launches[1],
+                           "sharded_serving_1x2_int8": sharded_serve[1]},
       "max_abs_err": max(r["max_abs_err"] for r in qmm_rows),
       "ms": total("ms", qmm_rows),
       "plain_ms": total("plain_ms", qmm_rows),
@@ -4459,7 +5074,8 @@ def main() -> int:
                    + sum(v["launches"][1] for v in family_train.values())
                    + data["training"]["launches"][1]
                    + transcriber["launches"][1]
-                   + distillation["launches"][1]),
+                   + distillation["launches"][1]
+                   + sum(v[1] for v in sharded.values())),
       "launches_by_path": {"training": train_launches[1],
                            "training_bf16_remat": bf16_launches[1],
                            "training_bf16_remat_batch_32":
@@ -4471,7 +5087,8 @@ def main() -> int:
                                data["training"]["launches"][1],
                            "transcriber_training":
                                transcriber["launches"][1],
-                           "distillation": distillation["launches"][1]},
+                           "distillation": distillation["launches"][1],
+                           **{k: v[1] for k, v in sharded.items()}},
       "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
       "ms": total("ms", bwd_rows),
       "plain_ms": total("plain_ms", bwd_rows),
@@ -4509,6 +5126,8 @@ def main() -> int:
       mt3={k: v for k, v in mt3_summary.items() if k != "rows"},
       transcriber=transcriber, evaluate=evaluation)))
   log("distillation " + json.dumps(distillation))
+  log("parallel " + json.dumps({k: v for k, v in parallel.items()
+                                if k != "kernels"}))
   print(json.dumps(kernels))
   print(card)
   print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
   python -m music_spectrogram_diffusion_tpu_torch.cli.distill \
       --teacher /path/to/step_500000 --model_dir /tmp/distilled \
-      --rounds 2 --steps_per_round 10000 --synthetic [--device cpu]
+      --rounds 2 --steps_per_round 10000 --synthetic [--device cpu] \
+      [--mesh 4x2]
 
 Port of music_spectrogram_diffusion_tpu/cli/distill.py, with its flags and
 defaults (and `--device`, default cuda). Round r: the teacher at N steps
@@ -25,7 +26,11 @@ already-guided teacher at 1.0. Each round checks that its teacher's
 weights did not change (`distill.param_digest`) and prints its seconds per
 step and, on the card, its peak memory.
 
-Not ported, and refused: --mesh.
+`--mesh DATAxMODEL` distills on a ('data', 'model') mesh over the
+processes (parallel/mesh.py), the teacher and the student split by the
+same rules; launched by torchrun (its environment joins the process group,
+parallel/multihost.py), or in a process that has joined one. A mesh that
+does not match the number of processes raises.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
   p.add_argument("--rounds", type=int, default=2)
   p.add_argument("--steps_per_round", type=int, default=10_000)
   p.add_argument("--batch", type=int, default=None)
-  p.add_argument("--mesh", default=None, help="not ported")
+  p.add_argument("--mesh", default=None, help="DATAxMODEL, e.g. 4x2")
   p.add_argument("--synthetic", action="store_true",
                  help="distill on the synthetic sine dataset (smoke)")
   p.add_argument("--synthetic_examples", type=int, default=64,
@@ -68,8 +73,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                  help="'cuda' (the default) or 'cpu'")
   args = p.parse_args(argv)
   if args.mesh:
-    p.error("--mesh: not ported to the PyTorch package yet (it trains on "
-            "one device)")
+    from music_spectrogram_diffusion_tpu_torch.parallel import (
+        mesh as mesh_lib)
+    try:
+      mesh_lib.parse_mesh(args.mesh)
+    except ValueError as e:
+      p.error(str(e))
   from music_spectrogram_diffusion_tpu_torch.data import datasets
   if not args.synthetic and args.dataset not in datasets.ALL_DATASET_CONFIGS:
     p.error(f"unknown dataset {args.dataset!r}; "
@@ -80,19 +89,42 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
   """Runs the rounds; returns one summary a round: its step counts,
   directory, seconds, peak device memory (None on the CPU) and the
-  teacher's `param_digest` (the same before and after the round)."""
+  teacher's `param_digest` (the same before and after the round). With
+  --mesh under torchrun it joins the process group (unless the caller
+  has) and leaves what it joined at the end."""
   args = parse_args(argv)
+  import torch.distributed as dist
+  from music_spectrogram_diffusion_tpu_torch.parallel import multihost
+
+  if not os.path.exists(args.teacher):
+    raise FileNotFoundError(f"no teacher checkpoint at {args.teacher}")
+  if not (args.mesh and not dist.is_initialized()
+          and "WORLD_SIZE" in os.environ):
+    return _distill(args, args.device)
+  device = multihost.initialize(device=args.device)
+  try:
+    return _distill(args, device)
+  finally:
+    multihost.shutdown()
+
+
+def _distill(args: argparse.Namespace, device) -> List[dict]:
   import torch
 
   from music_spectrogram_diffusion_tpu_torch.data import datasets, registry
   from music_spectrogram_diffusion_tpu_torch.infer import inference
+  from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
+  from music_spectrogram_diffusion_tpu_torch.parallel import multihost
   from music_spectrogram_diffusion_tpu_torch.train import (distill, loop,
                                                            trainer)
 
-  if not os.path.exists(args.teacher):
-    raise FileNotFoundError(f"no teacher checkpoint at {args.teacher}")
-  wrapper = inference.load_checkpoint(args.teacher, device=args.device,
-                                      compute_dtype="float32")
+  mesh = None
+  if args.mesh:
+    mesh = multihost.global_mesh(*mesh_lib.parse_mesh(args.mesh))
+    print(f"mesh: {mesh.shape}, this process rank "
+          f"{multihost.process_index()}")
+  wrapper = inference.load_checkpoint(args.teacher, device=device,
+                                      compute_dtype="float32", mesh=mesh)
   teacher_exp, teacher = wrapper.experiment, wrapper.model
   print(f"teacher: {args.teacher} (step {wrapper.step}; sampler "
         f"{teacher_exp.diffusion.sampler.name} "
@@ -146,15 +178,22 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
             learning_rate=args.learning_rate,
             warmup_steps=args.warmup_steps))
     digest = distill.param_digest(teacher.module.parameters())
+    student = distill.new_student(student_exp, device)
+    if mesh is not None:  # split as the teacher, before it loads its weights
+      mesh_lib.shard_module_(student.module, mesh)
     dmodel = distill.DistillModel(
-        distill.new_student(student_exp, args.device), teacher,
+        student, teacher,
         student_steps,
         guidance_weight=(args.guidance_weight if round_idx == 0 else 1.0))
-    ds = (task.model_dataset(lengths, training=True,
-                             seed=args.seed + round_idx,
-                             num_threads=args.data_threads)
-          .repeat().batch(batch_size).prefetch(4, num_threads=4))
-    t = trainer.Trainer(dmodel, student_exp.train)
+    ds = task.model_dataset(lengths, training=True,
+                            seed=args.seed + round_idx,
+                            num_threads=args.data_threads).repeat()
+    local_batch = batch_size
+    if mesh is not None and multihost.process_count() > 1:
+      ds = multihost.shard_for_host(ds, mesh=mesh)
+      local_batch = multihost.process_local_batch_size(batch_size, mesh)
+    ds = ds.batch(local_batch).prefetch(4, num_threads=4)
+    t = trainer.Trainer(dmodel, student_exp.train, mesh=mesh)
     round_dir = os.path.join(args.model_dir, f"round_{round_idx}")
     train_loop = loop.TrainLoop(trainer=t, experiment=student_exp,
                                 model_dir=round_dir,

@@ -6,7 +6,9 @@ synthetic task.
       [--dataset maestrov3 | mega] [--data_root /data/mirror] \
       [--cache_root /data/cache] [--synthetic] [--steps 1000] [--batch 8] \
       [--microbatches 2] [--remat] [--eval_batches 2 --eval_period 1000] \
-      [--shuffle_buffer 256] [--data_threads 8] [--device cpu]
+      [--shuffle_buffer 256] [--data_threads 8] [--device cpu] \
+      [--mesh 4x2] [--distributed [--coordinator host:port \
+      --num_processes N --process_id I]]
 
 Port of music_spectrogram_diffusion_tpu/cli/train.py. The data: `--dataset`
 (default maestrov3, as JAX's) names one of the seven dataset configs
@@ -30,7 +32,17 @@ task's cache is built there on the first run); `--shuffle_buffer` and
 `--data_threads` set the data pipeline's shuffle and thread pool. The model
 computes in the preset's dtype (the CLI, as JAX's, has no dtype flag).
 
-Not ported, and refused: --mesh and --distributed.
+Parallelism, as JAX's flags: `--mesh DATAxMODEL` trains on a ('data',
+'model') mesh over the processes (parallel/mesh.py: the batch over data,
+the MLP, heads and vocab over model); `--distributed` joins the process
+group first (parallel/multihost.py), through `--coordinator host:port`,
+`--num_processes` and `--process_id`, or torchrun's environment without
+them; one process a card, NCCL between cards (gloo with --device cpu).
+Without --mesh a distributed run is data-parallel over every process. A
+mesh that does not match the number of processes raises. With several
+processes each feeds its data group's round-robin share of the examples
+at the process-local batch size; only rank 0 writes checkpoints and
+metrics, and a checkpoint holds the full tensors (it resumes on any mesh).
 """
 
 from __future__ import annotations
@@ -39,10 +51,6 @@ import argparse
 import dataclasses
 import itertools
 from typing import Optional, Sequence
-
-# Flags of the JAX CLI whose modules the port has not got; any value given
-# is refused.
-NOT_PORTED = ("mesh", "distributed")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -87,17 +95,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                       "compute)")
   p.add_argument("--device", default="cuda",
                  help="'cuda' (the default) or 'cpu'")
-  for name in NOT_PORTED:
-    flag = f"--{name}"
-    if name == "distributed":
-      p.add_argument(flag, action="store_true", help="not ported")
-    else:
-      p.add_argument(flag, default=None, help="not ported")
+  p.add_argument("--mesh", default=None,
+                 help="DATAxMODEL, e.g. 4x2 (data x tensor parallelism)")
+  # Multi-process: run the same command in every process (see
+  # parallel/multihost.py for the launch procedure).
+  p.add_argument("--distributed", action="store_true",
+                 help="join the torch.distributed process group "
+                      "(multi-process training)")
+  p.add_argument("--coordinator", default=None,
+                 help="coordinator host:port (without torchrun)")
+  p.add_argument("--num_processes", type=int, default=None)
+  p.add_argument("--process_id", type=int, default=None)
   args = p.parse_args(argv)
-  given = [f"--{n}" for n in NOT_PORTED if getattr(args, n)]
-  if given:
-    p.error(f"{', '.join(given)}: not ported to the PyTorch package yet "
-            "(it trains on one device)")
+  from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
+  if args.mesh:
+    try:
+      mesh_lib.parse_mesh(args.mesh)
+    except ValueError as e:
+      p.error(str(e))
   from music_spectrogram_diffusion_tpu_torch.data import datasets
   if (not args.synthetic and args.dataset != "mega"
       and args.dataset not in datasets.ALL_DATASET_CONFIGS):
@@ -122,17 +137,45 @@ def experiment_from_args(args: argparse.Namespace):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-  """Runs the training; returns the final TrainState and the trainer."""
+  """Runs the training; returns the final TrainState and the trainer.
+  With --distributed it joins the process group (unless the caller has)
+  and leaves what it joined at the end."""
   args = parse_args(argv)
+  import torch.distributed as dist
+  from music_spectrogram_diffusion_tpu_torch.parallel import multihost
+
+  if not (args.distributed and not dist.is_initialized()):
+    return _train(args, args.device)
+  device = multihost.initialize(coordinator_address=args.coordinator,
+                                num_processes=args.num_processes,
+                                process_id=args.process_id,
+                                device=args.device)
+  try:
+    return _train(args, device)
+  finally:
+    multihost.shutdown()
+
+
+def _train(args: argparse.Namespace, device):
   import numpy as np
   from music_spectrogram_diffusion_tpu_torch.data import datasets
   from music_spectrogram_diffusion_tpu_torch.data import registry
   from music_spectrogram_diffusion_tpu_torch.data import tasks
+  from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
+  from music_spectrogram_diffusion_tpu_torch.parallel import multihost
   from music_spectrogram_diffusion_tpu_torch.train import loop, trainer
 
+  mesh = None
+  if args.mesh:
+    mesh = multihost.global_mesh(*mesh_lib.parse_mesh(args.mesh))
+  elif args.distributed:
+    mesh = multihost.global_mesh(model=1)
+  if mesh is not None:
+    print(f"mesh: {mesh.shape} over {multihost.process_count()} "
+          f"process(es), this one rank {multihost.process_index()}")
+
   experiment = experiment_from_args(args)
-  model = trainer.build_model(experiment, seed=args.seed,
-                              device=args.device)
+  model = trainer.build_model(experiment, seed=args.seed, device=device)
   print(f"device: {model.device}")
 
   tl = experiment.task_lengths
@@ -195,9 +238,15 @@ def main(argv: Optional[Sequence[str]] = None):
     ds = task.model_dataset(lengths, seed=args.seed,
                             shuffle_buffer_size=args.shuffle_buffer,
                             num_threads=args.data_threads).repeat()
+  # Several processes: each feeds its data group's round-robin share of the
+  # stream at the process-local batch size (the ranks of a model group the
+  # same rows).
+  if multihost.process_count() > 1:
+    ds = multihost.shard_for_host(ds, mesh=mesh)
+    batch_size = multihost.process_local_batch_size(batch_size, mesh)
   ds = ds.batch(batch_size).prefetch(4, num_threads=2)
 
-  t = trainer.Trainer(model, experiment.train)
+  t = trainer.Trainer(model, experiment.train, mesh=mesh)
   n_params = sum(p.numel() for p in model.module.parameters())
   print(f"params: {n_params / 1e6:.1f}M "
         f"({sum(p.numel() for p in t.params.values()) / 1e6:.1f}M trained)")
@@ -217,14 +266,16 @@ def main(argv: Optional[Sequence[str]] = None):
       print("--eval_batches: no held-out eval for the mega mixture (as the "
             "JAX CLI)")
   if eval_task is not None:
+    # Every process makes the same global batches and scores its rows.
     eval_set = list(itertools.islice(
         iter(eval_task.model_dataset(lengths, seed=1,
                                      num_threads=args.data_threads)
-             .repeat().batch(batch_size)), args.eval_batches))
+             .repeat().batch(experiment.train.batch_size)),
+        args.eval_batches))
 
     def eval_fn(state):
       del state  # the parameters are the model's
-      per_batch = [t.eval_step(b) for b in eval_set]
+      per_batch = [t.eval_step(t.shard_batch(b)) for b in eval_set]
       return {k: float(np.mean([float(m[k]) for m in per_batch]))
               for k, v in per_batch[0].items() if v.numel() == 1}
 
@@ -232,7 +283,11 @@ def main(argv: Optional[Sequence[str]] = None):
                               model_dir=args.model_dir,
                               log_period=args.log_period, eval_fn=eval_fn)
   state = train_loop.maybe_resume(t.create_state())
-  state = train_loop.run(iter(ds), state, seed=args.seed + 1)
+  batches = iter(ds)
+  if mesh is not None and multihost.process_count() > 1:
+    batches = (multihost.host_local_batch_to_global(b, mesh, model.device)
+               for b in batches)
+  state = train_loop.run(batches, state, seed=args.seed + 1)
   return state, t
 
 

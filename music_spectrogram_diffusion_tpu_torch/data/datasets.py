@@ -5,8 +5,10 @@ The port's own copy of music_spectrogram_diffusion_tpu/data/datasets.py
 mirror the reference's datasets.py, including the published GCS TFRecord
 paths; the reader parses TFRecord framing and the tf.train.Example wire
 format in pure Python/numpy so the pipeline has no TensorFlow dependency.
-`iter_tfrecords` splits records in Python (the JAX package also has a
-native splitter; both yield the same records).
+`iter_tfrecords` splits records with the host C++ of `data/native.py`, as
+the JAX package's reader does with its native extension; the Python reader
+(`iter_tfrecords_py`), `_read_varint` and `_masked_crc32c` are the plain
+versions the tests hold it against.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 import numpy as np
 
 from music_spectrogram_diffusion_tpu_torch.data import core
+from music_spectrogram_diffusion_tpu_torch.data import native
 from music_spectrogram_diffusion_tpu_torch.data import remote_io
 from music_spectrogram_diffusion_tpu_torch.midi import sequences
 
@@ -67,8 +70,23 @@ def int64_seq_feature() -> FeatureSpec:
 
 def iter_tfrecords(path: str, verify_crc: bool = False) -> Iterator[bytes]:
   """Yield the raw records of a TFRecord file (local, or a scheme that
-  data/remote_io serves). With `verify_crc`, a record whose masked CRC32C
-  (of its length or of its data) disagrees raises IOError."""
+  data/remote_io serves), split by the C++ splitter
+  (`native.split_tfrecords`, which raises where g++ is missing). With
+  `verify_crc`, a record whose masked CRC32C (of its length or of its
+  data) disagrees raises IOError; so does a truncated record."""
+  with remote_io.open_file(path, "rb") as f:
+    data = f.read()
+  try:
+    records = native.split_tfrecords(data, verify_crc)
+  except IOError as e:
+    raise IOError(f"{e} in {path}") from None
+  yield from records
+
+
+def iter_tfrecords_py(path: str, verify_crc: bool = False
+                      ) -> Iterator[bytes]:
+  """The plain version of `iter_tfrecords`: the records in Python, read
+  one at a time."""
   with remote_io.open_file(path, "rb") as f:
     while True:
       header = f.read(8)

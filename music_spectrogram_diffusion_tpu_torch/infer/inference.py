@@ -10,7 +10,11 @@ family of the JAX package's `build_model`: the context diffusion model, the
 notes-only diffusion model and the autoregressive baseline (with either
 output head), in float32, or with `compute_dtype` in bfloat16
 (`cast_params_bf16`) or with weight-only int8 kernels on a bfloat16 network
-(`ops.quantize`), as the JAX package's InferenceModel does.
+(`ops.quantize`), as the JAX package's InferenceModel does. With a
+('data', 'model') mesh (`parallel/mesh.py`) the served module is cut to
+this rank's shards, float or int8 (an int8 kernel keeps its float kernel's
+split and its scale follows N, JAX's `quantized_param_shardings`), and
+`InferenceModel.predict` splits the batch rows over 'data'.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from music_spectrogram_diffusion_tpu_torch.models.diffusion import (
     model as diffusion_model, network as diffusion_network)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 from music_spectrogram_diffusion_tpu_torch.ops import quantize
+from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
 
 COMPUTE_DTYPES = (None, "float32", "bfloat16", "int8")
 
@@ -168,8 +173,11 @@ def build_model(experiment: cfg_lib.ExperimentConfig,
 
 
 def _build_served(experiment: cfg_lib.ExperimentConfig, *, state_dict,
-                  seed: int, device, compute_dtype: Optional[str]) -> Model:
-  """`build_model` on an experiment `serving_experiment` has resolved."""
+                  seed: int, device, compute_dtype: Optional[str],
+                  mesh: Optional[mesh_lib.Mesh] = None) -> Model:
+  """`build_model` on an experiment `serving_experiment` has resolved;
+  on a mesh, the module cut to this rank's shards (on the host, before it
+  goes to the device)."""
   dev = resolve_device(device)
   module = network(experiment)
   if state_dict is None:
@@ -182,6 +190,8 @@ def _build_served(experiment: cfg_lib.ExperimentConfig, *, state_dict,
   if compute_dtype == "int8":
     state = quantize.quantize_params(state)
   load_serving_state_(module, state)
+  if mesh is not None:
+    mesh_lib.shard_module_(module, mesh)
   module.to(dev).eval().requires_grad_(False)  # serving never trains
   return wrap(experiment, module)
 
@@ -219,18 +229,22 @@ class InferenceModel:
                seed: int = 0,
                device="cuda",
                compute_dtype: Optional[str] = None,
-               step: int = -1):
+               step: int = -1,
+               mesh: Optional[mesh_lib.Mesh] = None):
     """See `build_model`; `with_sampler` changes the sampler first.
 
     compute_dtype: None or 'float32' (the default: the experiment's own
     dtype), 'bfloat16' or 'int8'. The sampler's state and the output
     projection stay float32 in every case. `step`: the training step of
-    the weights (-1: not from a checkpoint).
+    the weights (-1: not from a checkpoint). `mesh`: a ('data', 'model')
+    mesh to serve on (every rank of it builds the same model and calls
+    `predict` with the same batch).
     """
     self.experiment = serving_experiment(experiment, compute_dtype)
+    self.mesh = mesh
     self.model = _build_served(self.experiment, state_dict=state_dict,
                                seed=seed, device=device,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, mesh=mesh)
     self.step = step
 
   @property
@@ -255,7 +269,13 @@ class InferenceModel:
     generator seeded from (seed, i, 0), as `synthesize.seeded_noise`
     draws a song's first segment. `graphs` as the model's `predict`: on a
     CUDA device the sampler's (or the decode's) steps replay captured
-    graphs unless it is False."""
+    graphs unless it is False.
+
+    On a mesh every rank passes the global batch; each predicts its rows
+    (its noise drawn at the global batch's shape, its rows kept) and the
+    rows are gathered over 'data', so every rank returns what the
+    unsharded model returns. The steps run eagerly on a mesh of more than
+    one rank (the collectives are not captured): `graphs=True` raises."""
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize
     device = self.model.device
     dtypes = {"encoder_input_tokens": torch.int64,
@@ -264,10 +284,23 @@ class InferenceModel:
     tensors = {k: torch.as_tensor(np.asarray(v), device=device,
                                   dtype=dtypes.get(k, torch.float32))
                for k, v in batch.items()}
+    rows = tensors["decoder_target_tokens"].shape[0]
     if noise is None:
-      rows = tensors["decoder_target_tokens"].shape[0]
       noise = synthesize.seeded_noise(seed, device)(0, rows)
-    return self.model.predict(tensors, noise, graphs=graphs).cpu().numpy()
+    mesh = self.mesh
+    if mesh is None or mesh.size == 1:
+      return self.model.predict(tensors, noise, graphs=graphs).cpu().numpy()
+    if graphs:
+      raise ValueError("a sharded model renders eagerly: its collectives "
+                       "are not captured (graphs=True)")
+    if rows % mesh.data:
+      raise ValueError(f"batch of {rows} rows does not divide over the "
+                       f"data mesh axis ({mesh.data})")
+    local = mesh_lib.rows(mesh, rows // mesh.data)
+    out = self.model.predict({k: v[local] for k, v in tensors.items()},
+                             mesh_lib.global_noise(noise, mesh),
+                             graphs=False)
+    return mesh.gather(out.contiguous(), "data", 0).cpu().numpy()
 
   def synthesizer(self, vocoder=None, bucket_inputs: bool = True):
     from music_spectrogram_diffusion_tpu_torch.infer import synthesize
@@ -280,8 +313,8 @@ def load_export(path: str, *, device="cuda",
                 compute_dtype: Optional[str] = None,
                 sampler_steps: Optional[int] = None,
                 sampler_name: Optional[str] = None,
-                guidance_interval: Optional[Tuple[float, float]] = None
-                ) -> InferenceModel:
+                guidance_interval: Optional[Tuple[float, float]] = None,
+                mesh: Optional[mesh_lib.Mesh] = None) -> InferenceModel:
   """An InferenceModel from a JAX checkpoint (any family) exported to `.npz`
   (tools/export_jax_checkpoint.py): the experiment from its config_json
   (`ExperimentConfig.from_json`), the sampler overrides of
@@ -296,16 +329,17 @@ def load_export(path: str, *, device="cuda",
                             guidance_interval=guidance_interval)
   state = convert.flax_to_state_dict(params, network(experiment))
   return InferenceModel(experiment, state_dict=state, device=device,
-                        compute_dtype=compute_dtype, step=step)
+                        compute_dtype=compute_dtype, step=step, mesh=mesh)
 
 
 def load_checkpoint(path: str, *, device="cuda",
                     compute_dtype: Optional[str] = None,
                     sampler_steps: Optional[int] = None,
                     sampler_name: Optional[str] = None,
-                    guidance_interval: Optional[Tuple[float, float]] = None
-                    ) -> InferenceModel:
-  """An InferenceModel from a checkpoint: an exported JAX checkpoint
+                    guidance_interval: Optional[Tuple[float, float]] = None,
+                    mesh: Optional[mesh_lib.Mesh] = None) -> InferenceModel:
+  """An InferenceModel from a checkpoint (on `mesh`, if given, its full
+  tensors cut to this rank's shards): an exported JAX checkpoint
   (`.npz`, `load_export`), or a port training checkpoint, a step_<N>
   directory of `train/checkpoints.py` (or the model directory holding
   them, for the latest), its experiment from `config.json` and its weights
@@ -316,7 +350,7 @@ def load_checkpoint(path: str, *, device="cuda",
                    guidance_interval=guidance_interval)
   if not os.path.isdir(path):
     return load_export(path, device=device, compute_dtype=compute_dtype,
-                       **overrides)
+                       mesh=mesh, **overrides)
   step_dir = (path if os.path.basename(os.path.normpath(path)).startswith(
       "step_") else checkpoints.latest_checkpoint(path))
   if step_dir is None or not os.path.exists(
@@ -329,4 +363,4 @@ def load_checkpoint(path: str, *, device="cuda",
       restored["config_json"]), **overrides)
   return InferenceModel(experiment, state_dict=restored["params"],
                         device=device, compute_dtype=compute_dtype,
-                        step=int(restored.get("step", -1)))
+                        step=int(restored.get("step", -1)), mesh=mesh)

@@ -30,6 +30,7 @@ from music_spectrogram_diffusion_tpu_torch.models.autoregressive import (
     network)
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 from music_spectrogram_diffusion_tpu_torch.ops import graphs as graphs_lib
+from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
 
 
 class AutoregressiveModel:
@@ -93,7 +94,8 @@ class AutoregressiveModel:
     head without dither draws nothing. `graphs` as the diffusion models'
     `predict`: on a CUDA device the decode step is captured once and
     replayed for every frame, unless `graphs` is False."""
-    captured = graphs_lib.use_graphs(self.device, graphs)
+    captured = graphs_lib.use_graphs(
+        self.device, graphs, collectives=mesh_lib.splits_model(self.module))
     tokens = batch["encoder_input_tokens"]
     batch_size, target_len = batch["decoder_target_tokens"].shape[:2]
     device = tokens.device

@@ -208,14 +208,15 @@ class Decoder(nn.Module):
     self.cfg = cfg
     e = cfg.emb_dim
     self.continuous_inputs_projection = layers.DenseGeneral(
-        cfg.audio_dim, e, dtype=cfg.dtype)
+        cfg.audio_dim, e, dtype=cfg.dtype, kernel_axes=("vocab", "embed"))
     self.position_embedder = layers.FixedEmbed(e)
     self.layers = nn.ModuleList(
         DecoderLayer(cfg) for _ in range(cfg.num_decoder_layers))
     self.decoder_norm = layers.RMSNorm(e, dtype=cfg.dtype)
     # The output projection computes in float32, as in JAX.
     self.spec_out_dense = layers.DenseGeneral(
-        e, cfg.output_dim or cfg.audio_dim, dtype=torch.float32)
+        e, cfg.output_dim or cfg.audio_dim, dtype=torch.float32,
+        kernel_axes=("embed", "vocab"))
 
   def init_weights(self, generator):
     network._init_children(self, generator)
@@ -297,9 +298,11 @@ class ARTransformer(nn.Module):
     cross_kv = [layer.encoder_decoder_attention.project_kv(encoded)
                 for layer in self.decoder.layers]
     dtype = cross_kv[0][0].dtype
-    self_kv = [layers.KVCache(batch, cfg.num_heads, length, cfg.head_dim,
-                              dtype=dtype, device=encoded.device)
-               for _ in self.decoder.layers]
+    # A sharded layer caches its local heads.
+    self_kv = [layers.KVCache(batch, layer.self_attention.num_heads, length,
+                              cfg.head_dim, dtype=dtype,
+                              device=encoded.device)
+               for layer in self.decoder.layers]
     cross_bias = layers.mask_to_bias(
         (encoder_input_tokens > 0)[:, None, None, :])
     return DecoderCache(self_kv, cross_kv, cross_bias)

@@ -34,6 +34,7 @@ from music_spectrogram_diffusion_tpu_torch.audio import codecs
 from music_spectrogram_diffusion_tpu_torch.models.diffusion import network
 from music_spectrogram_diffusion_tpu_torch.ops import diffusion as dops
 from music_spectrogram_diffusion_tpu_torch.ops import graphs as graphs_lib
+from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -157,7 +158,8 @@ class DiffusionModelBase:
     """
     config = self.diffusion_config
     target_shape = tuple(batch["decoder_target_tokens"].shape)
-    captured = graphs_lib.use_graphs(self.device, graphs)
+    captured = graphs_lib.use_graphs(
+        self.device, graphs, collectives=mesh_lib.splits_model(self.module))
     encodings = self.encode(batch)
     cross_kv = self.module.precompute_cross_kv(encodings)
     key = (tuple(tuple(e.shape) for e, _ in encodings), target_shape, config)

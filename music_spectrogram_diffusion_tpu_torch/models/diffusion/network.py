@@ -253,7 +253,8 @@ class ContinuousEncoder(_Encoder):
   def __init__(self, cfg: NetworkConfig):
     super().__init__(cfg, cfg.max_context_length)
     self.input_proj = layers.DenseGeneral(cfg.output_dim, cfg.emb_dim,
-                                          dtype=cfg.dtype)
+                                          dtype=cfg.dtype,
+                                          kernel_axes=("vocab", "embed"))
 
   def forward(self, continuous_inputs: torch.Tensor, mask: torch.Tensor,
               generator: Optional[torch.Generator] = None):
@@ -365,17 +366,20 @@ class Decoder(nn.Module):
     super().__init__()
     self.cfg = cfg
     e = cfg.emb_dim
-    self.time_emb_dense0 = layers.DenseGeneral(e, 4 * e, dtype=cfg.dtype)
-    self.time_emb_dense1 = layers.DenseGeneral(4 * e, 4 * e, dtype=cfg.dtype)
+    rows = ("vocab", "embed")  # JAX's axes for these four
+    self.time_emb_dense0 = layers.DenseGeneral(e, 4 * e, dtype=cfg.dtype,
+                                               kernel_axes=rows)
+    self.time_emb_dense1 = layers.DenseGeneral(4 * e, 4 * e, dtype=cfg.dtype,
+                                               kernel_axes=rows)
     self.continuous_inputs_projection = layers.DenseGeneral(
-        cfg.output_dim, e, dtype=cfg.dtype)
+        cfg.output_dim, e, dtype=cfg.dtype, kernel_axes=rows)
     self.position_encoder = PositionEncoder(cfg, cfg.max_target_length)
     self.layers = nn.ModuleList(
         DecoderLayer(cfg) for _ in range(cfg.num_decoder_layers))
     self.decoder_norm = layers.RMSNorm(e, dtype=cfg.dtype)
     # Final projection in float32 for the sampler's numerical stability.
-    self.spec_out_dense = layers.DenseGeneral(e, cfg.output_dim,
-                                              dtype=torch.float32)
+    self.spec_out_dense = layers.DenseGeneral(
+        e, cfg.output_dim, dtype=torch.float32, kernel_axes=("embed", "vocab"))
 
   def init_weights(self, generator):
     _init_children(self, generator)

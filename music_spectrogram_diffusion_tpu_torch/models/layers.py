@@ -20,6 +20,21 @@ Dropout draws from an explicit `torch.Generator` passed to `forward`; with
 none (or rate 0) it is off. It cannot reproduce `jax.random`'s bits, only
 their distribution: a unit is kept with probability 1 - rate and scaled by
 1 / (1 - rate), with the same broadcast axes as the JAX layers.
+
+Every parameter states the logical axes JAX gives it (`logical_axes`;
+`DenseGeneral(kernel_axes=...)` as JAX's), and `parallel.mesh.shard_module_`
+cuts the layers to one rank's shard of a ('data', 'model') mesh
+(`shard_`). A sharded layer runs its shard with the collectives written
+out, as GSPMD and JAX's kernel partitioners place them: a column-parallel
+`DenseGeneral` (N split: the MLP's `wi`, the q/k/v projections) needs none;
+a row-parallel one (K split: `wo`, the attention output, the 'vocab'-axis
+inputs) sums its partial product over the model group in float32 (kernel #3
+writes the int8 partial in float32, as JAX's `_qmm_partitioned`; a float
+partial is the product in the compute dtype, widened), then casts; an
+output split on 'vocab' is gathered. Attention runs the flash kernels on
+the local heads; a vocab-split `Embed` looks up its rows and sums over the
+model group. Dropout then draws at the global shape and keeps the rank's
+block (`parallel.mesh.rand`), so a sharded step equals the unsharded one.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ import torch.nn.functional as F
 
 from music_spectrogram_diffusion_tpu_torch.ops import attention
 from music_spectrogram_diffusion_tpu_torch.ops import quantize
+from music_spectrogram_diffusion_tpu_torch.parallel import mesh as mesh_lib
 
 _ACTIVATIONS = {
     "linear": lambda x: x,
@@ -72,16 +88,20 @@ def sinusoidal_table(max_len: int, features: int,
 
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
-            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+            broadcast_dims: Sequence[int] = (),
+            model_dim: Optional[int] = None) -> torch.Tensor:
   """Flax's nn.Dropout: keep with probability 1 - rate, scale by
   1 / (1 - rate); one draw shared along `broadcast_dims`. Off without a
-  generator or at rate 0."""
+  generator or at rate 0. Under a mesh the mask is drawn at the global
+  shape (`parallel.mesh.rand`; `model_dim`: the dim of x split over
+  'model')."""
   if generator is None or rate == 0.0:
     return x
   shape = list(x.shape)
   for dim in broadcast_dims:
     shape[dim] = 1
-  keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+  keep = mesh_lib.rand(shape, generator=generator, device=x.device,
+                       model_dim_=model_dim) < 1.0 - rate
   return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -101,20 +121,30 @@ def _normal_(t: torch.Tensor, std: float, generator: torch.Generator,
 class DenseGeneral(nn.Module):
   """Bias-free linear map over the last len(in_features) input axes.
 
-  `kernel` is stored flat, [prod(in_shape), prod(features)], as in Flax.
-  In its int8 form (`quantize_dense_`), as in an int8 serving tree of the
-  JAX package, `kernel` is int8 and a float32 `kernel_scale` [N] sits
-  beside it; the product then goes through `quantized_matmul`.
+  `kernel` is stored flat, [prod(in_shape), prod(features)], as in Flax,
+  with the logical axes `kernel_axes` (JAX's; () for none). In its int8
+  form (`quantize_dense_`), as in an int8 serving tree of the JAX package,
+  `kernel` is int8 and a float32 `kernel_scale` [N] sits beside it; the
+  product then goes through `quantized_matmul`.
+
+  Sharded (`shard_`), `split` is the kernel dim cut over 'model' (None:
+  replicated); `in_features` and `features` describe the activations the
+  shard takes and gives.
   """
 
   def __init__(self, in_features: Sequence[int] | int,
-               features: Sequence[int] | int, *, dtype=torch.float32):
+               features: Sequence[int] | int, *, dtype=torch.float32,
+               kernel_axes: Tuple[str, str] = ()):
     super().__init__()
     self.in_features = tuple(np.atleast_1d(in_features).tolist())
     self.features = tuple(np.atleast_1d(features).tolist())
     self.dtype = dtype
+    self.kernel_axes = tuple(kernel_axes)
     self.kernel = nn.Parameter(torch.empty(
         int(np.prod(self.in_features)), int(np.prod(self.features))))
+    self.mesh: Optional[mesh_lib.Mesh] = None
+    self.split: Optional[int] = None
+    self._specs = None
 
   def init_weights(self, generator: torch.Generator, *, scale: float = 1.0,
                    truncated: bool = True):
@@ -125,15 +155,71 @@ class DenseGeneral(nn.Module):
   def is_int8(self) -> bool:
     return self.kernel.dtype == torch.int8
 
+  def logical_axes(self):
+    axes = self.kernel_axes or (None, None)
+    return {"kernel": axes, "kernel_scale": (axes[-1],)}
+
+  def param_splits(self, mesh: mesh_lib.Mesh, rules=mesh_lib.DEFAULT_RULES):
+    """The mesh axis of each dim of `kernel` (and `kernel_scale`, which
+    follows N) on `mesh`, for the full layer; a flattened dim splits only
+    along its leading axis."""
+    if self._specs is None or self.mesh is not mesh:
+      spec = mesh_lib.split_dims(self.logical_axes()["kernel"],
+                                 (self.in_features[0], self.features[0]),
+                                 mesh, rules)
+      specs = {"kernel": spec}
+      if self.is_int8:
+        specs["kernel_scale"] = (spec[1],)
+      return specs
+    return self._specs
+
+  def shard_(self, mesh: mesh_lib.Mesh, rules=mesh_lib.DEFAULT_RULES):
+    """Cut the kernel (and scale) to this rank's shard of `mesh`."""
+    specs = self.param_splits(mesh, rules)
+    split = mesh_lib.model_dim(specs["kernel"], mesh)
+    if split is not None:
+      with torch.no_grad():
+        self.kernel = nn.Parameter(
+            mesh.shard(self.kernel.data, "model", split),
+            requires_grad=self.kernel.requires_grad)
+        if self.is_int8 and split == 1:
+          self.kernel_scale = nn.Parameter(
+              mesh.shard(self.kernel_scale.data, "model", 0),
+              requires_grad=False)
+      axis = self.kernel_axes[split]
+      if split == 0 and axis in mesh_lib.SPLIT_ACTIVATIONS:
+        self.in_features = ((self.in_features[0] // mesh.model,)
+                            + self.in_features[1:])
+      if split == 1 and axis in mesh_lib.SPLIT_ACTIVATIONS:
+        self.features = ((self.features[0] // mesh.model,)
+                         + self.features[1:])
+    self.mesh, self.split, self._specs = mesh, split, specs
+
+  def _product(self, x2d: torch.Tensor, out_dtype) -> torch.Tensor:
+    if self.is_int8:
+      return quantize.quantized_matmul(x2d.contiguous(), self.kernel,
+                                       self.kernel_scale, out_dtype=out_dtype)
+    y = x2d @ self.kernel.to(self.dtype)
+    return y if out_dtype == self.dtype else y.to(out_dtype)
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     n_in = len(self.in_features)
     lead = x.shape[:x.ndim - n_in]
-    x2d = x.to(self.dtype).reshape(-1, self.kernel.shape[0])
-    if self.is_int8:
-      y = quantize.quantized_matmul(x2d.contiguous(), self.kernel,
-                                    self.kernel_scale, out_dtype=self.dtype)
-    else:
-      y = x2d @ self.kernel.to(self.dtype)
+    x2d = x.to(self.dtype).reshape(-1, x.shape[x.ndim - n_in:].numel())
+    mesh = self.mesh
+    if self.split is None:
+      y = self._product(x2d, self.dtype)
+    elif self.split == 1:  # column-parallel: the output's columns
+      y = self._product(mesh_lib.copy_to_model(x2d, mesh), self.dtype)
+      if y.shape[1] != math.prod(self.features):
+        y = mesh_lib.gather_from_model(y, mesh)
+    else:  # row-parallel: a partial product, summed in float32
+      width = self.kernel.shape[0]
+      if x2d.shape[1] != width:  # a replicated input: this rank's slice
+        x2d = mesh_lib.copy_to_model(x2d, mesh).narrow(
+            1, mesh.model_index * width, width)
+      y = mesh_lib.reduce_from_model(self._product(x2d, torch.float32),
+                                     mesh).to(self.dtype)
     return y.reshape(*lead, *self.features)
 
 
@@ -171,8 +257,10 @@ class MlpBlock(nn.Module):
     self.wi_names = names
     for name in names:
       setattr(self, name, DenseGeneral(emb_dim, intermediate_dim,
-                                       dtype=dtype))
-    self.wo = DenseGeneral(intermediate_dim, emb_dim, dtype=dtype)
+                                       dtype=dtype,
+                                       kernel_axes=("embed", "mlp")))
+    self.wo = DenseGeneral(intermediate_dim, emb_dim, dtype=dtype,
+                           kernel_axes=("mlp", "embed"))
 
   def init_weights(self, generator):
     for name in self.wi_names:
@@ -185,7 +273,8 @@ class MlpBlock(nn.Module):
     for name, act in zip(self.wi_names, self.activations):
       branch = _ACTIVATIONS[act](getattr(self, name)(x))
       h = branch if h is None else h * branch
-    h = dropout(h, self.dropout_rate, generator, broadcast_dims=(-2,))
+    h = dropout(h, self.dropout_rate, generator, broadcast_dims=(-2,),
+                model_dim=-1 if self.wo.split == 0 else None)
     return self.wo(h)
 
 
@@ -211,10 +300,27 @@ class MultiHeadAttention(nn.Module):
     self.num_heads, self.head_dim = num_heads, head_dim
     self.dropout_rate = dropout_rate
     proj = (num_heads, head_dim)
-    self.query = DenseGeneral(emb_dim, proj, dtype=dtype)
-    self.key = DenseGeneral(emb_dim, proj, dtype=dtype)
-    self.value = DenseGeneral(emb_dim, proj, dtype=dtype)
-    self.out = DenseGeneral(proj, out_features, dtype=dtype)
+    heads_in, heads_out = ("embed", "joined_kv"), ("joined_kv", "embed")
+    self.query = DenseGeneral(emb_dim, proj, dtype=dtype,
+                              kernel_axes=heads_in)
+    self.key = DenseGeneral(emb_dim, proj, dtype=dtype, kernel_axes=heads_in)
+    self.value = DenseGeneral(emb_dim, proj, dtype=dtype,
+                              kernel_axes=heads_in)
+    self.out = DenseGeneral(proj, out_features, dtype=dtype,
+                            kernel_axes=heads_out)
+
+  def shard_(self, mesh: mesh_lib.Mesh, rules=mesh_lib.DEFAULT_RULES):
+    """The local heads: the projections cut by `shard_module_` (this runs
+    after them) hold num_heads / model heads each, or all of them where
+    the heads do not divide."""
+    del rules
+    if self.query.mesh is not mesh:
+      raise RuntimeError("shard the projections first (shard_module_)")
+    self.num_heads = self.query.features[0]
+
+  @property
+  def heads_split(self) -> bool:
+    return self.query.split == 1
 
   def init_weights(self, generator):
     self.query.init_weights(generator, scale=1.0 / math.sqrt(self.head_dim),
@@ -242,8 +348,10 @@ class MultiHeadAttention(nn.Module):
     transposed = cached_kv is not None
     if generator is not None and self.dropout_rate > 0.0:
       batch, kv_len = value.shape[0], value.shape[2 if transposed else 1]
-      keep = torch.rand(batch, self.num_heads, kv_len, generator=generator,
-                        device=value.device) < 1.0 - self.dropout_rate
+      keep = mesh_lib.rand(
+          (batch, self.num_heads, kv_len), generator=generator,
+          device=value.device,
+          model_dim_=1 if self.heads_split else None) < 1.0 - self.dropout_rate
       scale = keep.to(value.dtype) / (1.0 - self.dropout_rate)
       value = value * (scale[..., None] if transposed
                        else scale.transpose(1, 2)[..., None])
@@ -260,7 +368,8 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, *,
                           dropout_rate: float = 0.0,
                           generator: Optional[torch.Generator] = None,
-                          kv_transposed: bool = False) -> torch.Tensor:
+                          kv_transposed: bool = False,
+                          heads_split: bool = False) -> torch.Tensor:
   """Plain softmax attention (the JAX package's `dot_product_attention`):
   q [b, q, h, d], k and v [b, kv, h, d] ([b, h, kv, d] if `kv_transposed`),
   an additive bias broadcast to [b, h, q, kv]; out [b, q, h, d] in the
@@ -269,7 +378,8 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
   Scores and softmax are float32 in every dtype; JAX's bf16 path rounds
   them to bf16 (a known deviation, stated in the tests). Dropout, with a
   generator and a positive rate, keeps or drops each key for every query
-  of a head at once, as JAX draws it.
+  of a head at once, as JAX draws it (`heads_split`: the heads are a
+  shard of a model-split layer's, for the mask's global draw).
   """
   k_sub = "bhkd" if kv_transposed else "bkhd"
   weights = torch.einsum(f"bqhd,{k_sub}->bhqk", query.float(), key.float())
@@ -278,8 +388,10 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
   weights = torch.softmax(weights, dim=-1)
   if generator is not None and dropout_rate > 0.0:
     b, h, _, k = weights.shape
-    keep = torch.rand(b, h, 1, k, generator=generator,
-                      device=weights.device) < 1.0 - dropout_rate
+    keep = mesh_lib.rand((b, h, 1, k), generator=generator,
+                         device=weights.device,
+                         model_dim_=1 if heads_split else None
+                         ) < 1.0 - dropout_rate
     weights = weights * (keep.float() / (1.0 - dropout_rate))
   return torch.einsum(f"bhqk,{k_sub}->bqhd", weights,
                       value.float()).to(query.dtype)
@@ -301,7 +413,8 @@ class DecodeCacheAttention(MultiHeadAttention):
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     x = dot_product_attention(
         self.query(inputs), self.key(inputs), self.value(inputs), bias,
-        dropout_rate=self.dropout_rate, generator=generator)
+        dropout_rate=self.dropout_rate, generator=generator,
+        heads_split=self.heads_split)
     return self.out(x)
 
   def step(self, inputs: torch.Tensor, cache: "KVCache",
@@ -338,11 +451,41 @@ class Embed(nn.Module):
     self.dtype = dtype
     self.embedding = nn.Parameter(torch.empty(num_embeddings, features),
                                   requires_grad=not fixed)
+    self.mesh: Optional[mesh_lib.Mesh] = None
+    self.split: Optional[int] = None
+
+  def logical_axes(self):
+    return {"embedding": ("vocab", "embed")}
+
+  def param_splits(self, mesh: mesh_lib.Mesh, rules=mesh_lib.DEFAULT_RULES):
+    if self.mesh is mesh:
+      return {"embedding": self._spec}
+    return {"embedding": mesh_lib.split_dims(
+        ("vocab", "embed"), tuple(self.embedding.shape), mesh, rules)}
+
+  def shard_(self, mesh: mesh_lib.Mesh, rules=mesh_lib.DEFAULT_RULES):
+    """Keep this rank's rows of the table (if the vocab splits)."""
+    spec = self.param_splits(mesh, rules)["embedding"]
+    self.split = mesh_lib.model_dim(spec, mesh)
+    if self.split is not None:
+      with torch.no_grad():
+        self.embedding = nn.Parameter(
+            mesh.shard(self.embedding.data, "model", 0),
+            requires_grad=self.embedding.requires_grad)
+    self.mesh, self._spec = mesh, spec
 
   def forward(self, ids: torch.Tensor) -> torch.Tensor:
     if ids.dtype.is_floating_point:
       raise ValueError("Embed inputs must be integers.")
-    return F.embedding(ids.long(), self.embedding).to(self.dtype)
+    if self.split is None:
+      return F.embedding(ids.long(), self.embedding).to(self.dtype)
+    # This rank's rows looked up, the others zero, summed over the group.
+    rows = self.embedding.shape[0]
+    local = ids.long() - self.mesh.model_index * rows
+    inside = (local >= 0) & (local < rows)
+    found = F.embedding(local.clamp(0, rows - 1), self.embedding)
+    found = torch.where(inside[..., None], found, found.new_zeros(()))
+    return mesh_lib.reduce_from_model(found, self.mesh).to(self.dtype)
 
 
 class FixedEmbed(nn.Module):
@@ -380,6 +523,13 @@ class RMSNorm(nn.Module):
     self.epsilon, self.dtype = epsilon, dtype
     self.scale = nn.Parameter(torch.ones(features))
 
+  def logical_axes(self):
+    return {"scale": ("embed",)}
+
+  def param_splits(self, mesh: mesh_lib.Mesh, rules=mesh_lib.DEFAULT_RULES):
+    return {"scale": mesh_lib.split_dims(("embed",), tuple(self.scale.shape),
+                                         mesh, rules)}
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     mean2 = torch.mean(x32 * x32, dim=-1, keepdim=True)
@@ -392,7 +542,8 @@ class FiLM(nn.Module):
 
   def __init__(self, cond_dim: int, features: int, *, dtype=torch.float32):
     super().__init__()
-    self.dense = DenseGeneral(cond_dim, 2 * features, dtype=dtype)
+    self.dense = DenseGeneral(cond_dim, 2 * features, dtype=dtype,
+                              kernel_axes=("vocab", "embed"))
 
   def init_weights(self, generator):
     self.dense.init_weights(generator)

@@ -29,6 +29,11 @@ On CPU tensors
 `flash_attention_diff` is autograd through `attention_reference` in
 float32 and, in bfloat16, the plain versions of both kernels (so that p and
 dS round to bf16 where the kernel rounds them).
+
+On a ('data', 'model') mesh (`parallel/mesh.py`) each rank calls both
+kernels on its own batch rows and local heads (`models/layers.py
+MultiHeadAttention` after `shard_module_`), the rule of JAX's
+`_partitioned_fwd` and `_partitioned_bwd`: attention needs no collective.
 """
 
 from __future__ import annotations

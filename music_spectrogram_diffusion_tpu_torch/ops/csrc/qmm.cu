@@ -220,7 +220,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes, std::atomic<unsigned>& done) {
 // GEMV route.
 // ---------------------------------------------------------------------------
 
-constexpr int kNMultiple = 128;     // N: a multiple of the widest GEMV block
 constexpr int kGemvMaxRows = 4;     // the route's cut-off: M <= 4
 constexpr int kGemvThreads = 256;
 
@@ -609,8 +608,10 @@ int msd_qmm_configs(int* rows, int capacity) {
 // Launches one call on `stream` and returns its launch error (0 on
 // success). Pointers are 16-byte-aligned device pointers to contiguous
 // row-major tensors: x [M, K], q int8 [K, N], scale f32 [N], out [M, N].
-// x_dtype / out_dtype: 0 = float32, 1 = bfloat16. K % 64 == 0, N % 128 ==
-// 0. `config` indexes kConfigs (the GEMV configurations take M <= 4).
+// x_dtype / out_dtype: 0 = float32, 1 = bfloat16. K % 64 == 0, N a multiple
+// of the configuration's columns (128, 32 or 64: a mesh's N / 4 shard of a
+// 768-wide projection is 192). `config` indexes kConfigs (the GEMV
+// configurations take M <= 4).
 // `splits` (1 .. 8) cuts K into that many equal ranges, each a multiple of
 // the configuration's K step: 64 on the tensor cores, on GEMV the K rows a
 // block takes at a time (256 threads / (columns / 16)).
@@ -619,7 +620,7 @@ int msd_qmm(const void* x, const void* q, const void* scale, void* out, int M, i
   const bool known = config >= 0 && config < kNumConfigs;
   const bool gemv = known && kConfigs[config][0] == 0;
   const int k_step = gemv ? kGemvThreads / (kConfigs[config][2] / 16) : kBK;
-  if (!known || M < 1 || K < kBK || K % kBK != 0 || N % kNMultiple != 0 ||
+  if (!known || M < 1 || K < kBK || K % kBK != 0 || N % kConfigs[config][2] != 0 ||
       (gemv && M > kGemvMaxRows) || splits < 1 || splits > kMaxSplits ||
       K % (k_step * splits) != 0 || (x_dtype != 0 && x_dtype != 1) ||
       (out_dtype != 0 && out_dtype != 1)) {

@@ -41,11 +41,19 @@ from music_spectrogram_diffusion_tpu_torch.ops import quantize
 COUNTED = (attention.flash_attention, quantize.quantized_matmul)
 
 
-def use_graphs(device, graphs: Optional[bool]) -> bool:
+def use_graphs(device, graphs: Optional[bool], *,
+               collectives: bool = False) -> bool:
   """Whether a call runs captured steps: `graphs` None captures on a CUDA
   device and runs eagerly elsewhere, False runs eagerly, True captures and
-  raises where there is no CUDA device."""
+  raises where there is no CUDA device. A model whose forward runs
+  collectives (`collectives`: one split over a mesh's model group) runs
+  eagerly, and True raises: its collectives are not captured."""
   device = torch.device(device)
+  if collectives:
+    if graphs:
+      raise ValueError("a model split over ranks runs eagerly: its "
+                       "collectives are not captured (graphs=True)")
+    return False
   if graphs is None:
     return device.type == "cuda"
   if graphs and device.type != "cuda":

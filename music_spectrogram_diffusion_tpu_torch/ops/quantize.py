@@ -14,8 +14,14 @@ the kernel's split-K order and `widen_int8_reference` the kernel's int8
 widening, bit for bit. There is no fallback between the two: a CUDA call
 the kernel does not take raises.
 
-Not ported: the mesh partitioning (`_qmm_partitioned`,
-`quantized_param_shardings`), which waits for the port's parallelism.
+On a mesh each rank runs the kernel on its shard (the mesh rules of JAX's
+`_qmm_partitioned`): a kernel split on N (`models/layers.py DenseGeneral`
+column-parallel) on its column slice and the scale's, with no collective;
+one split on K writes its partial product in float32 (`out_dtype`), which
+is summed over the model group, then cast. The int8 tree's split is JAX's
+`quantized_param_shardings` (`parallel.mesh.param_shardings`). Shards of
+N % 128 != 0 (N = 192 at a 1x4 mesh) take the 32-column GEMV blocks or the
+64-column wgmma tiles: `plan` takes N % 64.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ from music_spectrogram_diffusion_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # What the kernel takes: K a multiple of 64 (the tensor-core route's K step)
-# and N of 128 (the GEMV route's columns a block). The serving tree's
-# quantized kernels have both multiples of 128 (`quantizable`).
-K_MULTIPLE, N_MULTIPLE = 64, 128
+# and N of 64 (the narrowest configuration that every route has: the wgmma
+# route's tiles; GEMV has 32-column blocks too), and N a multiple of the
+# chosen configuration's columns. The serving tree's quantized kernels have
+# both multiples of 128 (`quantizable`); their shards on a mesh N / 2 or
+# N / 4 of them.
+K_MULTIPLE, N_MULTIPLE = 64, 64
 # The kernel's tile table, csrc/qmm.cu kConfigs: (route, rows, columns,
 # threads, stages), route GEMV (rows: the most M it takes) or WGMMA.
 # `_library` checks the built kernel's table against it.
@@ -158,8 +167,8 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
   On CUDA tensors the kernel runs, one launch a call (counted in
   `quantized_matmul.launches`), and takes contiguous, 16-byte-aligned
-  tensors with K % 64 == 0 and N % 128 == 0, raising on anything else; on
-  CPU tensors the plain version runs. Each (M, K, N, dtypes, device) is
+  tensors with K % 64 == 0 and N % 64 == 0 (see `plan`), raising on
+  anything else; on CPU tensors the plain version runs. Each (M, K, N, dtypes, device) is
   planned once (`plan`) and its plan kept.
   """
   out_dtype = out_dtype or x.dtype
@@ -214,18 +223,24 @@ def plan(m: int, k: int, n: int, sm_count: int, *,
   SMs; `config` and `splits` force a choice (for measurements).
 
   M <= GEMV_MAX_M takes the GEMV route, 32 columns a block for one row and
-  128 for more; the rest the wgmma route's 128 x 64 tiles. K is split as
-  the comment at GEMV_FILL says (tools/torch_qmm_times.py --sweep times
-  every choice).
+  128 for more (the other width where N or K does not fit the first: a
+  shard of N % 128 != 0, or K % 128 != 0 for the 32-column blocks); the
+  rest the wgmma route's 128 x 64 tiles. K is split as the comment at
+  GEMV_FILL says (tools/torch_qmm_times.py --sweep times every choice).
   """
   if k % K_MULTIPLE or n % N_MULTIPLE or m < 1:
     raise ValueError(f"the int8 GEMM kernel takes K % {K_MULTIPLE} == 0 and "
                      f"N % {N_MULTIPLE} == 0, got M={m}, K={k}, N={n}")
   if config is None:
-    config = (1 if m == 1 else 0) if m <= GEMV_MAX_M else 2
+    preferred = ((1, 0) if m == 1 else (0, 1)) if m <= GEMV_MAX_M else (2,)
+    fits = [c for c in preferred
+            if n % CONFIGS[c][2] == 0 and k % k_step(c) == 0]
+    config = fits[0] if fits else preferred[0]
   route, rows, cols = CONFIGS[config][:3]
   if route == GEMV and m > rows:
     raise ValueError(f"the GEMV route takes M <= {rows}, got {m}")
+  if n % cols:
+    raise ValueError(f"config {config} takes N % {cols} == 0, got N={n}")
   gemv = route == GEMV
   step = k_step(config)
   if k % step:

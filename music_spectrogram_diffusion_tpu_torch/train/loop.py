@@ -1,11 +1,17 @@
 """The training loop: data -> steps -> checkpoints -> logs.
 
-Port of music_spectrogram_diffusion_tpu/train/loop.py on one process:
-checkpoint every `checkpoint_period` steps and at the end, log the loss
-and throughput metrics every `log_period` steps, run the held-out eval
-pass (`eval_fn`, if given) every `eval_period` steps and log its metrics as
-`eval/<name>`, and resume the full state (parameters, optimizer state and
-step) from the latest checkpoint.
+Port of music_spectrogram_diffusion_tpu/train/loop.py: checkpoint every
+`checkpoint_period` steps and at the end, log the loss and throughput
+metrics every `log_period` steps, run the held-out eval pass (`eval_fn`, if
+given) every `eval_period` steps and log its metrics as `eval/<name>`, and
+resume the full state (parameters, optimizer state and step) from the
+latest checkpoint.
+
+On a mesh every rank runs the loop; only the primary rank
+(`parallel.multihost.is_primary`) writes checkpoints and metrics. A
+checkpoint holds the gathered, full parameters and optimizer state, so a
+run saved on one mesh resumes on another (each rank cuts its shards from
+it) and `inference.load_checkpoint` serves it as it is.
 """
 
 from __future__ import annotations
@@ -17,9 +23,9 @@ import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
-import torch
 
 from music_spectrogram_diffusion_tpu_torch import config as cfg_lib
+from music_spectrogram_diffusion_tpu_torch.parallel import multihost
 from music_spectrogram_diffusion_tpu_torch.train import checkpoints
 from music_spectrogram_diffusion_tpu_torch.train import metrics as metrics_lib
 from music_spectrogram_diffusion_tpu_torch.train import trainer as trainer_lib
@@ -76,10 +82,10 @@ class TrainLoop:
       return state
     restored = checkpoints.restore_checkpoint(latest,
                                               device=self.trainer.device)
-    with torch.no_grad():
-      self.trainer.model.module.load_state_dict(restored["params"])
+    self.trainer.load_full_params_(restored["params"])
     has_opt = "opt_state" in restored
-    opt_state = restored["opt_state"] if has_opt else state.opt_state
+    opt_state = (self.trainer.shard_opt_state(restored["opt_state"])
+                 if has_opt else state.opt_state)
     step = restored.get("step", 0)
     print(f"resumed from {latest} at step {step} "
           f"(opt_state={'restored' if has_opt else 'fresh'})")
@@ -92,7 +98,8 @@ class TrainLoop:
           seed: int = 0) -> trainer_lib.TrainState:
     train_cfg = self.experiment.train
     num_steps = num_steps or train_cfg.train_steps
-    logger = MetricsLogger(self.model_dir)
+    primary = multihost.is_primary()
+    logger = MetricsLogger(self.model_dir if primary else None, echo=primary)
 
     start_step = state.step
     window_t0 = time.time()
@@ -120,11 +127,15 @@ class TrainLoop:
         window_frames = window_seqs = 0.0
 
       if step % train_cfg.checkpoint_period == 0 or step == num_steps:
-        path = checkpoints.save_checkpoint(
-            self.model_dir, step, self.trainer.model.module.state_dict(),
-            opt_state=state.opt_state,
-            config_json=self.experiment.to_json())
-        print(f"saved checkpoint: {path}")
+        # Every rank gathers (a collective); the primary writes.
+        params = self.trainer.full_params()
+        opt_state = self.trainer.full_opt_state(state.opt_state)
+        if primary:
+          path = checkpoints.save_checkpoint(
+              self.model_dir, step, params, opt_state=opt_state,
+              config_json=self.experiment.to_json())
+          print(f"saved checkpoint: {path}")
+        del params, opt_state
 
       if self.eval_fn is not None and step % train_cfg.eval_period == 0:
         logger.write(step, {f"eval/{k}": v

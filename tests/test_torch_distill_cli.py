@@ -71,18 +71,22 @@ def test_cli_distills_a_round_and_the_student_serves_ddim_single_forward(
 def test_cli_refuses_mesh_and_a_missing_teacher(tmp_path):
   argv = ["--teacher", str(tmp_path), "--model_dir", str(tmp_path / "o"),
           "--synthetic"]
+  # --mesh is DATAxMODEL, and a mesh larger than the processes raises.
   with pytest.raises(SystemExit):
-    distill_cli.parse_args(argv + ["--device", "cpu", "--mesh", "4x2"])
+    distill_cli.parse_args(argv + ["--device", "cpu", "--mesh", "4"])
+  assert distill_cli.parse_args(argv + ["--mesh", "4x2"]).mesh == "4x2"
+  with pytest.raises(ValueError, match="mesh 4x2 != 1 devices"):
+    distill_cli.main(argv + ["--device", "cpu", "--mesh", "4x2"])
   defaults = vars(distill_cli.parse_args(argv))
   assert {k: defaults[k] for k in (
       "rounds", "steps_per_round", "batch", "synthetic_examples",
       "data_threads", "dataset", "learning_rate", "warmup_steps",
-      "guidance_weight", "log_period", "seed", "device")} == {
+      "guidance_weight", "log_period", "seed", "device", "mesh")} == {
           "rounds": 2, "steps_per_round": 10_000, "batch": None,
           "synthetic_examples": 64, "data_threads": 8,
           "dataset": "maestrov3", "learning_rate": 1e-4,
           "warmup_steps": 100, "guidance_weight": None, "log_period": 100,
-          "seed": 0, "device": "cuda"}
+          "seed": 0, "device": "cuda", "mesh": None}
   with pytest.raises(FileNotFoundError, match="no teacher"):
     distill_cli.main(["--teacher", str(tmp_path / "none"), "--model_dir",
                       str(tmp_path / "o"), "--synthetic", "--device",

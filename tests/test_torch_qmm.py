@@ -156,8 +156,34 @@ def test_plan_forced_choices_and_refusals():
     quantize.plan(1, 768, 768, H100_SMS, config=1, splits=4)  # 6 K steps
   with pytest.raises(ValueError, match="K % 64"):
     quantize.plan(8, 96, 128, H100_SMS)
+  with pytest.raises(ValueError, match="N % 64"):
+    quantize.plan(8, 128, 96, H100_SMS)
   with pytest.raises(ValueError, match="N % 128"):
-    quantize.plan(8, 128, 192, H100_SMS)
+    quantize.plan(2, 768, 192, H100_SMS, config=0)
+
+
+# The shards of context_base's int8 kernels on 1x2 and 1x4 meshes (K, N) at
+# the rows they run: N-split q/k/v 768 / model and wi 2048 / model; K-split
+# attention out (768 / model), wo (2048 / model), FiLM (3072 / model) and
+# the time embedding's (768 and 3072 / model).
+SHARD_SHAPES = [(m, k, n) for model in (2, 4) for m, k, n in (
+    (512, 768, 768 // model), (512, 768, 2048 // model),
+    (2, 768, 768 // model), (2, 768, 2048 // model),
+    (512, 768 // model, 768), (512, 2048 // model, 768),
+    (1, 3072 // model, 1536), (2, 3072 // model, 1536),
+    (1, 768 // model, 3072), (2, 3072 // model, 3072))]
+
+
+@pytest.mark.parametrize("m,k,n", SHARD_SHAPES)
+def test_plan_takes_every_shard_shape(m, k, n):
+  """Every shard of the 1x2 and 1x4 meshes has a plan: N = 192 takes the
+  32-column GEMV blocks or the 64-column tiles, K = 192 the 128-column
+  GEMV blocks (whose K step is 32)."""
+  p = quantize.plan(m, k, n, H100_SMS)
+  assert n % p.cols == 0 and p.k_per_split % quantize.k_step(p.config) == 0
+  assert p.splits * p.k_per_split == k
+  assert p.route == (quantize.GEMV if m <= quantize.GEMV_MAX_M
+                     else quantize.WGMMA)
 
 
 # ---------------------------------------------------------------------------

@@ -491,13 +491,38 @@ def test_cli_trains_on_the_cpu_and_resumes(tmp_path, capsys):
 # --cache_root, --remat and --eval_batches are ported: the CLI runs with
 # them in tests/test_torch_train_bf16.py
 # test_cli_trains_with_remat_eval_and_cache; --dataset and --data_root in
-# tests/test_torch_data_cli.py.
-@pytest.mark.parametrize("flags", [["--mesh", "4x2"], ["--distributed"]])
-def test_cli_refuses_what_is_not_ported(flags, tmp_path):
+# tests/test_torch_data_cli.py; --mesh and --distributed over spawned
+# ranks in tests/test_torch_parallel.py.
+@pytest.mark.parametrize("flags,want", [
+    ([], dict(mesh=None, distributed=False, coordinator=None,
+              num_processes=None, process_id=None)),
+    (["--mesh", "4x2", "--distributed", "--coordinator", "host0:1234",
+      "--num_processes", "8", "--process_id", "3"],
+     dict(mesh="4x2", distributed=True, coordinator="host0:1234",
+          num_processes=8, process_id=3))])
+def test_cli_takes_the_jax_parallel_flags(flags, want, tmp_path):
+  """--mesh, --distributed, --coordinator, --num_processes and
+  --process_id parse with JAX's defaults."""
   argv = ["--preset", "context_tiny", "--model_dir", str(tmp_path),
           "--device", "cpu", "--synthetic"]
+  args = vars(train_cli.parse_args(argv + flags))
+  assert {k: args[k] for k in want} == want
+
+
+@pytest.mark.parametrize("mesh", ["4", "2x", "0x1", "axb"])
+def test_cli_refuses_a_malformed_mesh(mesh, tmp_path):
+  argv = ["--preset", "context_tiny", "--model_dir", str(tmp_path),
+          "--device", "cpu", "--synthetic", "--mesh", mesh]
   with pytest.raises(SystemExit):
-    train_cli.parse_args(argv + flags)
+    train_cli.parse_args(argv)
+
+
+def test_cli_refuses_a_mesh_of_other_processes(tmp_path):
+  """One process and a 4x2 mesh: JAX's make_mesh error."""
+  argv = ["--preset", "context_tiny", "--model_dir", str(tmp_path),
+          "--device", "cpu", "--synthetic", "--mesh", "4x2"]
+  with pytest.raises(ValueError, match="mesh 4x2 != 1 devices"):
+    train_cli.main(argv)
 
 
 def test_cli_takes_the_jax_dataset_flags(tmp_path):
@@ -511,7 +536,6 @@ def test_cli_takes_the_jax_dataset_flags(tmp_path):
   args = train_cli.parse_args(argv + ["--dataset", "mega", "--data_root",
                                       str(tmp_path)])
   assert (args.dataset, args.data_root) == ("mega", str(tmp_path))
-  assert train_cli.NOT_PORTED == ("mesh", "distributed")
 
 
 def test_cli_refuses_an_unknown_dataset_as_jax(tmp_path, capsys):
