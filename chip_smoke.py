@@ -4,21 +4,26 @@
 
 Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
-  2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu,
-              qmm.cu and flash_bwd.cu with its wgmma route, and phase 19's
-              planted fault: four compilers started together; phases 27 and
-              28's host data start in the background) and reports
-              ptxas's registers and spills of every instantiation; no
-              kernel may spill;
+  2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu
+              and flash_bwd.cu each with its wgmma route, qmm.cu, and the
+              two wgmma routes' planted faults: five compilers started
+              together; phases 27 and 28's host data start in the
+              background) and reports ptxas's registers and spills of every
+              instantiation, and its warnings; no kernel may spill;
   3. kernel   flash attention against its plain PyTorch version at the
               four attention shapes of the serving path, at b=2 and b=1, in
-              float32 and bfloat16: error and tolerance, in float32 the
-              softmax statistics against theirs, two launches bitwise
-              equal, the split-KV count, kernel / plain / SDPA (yardstick
-              only) times on the card (CUDA graphs), the kernel's eager
-              time a call, and the least time the card could take; then
-              the kernels' TF32 rounding against cvt.rna.tf32.f32, and a
-              NaN in q, v or dO giving NaN where the plain versions do;
+              float32 and bfloat16: the forward's route rule as the built
+              library applies it against `attention.fwd_route`, each call's
+              route (every bf16 call on the wgmma route), error and
+              tolerance, in float32 the softmax statistics against theirs,
+              two launches bitwise equal, the wgmma route's planted fault
+              (the second K/V tile of each key range left out, built in
+              phase 2) past the limit at every bf16 call, the split-KV
+              count, kernel / plain / SDPA (yardstick only) times on the
+              card (CUDA graphs), the kernel's eager time a call, and the
+              least time the card could take; then the kernels' TF32
+              rounding against cvt.rna.tf32.f32, and a NaN in q, v or dO
+              giving NaN where the plain versions do;
   4. kernel   the weight-only int8 GEMM against its plain version at every
               (M, K, N, dtype) of the int8 path: the plan's route and K
               splits, error and tolerance, two launches bitwise equal,
@@ -108,8 +113,9 @@ Phases, each printed on its own line with its seconds:
  22. kernel   the attention kernels at the shapes only the notes-only and
               autoregressive families run (phase 3's and phase 10's checks):
               the forward at 256x2048 with a key mask (cached K/V) and at
-              an unmasked 2048x2048, at b=2 and b=1, in float32 and bf16;
-              the float32 backward at both shapes at batch 8;
+              an unmasked 2048x2048, at b=2 and b=1, in float32 and bf16
+              (the planted fault past the limit at each bf16 call); the
+              float32 backward at both shapes at batch 8;
  23. main     notes-only diffusion_base in int8 (bf16 network) renders
               phase 7's MIDI file, 3 independent segments, with the serving
               sampler and the trained vocoder: both kernels' launch counts
@@ -244,7 +250,8 @@ Phases, each printed on its own line with its seconds:
 Then the vocoder phases' numbers as one JSON line, the families' phases'
 as another, phase 26's as another, phase 27's as another, phase 28's as
 another, phase 29's as another, phase 30's as another, one JSON line of
-the kernels, the nvidia-smi line again, and last
+the kernels (kernel #1's `bf16` entry names its wgmma route and holds
+phases 3 and 22's bf16 numbers), the nvidia-smi line again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
 """
@@ -482,7 +489,8 @@ def ptxas_lines(report: str) -> list:
           ", " if t.group(1) == ">" else "<") + (
               "f32" if t.group(2) == "f" else "bf16") + ">", entry)
       entry = re.sub(r"^(\w+_kernel)E\w*$", r"\1", entry)  # no template
-      entry = re.sub(r"^_ZN9bwd_wgmma\d+", "bwd_wgmma::", entry)
+      entry = re.sub(r"^_ZN9(\w\wd_wgmma)\d+", r"\1::", entry)
+      entry = re.sub(r"(<\d+>)EEv\w*$", r"\1", entry)
       entry = re.sub(r"(?:<(\d+)>|I)Lb([01])EEEv\w*$", lambda t: "<" + (
           f"{t.group(1)}, " if t.group(1) else "") + (
               "bias" if t.group(2) == "1" else "no bias") + ">", entry)
@@ -545,12 +553,16 @@ def fwd_tolerance(dtype, plain) -> float:
   return TOLERANCE[dtype] * scale
 
 
-def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS):
+def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS, fault_lib=None):
   """The forward kernel at `shapes` ((name, q_len, kv_len, masked,
   transposed[, heads]); HEADS where heads is not given), each at the
-  (batch, dtype) of `runs`."""
+  (batch, dtype) of `runs`. Every bf16 call must take the wgmma route, as
+  both the built library and `attention.fwd_route` route it; with
+  `fault_lib` (the forward's planted fault) the fault must land past the
+  limit at each of them."""
   rows = []
   sms = torch.cuda.get_device_properties(0).multi_processor_count
+  lib = attention._library("flash_fwd")  # pylint: disable=protected-access
   for name, q_len, kv_len, masked, transposed, *more in shapes:
     heads = more[0] if more else HEADS
     for batch, dtype in runs:
@@ -592,8 +604,31 @@ def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS):
               f"{l_err} (sum) > {STATS_TOLERANCE}")
         stats_note = (f"; statistics max {m_err:.3g}, sum {l_err:.3g} "
                       f"(tol {STATS_TOLERANCE})")
-      splits, _ = attention.kv_split(batch, heads, q_len, kv_len, sms,
-                                     *attention.fwd_tile(dtype))
+      aligned = all(x.data_ptr() % attention.WGMMA_ALIGN == 0 for x in (
+          q, k, v, got, *(() if mask is None else (mask,))))
+      route = attention.fwd_route(dtype, HEAD_DIM, aligned)
+      built = ("wgmma" if lib.msd_flash_fwd_route(
+          attention._DTYPE_CODES[dtype], HEAD_DIM, int(aligned), 0)  # pylint: disable=protected-access
+               else "mma_sync")
+      check(built == route, f"{name} {dtype}: the library routes to {built}, "
+            f"fwd_route to {route}")
+      check(dtype != torch.bfloat16 or route == "wgmma",
+            f"{name} b={batch} bf16 takes the {route} route")
+      if route == "wgmma":
+        splits, _ = attention.fwd_key_split(batch, heads, q_len, kv_len, sms,
+                                            *attention.fwd_wgmma_tile(q_len))
+      else:
+        splits, _ = attention.kv_split(batch, heads, q_len, kv_len, sms,
+                                       *attention.fwd_tile(dtype))
+      fault_note, fault_ratio = "", None
+      if fault_lib is not None and route == "wgmma":
+        faulty = with_library("flash_fwd", fault_lib, kernel)
+        fault_ratio = (faulty.float() - want.float()).abs().max().item() / tol
+        check(fault_ratio > 1.0, f"{name} b={batch}: the planted fault (the "
+              f"second K/V tile of each key range left out) within the "
+              f"limit, {fault_ratio:.3g} of it")
+        fault_note = f"; planted fault {fault_ratio:.3g}x the limit"
+        del faulty
       # SDPA yardstick on the same inputs: [b, h, l, d], additive mask.
       qs = q.transpose(1, 2).contiguous()
       ks, vs = ((k, v) if transposed else
@@ -618,19 +653,21 @@ def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS):
       bound, bound_by, bound_bf16 = bound_ms(batch, q_len, kv_len, masked,
                                              dtype, heads)
       dt = str(dtype).replace("torch.", "")
-      route = "3xTF32" if dtype == torch.float32 else "bf16"
-      log(f"  {name} b={batch} h={heads} d={HEAD_DIM} {dt}: max_abs_err "
-          f"{err:.3g} (tol {tol:.3g}), relative RMS {rms:.3g}{stats_note}; "
-          f"bitwise reproducible; "
+      peak = "3xTF32" if dtype == torch.float32 else "bf16"
+      log(f"  {name} b={batch} h={heads} d={HEAD_DIM} {dt}, {route} route: "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}), relative RMS "
+          f"{rms:.3g}{stats_note}; bitwise reproducible{fault_note}; "
           f"{splits} split(s); on the card (CUDA graph): kernel {ms:.4f} "
           f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms; kernel eager "
           f"{eager_ms:.4f} ms a call; bound {bound:.4f} ms ({bound_by}, "
-          f"{route} peak), {bound_bf16:.4f} ms at the bf16 peak")
+          f"{peak} peak), {bound_bf16:.4f} ms at the bf16 peak")
       rows.append(dict(shape=name, dtype=dt, batch=batch, heads=heads,
-                       q_len=q_len, kv_len=kv_len, splits=splits, max_abs_err=err,
-                       tolerance=tol, rel_rms=rms, ms=ms, eager_ms=eager_ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                       bound_by=bound_by, bound_bf16_ms=bound_bf16))
+                       q_len=q_len, kv_len=kv_len, route=route, splits=splits,
+                       max_abs_err=err, tolerance=tol, rel_rms=rms,
+                       fault_of_tolerance=fault_ratio, ms=ms,
+                       eager_ms=eager_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                       bound_bf16_ms=bound_bf16))
   return rows
 
 
@@ -1607,7 +1644,7 @@ def profile_step(t, state, experiment, seed: int, card: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
   groups = {"flash_bwd (kernel #2)": ("flash_bwd", "bwd_wgmma"),
-            "flash_fwd (kernel #1)": ("flash_fwd",),
+            "flash_fwd (kernel #1)": ("flash_fwd", "fwd_wgmma"),
             "matmul (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv", "nvjet"),
             "other": ("",)}
   busy = {g: 0.0 for g in groups}
@@ -2026,28 +2063,36 @@ def soundstream_phase(card: str, seed: int, mel: np.ndarray) -> dict:
   return dict(ms=ms, max_abs_err=err)
 
 
-# The planted fault of phase 19: the wgmma route's dq pass leaves out the
-# second key tile of each of its key ranges (keys 64-127 of the range: their
-# dS taken as 0), built from a copy of the sources in phase 2.
-BWD_FAULT_AT = "sc[i] = pv * (dp[i] - dl[r]);"
-BWD_FAULT = "sc[i] = it == 1 ? 0.f : pv * (dp[i] - dl[r]);"
-BWD_FAULT_FILE = "flash_bwd_wgmma.cuh"
+# The planted faults of the two wgmma routes, each built from a copy of
+# the sources in phase 2: (header, the line, its faulty form) by library.
+# Phase 19's: the backward's dq pass leaves out the second key tile of each
+# of its key ranges (keys 64-127 of the range: their dS taken as 0). Phases
+# 3 and 22's: the forward leaves out the second K/V tile of each key range
+# (keys 64-127 of the range: their p taken as 0).
+FAULTS = {
+    "flash_bwd": ("flash_bwd_wgmma.cuh", "sc[i] = pv * (dp[i] - dl[r]);",
+                  "sc[i] = it == 1 ? 0.f : pv * (dp[i] - dl[r]);"),
+    "flash_fwd": ("flash_fwd_wgmma.cuh",
+                  "sc[i] = msd::exp2_ftz(sc[i] - m_run[r]);",
+                  "sc[i] = it == 1 ? 0.f : msd::exp2_ftz(sc[i] - m_run[r]);"),
+}
 
 
-def start_fault_build(work: str):
-  """nvcc on a copy of csrc/ whose wgmma route carries BWD_FAULT, started
-  now and joined by `finish_fault_build`: (library path, process)."""
+def start_fault_build(work: str, name: str):
+  """nvcc on a copy of csrc/ whose `name` library carries its FAULTS
+  entry, started now and joined by `finish_fault_build`: (library path,
+  process)."""
+  header, line, fault = FAULTS[name]
   shutil.rmtree(work, ignore_errors=True)
   shutil.copytree(_build.CSRC, work, ignore=shutil.ignore_patterns("build"))
-  path = os.path.join(work, BWD_FAULT_FILE)
+  path = os.path.join(work, header)
   with open(path) as f:
     text = f.read()
-  check(text.count(BWD_FAULT_AT) == 1, f"the fault's line is not in "
-        f"{BWD_FAULT_FILE} once")
+  check(text.count(line) == 1, f"the fault's line is not in {header} once")
   with open(path, "w") as f:
-    f.write(text.replace(BWD_FAULT_AT, BWD_FAULT))
-  src = os.path.join(work, "flash_bwd.cu")
-  out = os.path.join(work, "libflash_bwd_fault.so")
+    f.write(text.replace(line, fault))
+  src = os.path.join(work, f"{name}.cu")
+  out = os.path.join(work, f"lib{name}_fault.so")
   return out, subprocess.Popen(
       [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2059,6 +2104,21 @@ def finish_fault_build(build) -> ctypes.CDLL:
   check(proc.returncode == 0, f"nvcc on the planted fault failed:\n{stdout}"
         f"{stderr}")
   return ctypes.CDLL(out)
+
+
+def with_library(name: str, lib: ctypes.CDLL, fn):
+  """fn() with the kernel library `name` replaced by `lib` (a planted
+  fault), its launches not counted as the main path's."""
+  counter = (attention.flash_attention if name == "flash_fwd"
+             else attention.flash_attention_bwd)
+  launches = counter.launches
+  kept = _build._libraries[name]  # pylint: disable=protected-access
+  _build._libraries[name] = lib  # pylint: disable=protected-access
+  try:
+    return fn()
+  finally:
+    _build._libraries[name] = kept  # pylint: disable=protected-access
+    counter.launches = launches
 
 
 def bwd_bf16_tolerance(plain) -> float:
@@ -2090,6 +2150,31 @@ def route_rule_check() -> str:
         f"the wgmma route's tiles {tiles}")
   return (f"{cases} (dtype, head_dim, alignment) cases route as bwd_route "
           f"says; dq item rows and tile by q_len {tiles}")
+
+
+def fwd_route_rule_check() -> str:
+  """The forward's route rule as the built library applies it
+  (msd_flash_fwd_route) against its mirror `attention.fwd_route`, over
+  every dtype, head_dim 1-128, alignment and bias; and the key-split
+  plan's tile against the library's."""
+  lib = attention._library("flash_fwd")  # pylint: disable=protected-access
+  cases = 0
+  for dtype, code in attention._DTYPE_CODES.items():  # pylint: disable=protected-access
+    for head_dim in range(1, attention.MAX_HEAD_DIM + 1):
+      for aligned in (False, True):
+        for bias in (False, True):
+          built = ("wgmma" if lib.msd_flash_fwd_route(
+              code, head_dim, int(aligned), int(bias)) else "mma_sync")
+          mirror = attention.fwd_route(dtype, head_dim, aligned, bias)
+          check(built == mirror, f"route of {dtype} d={head_dim} aligned="
+                f"{aligned} bias={bias}: the library's {built}, "
+                f"fwd_route's {mirror}")
+          cases += 1
+  tiles = {q: attention.fwd_wgmma_tile(q) for q in (256, 2048)}
+  check(all(t[1] == attention.WGMMA_HEAD_DIM for t in tiles.values()),
+        f"the wgmma route's tiles {tiles}")
+  return (f"{cases} (dtype, head_dim, alignment, bias) cases route as "
+          f"fwd_route says; item rows and tile keys by q_len {tiles}")
 
 
 def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
@@ -2151,16 +2236,8 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
       worst = max(worst, err / tol)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two launches differ")
-    # The planted fault, against the same limit (its launches are not the
-    # main path's).
-    launches = attention.flash_attention_bwd.launches
-    kept = _build._libraries["flash_bwd"]  # pylint: disable=protected-access
-    _build._libraries["flash_bwd"] = fault_lib  # pylint: disable=protected-access
-    try:
-      faulty = kernel()[0]
-    finally:
-      _build._libraries["flash_bwd"] = kept  # pylint: disable=protected-access
-      attention.flash_attention_bwd.launches = launches
+    # The planted fault, against the same limit.
+    faulty = with_library("flash_bwd", fault_lib, kernel)[0]
     fault_err = (faulty.float() - want[0].float()).abs().max().item()
     fault_ratio = fault_err / bwd_bf16_tolerance(want[0])
     check(fault_ratio > 1.0, f"{name}: the planted fault (dq without the "
@@ -4725,17 +4802,22 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  # 4 nvcc processes at once: the three kernels, and phase 19's fault; and
-  # phase 27's records, written in the background.
+  # 5 nvcc processes at once: the three kernels, and the two wgmma
+  # routes' planted faults; and phase 27's records, written in the
+  # background.
   records = start_dataset_records()
-  fault_build = start_fault_build(os.path.join("out", "chip_smoke_fault"))
+  fault_builds = {name: start_fault_build(
+      os.path.join("out", f"chip_smoke_fault_{name}"), name)
+                  for name in FAULTS}
   _build.build("flash_fwd", "qmm", "flash_bwd")
   attention._library("flash_fwd")
   attention._library("flash_bwd")
   quantize._library()
-  fault_lib = finish_fault_build(fault_build)
-  log(f"phase 2 build: flash_fwd.cu, qmm.cu and flash_bwd.cu with nvcc, "
-      f"and flash_bwd.cu with phase 19's planted fault "
+  fault_libs = {name: finish_fault_build(build)
+                for name, build in fault_builds.items()}
+  log(f"phase 2 build: flash_fwd.cu (both routes), qmm.cu and flash_bwd.cu "
+      f"(both routes) with nvcc, and flash_fwd.cu and flash_bwd.cu with "
+      f"their wgmma routes' planted faults "
       f"({time.perf_counter() - t0:.2f} s)")
   for name in ("flash_fwd", "qmm", "flash_bwd"):
     usage = ptxas_usage(name)
@@ -4743,9 +4825,13 @@ def main() -> int:
     for line in usage:
       log(f"  ptxas {name}: {line}")
       check(" 0 bytes spill stores" in line, f"{name}.cu spills: {line}")
+    warnings = [line.strip() for line in
+                _build.compiler_report(name).splitlines() if "warn" in line]
+    log(f"  ptxas {name} warnings: {' | '.join(warnings) or 'none'}")
 
   t0 = time.perf_counter()
-  rows = kernel_phase(gen, capture)
+  log(f"  forward route rule: {fwd_route_rule_check()}")
+  rows = kernel_phase(gen, capture, fault_lib=fault_libs["flash_fwd"])
   # The checks draw from a generator of their own, so that the phases
   # after them see the inputs they saw without them.
   check_gen = torch.Generator("cuda").manual_seed(args.seed + 1)
@@ -4845,7 +4931,7 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  bwd_bf16_rows = bwd_bf16_phase(gen, TRAIN_BATCH, fault_lib)
+  bwd_bf16_rows = bwd_bf16_phase(gen, TRAIN_BATCH, fault_libs["flash_bwd"])
   log(f"phase 19 attention backward kernel in bf16 vs plain: "
       f"{len(bwd_bf16_rows)} shapes passed ({time.perf_counter() - t0:.2f} s)")
   torch.cuda.empty_cache()
@@ -4869,7 +4955,8 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  family_rows = kernel_phase(gen, capture, FAMILY_SHAPES)
+  family_rows = kernel_phase(gen, capture, FAMILY_SHAPES,
+                             fault_lib=fault_libs["flash_fwd"])
   family_bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH, FAMILY_SHAPES)
   log(f"phase 22 attention kernels at the notes-only and autoregressive "
       f"shapes: {len(family_rows)} forward and {len(family_bwd_rows)} "
@@ -4976,6 +5063,21 @@ def main() -> int:
               + parallel["kernels"]["bwd"])
   qmm_rows = qmm_rows + ar_qmm_rows + parallel["kernels"]["qmm"]
   f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == 2]
+  # The forward's wgmma route: the bf16 calls at b=2 of phases 3 and 22
+  # (the serving and training shapes).
+  fwd_bf16 = [r for r in rows[:len(SHAPES) * len(RUNS)] + family_rows
+              if r["dtype"] == "bfloat16" and r["batch"] == 2]
+  # The paths whose network runs in bf16: all their forward calls take the
+  # wgmma route (checked per shape above and in
+  # tests/test_torch_attention_fwd_plan.py).
+  bf16_paths = {"int8": int8_launches[0], "int8_streamed": stream_launches[0],
+                "training_bf16_remat": bf16_launches[0],
+                "training_bf16_remat_batch_32": bf16_large_launches[0],
+                "notes_only_int8": notes_summary["launches"][0],
+                "autoregressive_int8": ar_summary["launches"][0],
+                "dataset_full_song_int8": data["full_song"]["launches"][0],
+                "distilled_student_int8": student_launches[0],
+                "sharded_serving_1x2_int8": sharded_serve[0]}
 
   def total(key, rows_):
     values = [r[key] for r in rows_]
@@ -5035,6 +5137,22 @@ def main() -> int:
           r["bound_by"] == "operations" for r in f32) else "bytes",
       "library_ms": total("library_ms", f32),
       "per_shape": rows,
+      # The bf16 route (phases 3 and 22), summed as above.
+      "bf16": {"route": "wgmma",
+               "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/"
+                         "flash_fwd_wgmma.cuh",
+               "launches": sum(bf16_paths.values()),
+               "launches_by_path": bf16_paths,
+               "max_abs_err": max(r["max_abs_err"] for r in fwd_bf16),
+               "worst_fault_of_tolerance": min(
+                   r["fault_of_tolerance"] for r in fwd_bf16),
+               "ms": total("ms", fwd_bf16),
+               "plain_ms": total("plain_ms", fwd_bf16),
+               "bound_ms": total("bound_ms", fwd_bf16),
+               "bound_by": "operations" if all(
+                   r["bound_by"] == "operations" for r in fwd_bf16)
+               else "bytes",
+               "library_ms": total("library_ms", fwd_bf16)},
   }, {
       "name": "int8_weight_only_gemm",
       "route": "cuda",

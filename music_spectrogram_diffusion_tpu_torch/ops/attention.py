@@ -11,10 +11,13 @@ cannot launch raises.
 
 Both kernels compute on the tensor cores: bf16 products as bf16 mma, f32
 products as three TF32 products each (`split_tf32`, `einsum_3xtf32`, the
-plain versions of that arithmetic, which the tests use). Where a call's
-blocks cannot fill the card, the forward splits each query tile's keys into
-ranges and combines them (`kv_split`; `attention_split_kv_reference` is its
-plain version).
+plain versions of that arithmetic, which the tests use). The forward takes
+one of two routes (`fwd_route`): bf16 at head_dim 64 without a bias (every
+bf16 call of the models) on wgmma and TMA (`csrc/flash_fwd_wgmma.cuh`),
+every other call on mma.sync. Where a call's blocks cannot fill the card,
+the forward splits its keys into ranges and combines them (`fwd_key_split`
+on the wgmma route, `kv_split` on mma.sync; `attention_split_kv_reference`
+is its plain version).
 
 `flash_attention_diff` is the differentiable form (the training path), as
 the JAX package's `flash_attention_diff`: its forward is the forward kernel,
@@ -153,11 +156,69 @@ def kv_split(batch: int, heads: int, q_len: int, kv_len: int, sm_count: int,
   return -(-tiles // per), per * keys
 
 
-# The backward's wgmma route (csrc/flash_bwd_wgmma.cuh): the head_dim it
-# takes, and the alignment (bytes) of q, k, v, out and dO that its TMA and
-# prologue loads need.
+# The wgmma routes of the forward and the backward (csrc/flash_fwd_wgmma.cuh,
+# csrc/flash_bwd_wgmma.cuh): the head_dim they take, and the alignment
+# (bytes) of the tensors that their TMA loads need.
 WGMMA_HEAD_DIM = 64
 WGMMA_ALIGN = 16
+# The forward's key split (`fwd_key_split`): at most this many ranges; an
+# item's fixed cost (its query rows in, the ring filled, its output out) and
+# the combine's, each in K/V tiles of one item's work.
+FWD_MAX_SPLITS = 16
+FWD_ITEM_TILES = 2
+FWD_COMBINE_TILES = 3
+
+
+def fwd_route(dtype: torch.dtype, head_dim: int, aligned: bool = True,
+              has_bias: bool = False) -> str:
+  """The forward kernel's route for a call, as `csrc/flash_fwd.cu`
+  `wgmma_route` chooses it: "wgmma" for bfloat16 at head_dim 64 without a
+  bias, with q, k, v, out and the key mask 16-byte aligned (`aligned`;
+  every bf16 call of the models, which pass a key mask and never a bias),
+  else "mma_sync" (float32, another head_dim, a misaligned tensor, or a
+  bias, which the mma.sync kernel adds to S). A route, not a fallback."""
+  if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and aligned
+      and not has_bias):
+    return "wgmma"
+  return "mma_sync"
+
+
+def fwd_key_split(batch: int, heads: int, q_len: int, kv_len: int,
+                  sm_count: int, rows: int, keys: int) -> Tuple[int, int]:
+  """(splits, keys_per_split) of the forward's wgmma route.
+
+  The route runs b h ceil(q / rows) work items (`rows` queries an item,
+  `keys` keys a K/V tile: the route's block shape, `fwd_wgmma_tile`) on a
+  persistent grid of at most one block an SM. Cutting the keys into s
+  ranges of whole tiles makes s times the items, each of a range's tiles;
+  the plan takes the s whose waves of items x (tiles a range +
+  FWD_ITEM_TILES), plus FWD_COMBINE_TILES when s > 1, is least (the
+  fewest ranges among equals), at most FWD_MAX_SPLITS. With one range,
+  keys_per_split is kv_len. Ranges cover [0, kv_len) once, in order, and
+  each starts below kv_len.
+  """
+  items = batch * heads * -(-q_len // rows)
+  tiles = -(-kv_len // keys)
+  best = None
+  for want in range(1, min(tiles, FWD_MAX_SPLITS) + 1):
+    per = -(-tiles // want)  # tiles a range
+    splits = -(-tiles // per)
+    cost = (-(-items * splits // sm_count) * (per + FWD_ITEM_TILES)
+            + (FWD_COMBINE_TILES if splits > 1 else 0))
+    if best is None or cost < best[0]:
+      best = (cost, splits, per)
+  _, splits, per = best
+  return (1, kv_len) if splits == 1 else (splits, per * keys)
+
+
+def fwd_wgmma_tile(q_len: int) -> Tuple[int, int]:
+  """(queries a work item owns, keys a K/V tile) of the forward's wgmma
+  route for q_len queries, as `csrc/flash_fwd.cu` is built (loads it;
+  needs the card): 192 where the queries fill such items, as at q = 2048;
+  else 128, as at q = 256."""
+  lib = _library("flash_fwd")
+  return lib.msd_flash_fwd_tile(0, q_len), lib.msd_flash_fwd_tile(1, q_len)
+
 # The dq key split: splits until the dq pass has about this many work items
 # an SM, at most DQ_MAX_SPLITS.
 DQ_SPLIT_WAVES = 4
@@ -206,8 +267,9 @@ def bwd_tile(q_len: int) -> Tuple[int, int]:
 
 
 def fwd_tile(dtype: torch.dtype) -> Tuple[int, int]:
-  """(query rows a block, keys a K/V tile) of the forward kernel for
-  `dtype`, as `csrc/flash_fwd.cu` is built (loads it; needs the card)."""
+  """(query rows a block, keys a K/V tile) of the forward's mma.sync
+  route for `dtype`, as `csrc/flash_fwd.cu` is built (loads it; needs the
+  card)."""
   return _library("flash_fwd").msd_fwd_tile[dtype]
 
 
@@ -330,8 +392,11 @@ def flash_attention(query: torch.Tensor,
   [batch, q_len, heads, head_dim] in the query's dtype, and with
   `return_stats` also the softmax statistics, f32 [2, b, h, q] (each row's
   max, then its sum of exp(s - max)). On CUDA tensors the kernel runs
-  (counted in `flash_attention.launches`); on CPU tensors the plain
-  versions do.
+  (counted in `flash_attention.launches`) by the route its `wgmma_route`
+  picks (`fwd_route` here): bfloat16 at head_dim 64 without a bias, with
+  q, k, v, out and kv_mask 16-byte aligned, takes the wgmma route, its keys
+  split as `fwd_key_split` plans; every other call takes the mma.sync
+  route, split as `kv_split` plans. On CPU tensors the plain versions run.
   """
   kv_len = _check(query, key, value, bias, kv_mask, kv_transposed)
   if query.device.type == "cpu":
@@ -348,9 +413,14 @@ def flash_attention(query: torch.Tensor,
   out = torch.empty_like(query)
   stats = (torch.empty(2, batch, heads, q_len, **f32) if return_stats
            else None)
-  splits, keys_per_split = kv_split(batch, heads, q_len, kv_len,
-                                    _sm_count(query.device.index),
-                                    *lib.msd_fwd_tile[query.dtype])
+  aligned = all(t.data_ptr() % WGMMA_ALIGN == 0 for t in (
+      query, key, value, out, *(() if kv_mask is None else (kv_mask,))))
+  plan, tile = kv_split, lib.msd_fwd_tile[query.dtype]
+  if lib.msd_flash_fwd_route(_DTYPE_CODES[query.dtype], head_dim,
+                             int(aligned), int(bias is not None)):
+    plan, tile = fwd_key_split, fwd_wgmma_tile(q_len)
+  splits, keys_per_split = plan(batch, heads, q_len, kv_len,
+                                _sm_count(query.device.index), *tile)
   part_acc = part_ml = None
   if splits > 1:  # the split-KV scratch, combined by a second kernel
     part_acc = torch.empty(splits, batch, heads, q_len, head_dim, **f32)
@@ -585,6 +655,10 @@ def _library(name: str) -> ctypes.CDLL:
       lib.msd_flash_fwd_keys.restype = i32
       lib.msd_tf32_round_probe.argtypes = [ptr, ptr, ptr, ptr, i32, ptr]
       lib.msd_tf32_round_probe.restype = i32
+      lib.msd_flash_fwd_route.argtypes = [i32, i32, i32, i32]
+      lib.msd_flash_fwd_route.restype = i32
+      lib.msd_flash_fwd_tile.argtypes = [i32, i32]
+      lib.msd_flash_fwd_tile.restype = i32
       # The block shape, asked once: kv_split plans every call by it.
       lib.msd_fwd_tile = {
           dtype: (lib.msd_flash_fwd_rows(code), lib.msd_flash_fwd_keys())

@@ -213,4 +213,25 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int r0, int len,
   }
 }
 
+// A work item of the wgmma routes' persistent grids (flash_fwd_wgmma.cuh,
+// flash_bwd_wgmma.cuh): `rows` rows from row0 of one (batch, head) over one
+// range of key tiles (of all of them where a pass does not split the keys).
+// Items are numbered with the row blocks fastest, then the key range, the
+// head and the batch; block i of a grid of at most one block an SM takes
+// items i, i + gridDim.x, ...
+struct Item {
+  int row0, split, h, b;
+};
+
+__device__ __forceinline__ Item item_of(int item, int rows, int row_blocks, int splits,
+                                        int heads) {
+  Item w;
+  w.row0 = item % row_blocks * rows;
+  const int rest = item / row_blocks;
+  w.split = rest % splits;
+  w.h = rest / splits % heads;
+  w.b = rest / splits / heads;
+  return w;
+}
+
 }  // namespace msd

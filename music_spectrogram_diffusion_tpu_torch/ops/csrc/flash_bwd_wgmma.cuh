@@ -139,26 +139,6 @@ inline int kv_padded(int len) {
   return (len + DkdvShape::kRows - 1) / DkdvShape::kRows * DkdvShape::kRows;
 }
 
-// A work item: `rows` own rows from row0 of one (batch, head), and for
-// the dq pass one range of key tiles. A pass's items are numbered with the
-// row blocks fastest, then the key range, the head and the batch, and block
-// i of the grid takes items i, i + gridDim.x, ... (a persistent grid of at
-// most one block an SM).
-struct Item {
-  int row0, split, h, b;
-};
-
-__device__ __forceinline__ Item item_of(int item, int rows, int row_blocks, int splits,
-                                        int heads) {
-  Item w;
-  w.row0 = item % row_blocks * rows;
-  const int rest = item / row_blocks;
-  w.split = rest % splits;
-  w.h = rest / splits % heads;
-  w.b = rest / splits / heads;
-  return w;
-}
-
 struct Smem {
   unsigned char* own;   // [2][own bytes]: two tensors' own rows, two buffers
   unsigned char* ring;  // [kStages][2][kTileBytes]
@@ -228,13 +208,6 @@ __device__ __forceinline__ void load_tile(const Smem& sm, int ring_it, const CUt
   msd::bulk_load(sm.stat + s * kStatFloats, stat_src, stat_bytes, sm.full(s));
 }
 
-// 2^x by the special-function unit alone; results below 2^-126 flush to 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // dK and dV of work items of 128 keys, each walking the query tiles (with
 // the f32 bias when BIAS).
 template <bool BIAS>
@@ -255,7 +228,7 @@ __global__ void __launch_bounds__(DkdvShape::kThreads, 1)
     if (threadIdx.x == S::kConsumers) {
       int ring_it = 0, n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const Item w = item_of(item, S::kRows, row_blocks, 1, p.heads);
+        const msd::Item w = msd::item_of(item, S::kRows, row_blocks, 1, p.heads);
         load_own<kDkdvWgs>(sm, n, &map_k, &map_v, w.row0, w.h, w.b);
         const float* rs = p.rowstat + ((long long)w.b * p.heads + w.h) * p.q_tiles * kStatFloats;
         for (int i = 0; i < n_tiles; ++i, ++ring_it) {
@@ -284,7 +257,7 @@ __global__ void __launch_bounds__(DkdvShape::kThreads, 1)
   };
   int ring_it = 0, n = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const Item w = item_of(item, S::kRows, row_blocks, 1, p.heads);
+    const msd::Item w = msd::item_of(item, S::kRows, row_blocks, 1, p.heads);
     const int buf = n % 2;
     const int key0 = w.row0 + wg * 64 + 16 * warp + g;  // the thread's keys: key0 and key0 + 8
     const float* kterm = p.kterm + (long long)w.b * p.kv_pad;
@@ -343,7 +316,7 @@ __global__ void __launch_bounds__(DkdvShape::kThreads, 1)
               x += bias[(long long)(q0 + c + e) * p.kv_len + key0 + 8 * r];
             }
             const float y = fmaf(x, msd::kLog2e, kt[r]) - (e ? m.y : m.x);
-            const float pv = exp2_ftz(y) * (e ? il.y : il.x);
+            const float pv = msd::exp2_ftz(y) * (e ? il.y : il.x);
             sc[i] = pv;
             dp[i] = pv * (dp[i] - (e ? dl.y : dl.x));
           }
@@ -411,7 +384,7 @@ __global__ void __launch_bounds__(Shape<WGS>::kThreads, 1)
     if (threadIdx.x == S::kConsumers) {
       int ring_it = 0, n = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-        const Item w = item_of(item, S::kRows, row_blocks, p.splits, p.heads);
+        const msd::Item w = msd::item_of(item, S::kRows, row_blocks, p.splits, p.heads);
         load_own<WGS>(sm, n, &map_q, &map_do, w.row0, w.h, w.b);
         const int tile0 = w.split * p.tiles_per_split;
         const int n_tiles = min(p.tiles_per_split, kv_tiles - tile0);
@@ -437,7 +410,7 @@ __global__ void __launch_bounds__(Shape<WGS>::kThreads, 1)
   };
   int ring_it = 0, n = 0;
   for (int item = blockIdx.x; item < items; item += gridDim.x, ++n) {
-    const Item w = item_of(item, S::kRows, row_blocks, p.splits, p.heads);
+    const msd::Item w = msd::item_of(item, S::kRows, row_blocks, p.splits, p.heads);
     const int buf = n % 2;
     const int tile0 = w.split * p.tiles_per_split;
     const int n_tiles = min(p.tiles_per_split, kv_tiles - tile0);
@@ -504,7 +477,7 @@ __global__ void __launch_bounds__(Shape<WGS>::kThreads, 1)
             if (BIAS && row0 + 8 * r < p.q_len && key0 + c + e < p.kv_len) {
               x += bias[(long long)(row0 + 8 * r) * p.kv_len + key0 + c + e];
             }
-            const float pv = exp2_ftz(fmaf(x, msd::kLog2e, e ? ktc.y : ktc.x) - m[r]) * il[r];
+            const float pv = msd::exp2_ftz(fmaf(x, msd::kLog2e, e ? ktc.y : ktc.x) - m[r]) * il[r];
             sc[i] = pv * (dp[i] - dl[r]);
           }
         }
@@ -622,18 +595,6 @@ __global__ void bwd_dq_combine_kernel(const float* part, bf16* dq, long long n, 
       make_uint2(msd::pack_bf16(sum.x, sum.y), msd::pack_bf16(sum.z, sum.w));
 }
 
-// A [b, h, len, 64] view (strides in elements) of a bf16 tensor, 64 x 64 boxes
-// in the 128-byte swizzle.
-inline bool tile_map(CUtensorMap* map, const void* base, int batch, int heads, int len,
-                     long long sb, long long sl, long long sh) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kTile, (cuuint64_t)len, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)(2 * sl), (cuuint64_t)(2 * sh), (cuuint64_t)(2 * sb)};
-  const cuuint32_t box[4] = {kTile, kTile, 1, 1};
-  return msd::make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dims, strides, box,
-                       CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 // The dq pass with WGS consumer warpgroups, a persistent grid.
 template <int WGS>
 cudaError_t launch_dq(const Params& p, const CUtensorMap& map_q, const CUtensorMap& map_k,
@@ -658,10 +619,10 @@ inline int launch(Params p, const void* q, const void* k, const void* v, const v
                   const void* dout, const float* stats, const uint8_t* mask, float* rowstat,
                   float* kterm, void* dq_out, int batch, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!tile_map(&map_q, q, batch, p.heads, p.q_len, p.q_sb, p.q_sl, p.q_sh) ||
-      !tile_map(&map_do, dout, batch, p.heads, p.q_len, p.q_sb, p.q_sl, p.q_sh) ||
-      !tile_map(&map_k, k, batch, p.heads, p.kv_len, p.kv_sb, p.kv_sl, p.kv_sh) ||
-      !tile_map(&map_v, v, batch, p.heads, p.kv_len, p.kv_sb, p.kv_sl, p.kv_sh)) {
+  if (!msd::head_tile_map(&map_q, q, batch, p.heads, p.q_len, p.q_sb, p.q_sl, p.q_sh) ||
+      !msd::head_tile_map(&map_do, dout, batch, p.heads, p.q_len, p.q_sb, p.q_sl, p.q_sh) ||
+      !msd::head_tile_map(&map_k, k, batch, p.heads, p.kv_len, p.kv_sb, p.kv_sl, p.kv_sh) ||
+      !msd::head_tile_map(&map_v, v, batch, p.heads, p.kv_len, p.kv_sb, p.kv_sl, p.kv_sh)) {
     return (int)cudaErrorInvalidValue;
   }
   int dev = 0, sms = 0;

@@ -44,6 +44,12 @@
 //   scratch, and `flash_fwd_combine_kernel` sums the ranges in ascending
 //   order. No atomics: two launches give the same bits.
 //
+// Two routes: bf16 calls at head_dim 64 without a bias, with q, k, v, out
+// and the mask 16-byte aligned (every bf16 call of the models), take the
+// wgmma route of flash_fwd_wgmma.cuh (`wgmma_route`, mirrored by
+// ops/attention.py `fwd_route`; its key ranges planned by `fwd_key_split`);
+// every other call takes the mma.sync kernel below.
+//
 // Softmax statistics (training): given a `stats` pointer (null when
 // serving), the kernel also writes each row's max m over all keys and its
 // sum l of exp(s - m), f32 [2, b, h, q] (m first). The backward kernel
@@ -53,6 +59,7 @@
 // to -1e10 and exp(s - lse) would give 1 where the forward used 1 / kv_len.
 
 #include "attention_mma.cuh"
+#include "flash_fwd_wgmma.cuh"
 
 namespace {
 
@@ -405,6 +412,19 @@ int dispatch(const Params& p, cudaStream_t stream) {
   return launch<128, T>(p, stream);
 }
 
+// Whether bf16 calls at head_dim 64 take the wgmma route (false: every
+// call takes the mma.sync route, as before that route existed;
+// tools/torch_attention_variants.py fwd_old_route times the two).
+constexpr bool kFwdWgmmaRoute = true;
+
+// The rule: the wgmma route takes bf16 at head_dim 64 without a bias, with
+// q, k, v, out and the key mask 16-byte aligned (TMA's loads); the mma.sync
+// route every other call. A call with a bias takes mma.sync, which adds
+// the bias tile to S.
+bool wgmma_route(int dtype, int head_dim, bool aligned, bool has_bias) {
+  return kFwdWgmmaRoute && dtype == 1 && head_dim == fwd_wgmma::kTile && aligned && !has_bias;
+}
+
 }  // namespace
 
 extern "C" {
@@ -416,7 +436,9 @@ extern "C" {
 // [2, splits, b, h, q]) are the split-KV scratch, null when splits == 1.
 // Split s takes keys [s keys_per_split, (s + 1) keys_per_split); with
 // splits > 1 every split must start below kv_len and keys_per_split be a
-// multiple of 64 (ignored when splits == 1).
+// multiple of 64 (ignored when splits == 1); on the wgmma route the splits
+// must also cover kv_len (ops/attention.py `fwd_key_split` plans them, the
+// mma.sync route's by `kv_split`).
 // dtype: 0 = float32, 1 = bfloat16. bias_heads: 1 or `heads` (ignored
 // without a bias). Tensors are contiguous in the layouts named above.
 int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
@@ -464,11 +486,53 @@ int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
   p.bias_sh = bias_heads == 1 ? 0 : (long long)q_len * kv_len;
   p.bias_sb = (long long)bias_heads * q_len * kv_len;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = msd::aligned16(q) && msd::aligned16(k) && msd::aligned16(v) &&
+                       msd::aligned16(out) && (mask == nullptr || msd::aligned16(mask));
+  if (wgmma_route(dtype, head_dim, aligned, bias != nullptr)) {
+    if (splits > 1 && (long long)splits * keys_per_split < kv_len) {
+      return (int)cudaErrorInvalidValue;
+    }
+    fwd_wgmma::Params w;
+    w.out = out;
+    w.stats = p.stats;
+    w.part_acc = p.part_acc;
+    w.part_ml = p.part_ml;
+    w.batch = batch;
+    w.heads = heads;
+    w.q_len = q_len;
+    w.kv_len = kv_len;
+    w.splits = splits;
+    w.tiles_per_split = splits == 1 ? (kv_len + kBlockK - 1) / kBlockK : keys_per_split / kBlockK;
+    w.masked = mask != nullptr;
+    w.q_sb = p.q_sb;
+    w.q_sl = p.q_sl;
+    w.q_sh = p.q_sh;
+    const int err = fwd_wgmma::launch(w, q, k, v, p.mask, p.kv_sb, p.kv_sl, p.kv_sh, s);
+    if (err != 0 || splits == 1) return err;
+    const long long rows = (long long)batch * heads * q_len;
+    flash_fwd_combine_kernel<__nv_bfloat16>
+        <<<(unsigned)((rows + kCombineRows - 1) / kCombineRows), 32 * kCombineRows, 0, s>>>(p);
+    return (int)cudaGetLastError();
+  }
   return dtype == 0 ? dispatch<float>(p, s) : dispatch<__nv_bfloat16>(p, s);
 }
 
-// The forward's block shape, which ops/attention.py kv_split plans the
-// split-KV ranges by: query rows a block for `dtype` (0 = float32,
+// 1 when a call of this dtype code (0 = float32, 1 = bfloat16) and
+// head_dim, with q, k, v, out and the mask 16-byte aligned (`aligned`) and
+// a bias or not, takes the wgmma route; 0 for the mma.sync route.
+int msd_flash_fwd_route(int dtype, int head_dim, int aligned, int has_bias) {
+  return wgmma_route(dtype, head_dim, aligned != 0, has_bias != 0) ? 1 : 0;
+}
+
+// The wgmma route's block shape for q_len queries, which ops/attention.py
+// fwd_key_split plans the key ranges by: 0, the queries a work item owns;
+// 1, the keys a K/V tile.
+int msd_flash_fwd_tile(int which, int q_len) {
+  return which == 0 ? 64 * fwd_wgmma::wgs_for(q_len) : fwd_wgmma::kTile;
+}
+
+// The mma.sync route's block shape, which ops/attention.py kv_split plans
+// the split-KV ranges by: query rows a block for `dtype` (0 = float32,
 // 1 = bfloat16), and keys a K/V tile.
 int msd_flash_fwd_rows(int dtype) {
   return dtype == 0 ? Tile<64, float>::kRows : Tile<64, __nv_bfloat16>::kRows;

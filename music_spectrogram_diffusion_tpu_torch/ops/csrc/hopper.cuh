@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed the
 // tensor cores through the Tensor Memory Accelerator (qmm.cu's wgmma route,
-// flash_bwd.cu's bf16 wgmma route): wgmma matrix descriptors for tiles in
-// the 128-byte swizzle, wgmma issue and ordering, mbarriers, TMA and bulk
-// copies, and the host-side tensor-map encoder.
+// the bf16 wgmma routes of flash_fwd.cu and flash_bwd.cu): wgmma matrix
+// descriptors for tiles in the 128-byte swizzle, wgmma issue and ordering,
+// mbarriers, TMA and bulk copies, and the host-side tensor-map encoders.
 //
 // A tile in the 128-byte swizzle has rows of 128 bytes (64 bf16); 16-byte
 // chunk c of row r is stored at chunk c ^ (r % 8); groups of 8 rows are
@@ -89,6 +89,23 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// The same for a register A operand, which an issued wgmma reads until its
+// wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+// 2^x by the special-function unit alone; results below 2^-126 flush to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 #define MSD_WGMMA_D32                                                                           \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
@@ -114,17 +131,18 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a, uint
       : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
-// d += a b for one m64n64k16 step with A in registers (the fragment named
-// at the top of the file) and b in shared memory, K-major or N-major.
+// d (+)= a b for one m64n64k16 step with A in registers (the fragment
+// named at the top of the file) and b in shared memory, K-major or
+// N-major; d is overwritten when `accumulate` is 0.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t b) {
+                                                uint64_t b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MSD_WGMMA_D32_REGS
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : MSD_WGMMA_D32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 #undef MSD_WGMMA_D32
@@ -167,6 +185,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
   }
+}
+
+// A 1-D box of `map` at c0 into shared memory; completion counted in bytes
+// on `bar`.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, int c0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2}], [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // A 2-D box of `map` at (c0 innermost, c1) into shared memory; completion
@@ -246,6 +275,19 @@ inline bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType 
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   return make_map(map, base, type, 2, dims, strides, box, swizzle);
+}
+
+// A [b, h, len, 64] view (strides in elements) of a bf16 tensor, 64 x 64
+// boxes in the 128-byte swizzle: one head's rows of q, k, v, out or dO in
+// either K/V layout (the attention kernels' wgmma routes); rows past len
+// read as zero.
+inline bool head_tile_map(CUtensorMap* map, const void* base, int batch, int heads, int len,
+                          long long sb, long long sl, long long sh) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)len, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(2 * sl), (cuuint64_t)(2 * sh), (cuuint64_t)(2 * sb)};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace msd

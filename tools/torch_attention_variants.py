@@ -6,10 +6,14 @@ faults planted in them, caught by chip_smoke.py's tolerances.
 Builds `ops/csrc/flash_fwd.cu` and `flash_bwd.cu` as they are, and variants
 of them made by replacing lines of the sources in a temporary copy, and
 times each in turns (base, variants, variants reversed, base) at the
-inputs of chip_smoke.py phases 3 (forward, 16 runs; only when a chosen
-variant touches the forward), 10 (backward in float32, 4 training shapes at
-b=8) and 19 (backward in bfloat16, the same shapes), all of them or those
-named. Each variant's results are held against the plain versions at
+inputs of chip_smoke.py phases 3 and 22 (forward, the six shapes at b=2
+and b=1 in float32 and bfloat16, and the training encoder's 2048x2048 at
+b=8 in bfloat16: 25 runs, each timed as CUDA-graph replays; only when a
+chosen variant touches the forward), 10 (backward in float32, 4 training
+shapes at b=8) and 19 (backward in bfloat16, the same shapes), all of them
+or those named. For each forward run it also prints, once, the plain
+version's and SDPA's times (graph replays; SDPA a yardstick only) and the
+bound. Each variant's results are held against the plain versions at
 chip_smoke's tolerances; a variant marked `same_bits` must also give the
 base's output bit for bit. Prints the nvidia-smi name and power limit,
 each variant's ptxas registers and spills, and a table of the best of its
@@ -22,11 +26,18 @@ its error against the plain version and chip_smoke's limit there are
 printed, and the tool fails unless the limit catches it. With --profile,
 each backward run of the base and of each timed variant is also traced
 with torch.profiler (five calls), and each kernel's device ms a call is
-printed (the backward's prologue, passes and combine). The variants:
+printed (the backward's prologue, passes and combine); so is each forward
+run's (the main kernel and, where the keys are split, the combine). The
+variants:
 
   fwd_f32_4warps   f32 blocks of 4 warps (64 rows) instead of 8;
   fwd_bf16_8warps  bf16 blocks of 8 warps (128 rows) instead of 4;
   fwd_f32_3stages  a third f32 K/V stage;
+  fwd_old_route    bf16 calls that the forward's wgmma route takes go to the
+                   mma.sync route, as before it existed (the before of a
+                   before-and-after, other bits);
+  fwd_4stages      the forward's wgmma route with a ring of 4 K/V tiles, not 6
+                   (same bits);
   bwd_dkdv_16rows  dkdv streams 16 query rows a tile instead of 32 (d = 64);
   bwd_dkdv_64rows  dkdv streams 64 query rows a tile instead of 32 (d = 64);
   bwd_dq_64rows    dq streams 64 key rows a tile instead of 32 (d = 64);
@@ -96,6 +107,12 @@ VARIANTS = {
                                       "kWarps = kF32 ? 8 : 8;"}, False),
     "fwd_f32_3stages": ("flash_fwd", {"kStages = kF32 ? 2 : 3;":
                                       "kStages = kF32 ? 3 : 3;"}, True),
+    "fwd_old_route": ("flash_fwd", {
+        "constexpr bool kFwdWgmmaRoute = true;":
+        "constexpr bool kFwdWgmmaRoute = false;"}, False),
+    "fwd_4stages": ("flash_fwd", {
+        "constexpr int kStages = 6;  // the TMA ring of K/V tiles":
+        "constexpr int kStages = 4;  // the TMA ring of K/V tiles"}, True),
     "bwd_dkdv_16rows": ("flash_bwd", {
         "kDkdvRows = D <= 64 ? 32 : 16;": "kDkdvRows = 16;"}, False),
     "bwd_dkdv_64rows": ("flash_bwd", {
@@ -186,6 +203,19 @@ def kernel_ms(fn, calls: int = 5):
           sorted(events, key=lambda e: -e.self_device_time_total)]
 
 
+def sdpa_ms(q, k, v, mask, transposed, stream):
+  """SDPA's time (graph replays) on the inputs of a forward run, as
+  chip_smoke.py phase 3 takes it: [b, h, l, d], the mask as an additive
+  bias in the inputs' dtype, no scaling."""
+  qs = q.transpose(1, 2).contiguous()
+  ks, vs = ((k, v) if transposed else (k.transpose(1, 2).contiguous(),
+                                       v.transpose(1, 2).contiguous()))
+  bias = (None if mask is None else
+          ((mask.float() - 1.0) * 1e10)[:, None, None, :].to(q.dtype))
+  return cs.graph_ms(lambda _: torch.nn.functional.scaled_dot_product_attention(
+      qs, ks, vs, attn_mask=bias, scale=1.0), 10, stream)
+
+
 def main() -> int:
   if not torch.cuda.is_available():
     print("needs an NVIDIA GPU", file=sys.stderr)
@@ -209,11 +239,14 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     fwd_runs = []
     if any(VARIANTS[n][0] != "flash_bwd" for n in chosen):
-      for shape, q_len, kv_len, masked, tr in cs.SHAPES:
-        for batch, dtype in cs.RUNS:
-          fwd_runs.append((f"{shape} b={batch} {str(dtype)[6:]}", tr, dtype,
-                           cs.attention_inputs(batch, q_len, kv_len, masked,
-                                               tr, dtype, gen)))
+      shapes = [(s, batch, dtype) for s in cs.SHAPES + cs.FAMILY_SHAPES
+                for batch, dtype in cs.RUNS]
+      shapes.append((cs.SHAPES[0], 8, torch.bfloat16))  # training's encoder
+      for (shape, q_len, kv_len, masked, tr), batch, dtype in shapes:
+        fwd_runs.append((f"{shape} b={batch} {str(dtype)[6:]}", tr, dtype,
+                         cs.attention_inputs(batch, q_len, kv_len, masked,
+                                             tr, dtype, gen)))
+    stream = torch.cuda.Stream()
     bwd_runs = []
     for dtype in (torch.float32, torch.bfloat16):
       for shape, q_len, kv_len, masked, _ in cs.SHAPES:
@@ -264,7 +297,8 @@ def main() -> int:
         if same_bits:
           cs.check(torch.equal(base.setdefault(label, got), got),
                    f"{name} {label}: other bits than the base")
-        times.setdefault((label, name), []).append(cs.cuda_ms(fn, 50))
+        times.setdefault((label, name), []).append(
+            cs.graph_ms(lambda _: fn(), 20, stream))
       for label, args in bwd_runs:
 
         def fn():
@@ -287,6 +321,15 @@ def main() -> int:
     for label in [r[0] for r in fwd_runs] + [r[0] for r in bwd_runs]:
       print(f"{label} | " + " | ".join(
           f"{min(times[(label, n)]):.4f}" for n in names), flush=True)
+    for label, tr, dtype, (q, k, v, mask) in fwd_runs:
+      plain_ms = cs.graph_ms(lambda _: attention.attention_reference(
+          q, k, v, kv_mask=mask, kv_transposed=tr), 10, stream)
+      bound, bound_by, _ = cs.bound_ms(q.shape[0], q.shape[1],
+                                       k.shape[2 if tr else 1],
+                                       mask is not None, dtype)
+      print(f"{label}: plain {plain_ms:.4f} ms, sdpa "
+            f"{sdpa_ms(q, k, v, mask, tr, stream):.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by})", flush=True)
     for n in names:
       fwd, bwd, bwd_bf16, rms, rms_bf16 = worst[n]
       print(f"{n or 'base'}: worst error / tolerance {fwd:.3g} forward, "
@@ -295,6 +338,11 @@ def main() -> int:
     if profile:
       for name in names:
         use(name)
+        for label, tr, _, (q, k, v, mask) in fwd_runs:
+          print(f"{name or 'base'} {label}: " + "; ".join(
+              f"{k_} {ms:.4f} ms" for k_, ms in kernel_ms(
+                  lambda: attention.flash_attention(
+                      q, k, v, kv_mask=mask, kv_transposed=tr))), flush=True)
         for label, args_ in bwd_runs:
           print(f"{name or 'base'} {label}: " + "; ".join(
               f"{k} {ms:.4f} ms" for k, ms in kernel_ms(
