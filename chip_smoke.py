@@ -5,25 +5,29 @@
 Phases, each printed on its own line with its seconds:
   1. device   the card, as nvidia-smi names it with its power limit;
   2. build    nvcc builds the three kernels from ops/csrc/ (flash_fwd.cu
-              and flash_bwd.cu each with its wgmma route, qmm.cu, and the
-              two wgmma routes' planted faults: five compilers started
-              together; phases 27 and 28's host data start in the
-              background) and reports ptxas's registers and spills of every
-              instantiation, and its warnings; no kernel may spill;
+              and flash_bwd.cu each with its wgmma routes, bf16 and f32,
+              qmm.cu, and the wgmma routes' four planted-fault builds:
+              seven compilers started together; phases 27 and 28's host
+              data start in the background) and reports ptxas's registers
+              and spills of every instantiation, and its warnings; no
+              kernel may spill;
   3. kernel   flash attention against its plain PyTorch version at the
               four attention shapes of the serving path, at b=2 and b=1, in
               float32 and bfloat16: the forward's route rule as the built
               library applies it against `attention.fwd_route`, each call's
-              route (every bf16 call on the wgmma route), error and
-              tolerance, in float32 the softmax statistics against theirs,
-              two launches bitwise equal, the wgmma route's planted fault
-              (the second K/V tile of each key range left out, built in
-              phase 2) past the limit at every bf16 call, the split-KV
-              count, kernel / plain / SDPA (yardstick only) times on the
-              card (CUDA graphs), the kernel's eager time a call, and the
-              least time the card could take; then the kernels' TF32
-              rounding against cvt.rna.tf32.f32, and a NaN in q, v or dO
-              giving NaN where the plain versions do;
+              route (every call on the wgmma route: bf16, and f32 as 3xTF32
+              on tf32 wgmma), error and tolerance, in float32 the softmax
+              statistics against theirs, two launches bitwise equal, the
+              wgmma routes' planted faults (built in phase 2) past the
+              limit at every call: the second K/V tile of each key range
+              left out, and at the f32 calls plain TF32 (the split's small
+              terms zeroed), the split-KV count, kernel / plain / SDPA
+              (yardstick only) times on the card (CUDA graphs), the
+              kernel's eager time a call, and the least time the card
+              could take; then the kernels' TF32 rounding against
+              cvt.rna.tf32.f32, a NaN in q, v or dO giving NaN where the
+              plain versions do, and the f32 forward calls that stay on
+              the mma.sync route (a bias, head_dim 32);
   4. kernel   the weight-only int8 GEMM against its plain version at every
               (M, K, N, dtype) of the int8 path: the plan's route and K
               splits, error and tolerance, two launches bitwise equal,
@@ -57,9 +61,12 @@ Phases, each printed on its own line with its seconds:
  10. kernel   the flash-attention backward against its plain version and
               against autograd through the plain forward, at the four
               attention shapes of training at its batch (float32, key masks
-              with an all-masked row): error and tolerance, finite, two
-              launches bitwise equal, kernel / plain / SDPA-backward
-              (yardstick only) times and the bound;
+              with an all-masked row): the route (wgmma: 3xTF32 on tf32
+              wgmma) and dq key split, error and tolerance, finite, two
+              launches bitwise equal, both planted faults past the limit,
+              kernel / plain / SDPA-backward (yardstick only) times and the
+              bound; then the f32 backward at head_dim 32 (mma.sync route)
+              and with a bias (wgmma route);
  11. main     float32 context_base at full width trains 5 steps through
               cli/train.py --synthetic (tasks 2048/256/256, batch 8, dropout
               0.1): loss and grad_norm of each step finite, seconds per step,
@@ -114,8 +121,8 @@ Phases, each printed on its own line with its seconds:
               autoregressive families run (phase 3's and phase 10's checks):
               the forward at 256x2048 with a key mask (cached K/V) and at
               an unmasked 2048x2048, at b=2 and b=1, in float32 and bf16
-              (the planted fault past the limit at each bf16 call); the
-              float32 backward at both shapes at batch 8;
+              (the planted faults past the limit at each call); the
+              float32 backward at both shapes at batch 8 (its faults too);
  23. main     notes-only diffusion_base in int8 (bf16 network) renders
               phase 7's MIDI file, 3 independent segments, with the serving
               sampler and the trained vocoder: both kernels' launch counts
@@ -247,11 +254,16 @@ Phases, each printed on its own line with its seconds:
               reader on phase 27's records, with and without the CRC check:
               MB/s and records a second, the records equal. Two ranks on
               one card say nothing of NVLink or NCCL scaling.
+Every float32 main path (phases 5, 11, 12, 21, 25, 28 and 30's training)
+checks by `attention.route_launches` that each of its f32 calls of
+kernels #1 and #2 took the wgmma route (`f32_routes`).
 Then the vocoder phases' numbers as one JSON line, the families' phases'
 as another, phase 26's as another, phase 27's as another, phase 28's as
 another, phase 29's as another, phase 30's as another, one JSON line of
 the kernels (kernel #1's `bf16` entry names its wgmma route and holds
-phases 3 and 22's bf16 numbers), the nvidia-smi line again, and last
+phases 3 and 22's bf16 numbers; #1's and #2's `f32` entries name their
+f32 route and its planted faults' least ratios), the nvidia-smi line
+again, and last
 {"ok": true, "device": {...}}. Any failure exits non-zero with its
 traceback and prints no result. Needs CUDA; it refuses to run without it.
 """
@@ -489,7 +501,8 @@ def ptxas_lines(report: str) -> list:
           ", " if t.group(1) == ">" else "<") + (
               "f32" if t.group(2) == "f" else "bf16") + ">", entry)
       entry = re.sub(r"^(\w+_kernel)E\w*$", r"\1", entry)  # no template
-      entry = re.sub(r"^_ZN9(\w\wd_wgmma)\d+", r"\1::", entry)
+      entry = qualified(entry)
+      entry = re.sub(r"^(\w+::\w+_kernel)E\w*$", r"\1", entry)  # no template
       entry = re.sub(r"(<\d+>)EEv\w*$", r"\1", entry)
       entry = re.sub(r"(?:<(\d+)>|I)Lb([01])EEEv\w*$", lambda t: "<" + (
           f"{t.group(1)}, " if t.group(1) else "") + (
@@ -500,6 +513,21 @@ def ptxas_lines(report: str) -> list:
       lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; {stack}")
       entry, stack = None, ""
   return lines
+
+
+def qualified(name: str) -> str:
+  """`ns::name` and the rest for a mangled `_ZN<length><ns><length><name>`
+  (the wgmma routes' namespaces); any other name as it is."""
+  m = re.match(r"_ZN(\d+)", name)
+  if not m:
+    return name
+  end = m.end() + int(m.group(1))
+  rest = name[end:]
+  n = re.match(r"\d+", rest)
+  if not n:
+    return name
+  stop = n.end() + int(n.group())
+  return f"{name[m.end():end]}::{rest[n.end():stop]}{rest[stop:]}"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -553,13 +581,14 @@ def fwd_tolerance(dtype, plain) -> float:
   return TOLERANCE[dtype] * scale
 
 
-def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS, fault_lib=None):
+def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS, faults=None):
   """The forward kernel at `shapes` ((name, q_len, kv_len, masked,
   transposed[, heads]); HEADS where heads is not given), each at the
-  (batch, dtype) of `runs`. Every bf16 call must take the wgmma route, as
-  both the built library and `attention.fwd_route` route it; with
-  `fault_lib` (the forward's planted fault) the fault must land past the
-  limit at each of them."""
+  (batch, dtype) of `runs`. Every call must take the wgmma route (bf16 or
+  f32), as both the built library and `attention.fwd_route` route it; with
+  `faults` (the forward's planted faults: "flash_fwd", a key tile left
+  out, and "flash_fwd_plain", plain TF32) each must land past the limit at
+  each call (plain TF32 at the f32 calls)."""
   rows = []
   sms = torch.cuda.get_device_properties(0).multi_processor_count
   lib = attention._library("flash_fwd")  # pylint: disable=protected-access
@@ -612,22 +641,26 @@ def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS, fault_lib=None):
                else "mma_sync")
       check(built == route, f"{name} {dtype}: the library routes to {built}, "
             f"fwd_route to {route}")
-      check(dtype != torch.bfloat16 or route == "wgmma",
-            f"{name} b={batch} bf16 takes the {route} route")
-      if route == "wgmma":
-        splits, _ = attention.fwd_key_split(batch, heads, q_len, kv_len, sms,
-                                            *attention.fwd_wgmma_tile(q_len))
-      else:
-        splits, _ = attention.kv_split(batch, heads, q_len, kv_len, sms,
-                                       *attention.fwd_tile(dtype))
-      fault_note, fault_ratio = "", None
-      if fault_lib is not None and route == "wgmma":
-        faulty = with_library("flash_fwd", fault_lib, kernel)
+      check(route == "wgmma", f"{name} b={batch} {dtype} takes the {route} "
+            "route")
+      splits, _ = attention.fwd_key_split(
+          batch, heads, q_len, kv_len, sms,
+          *attention.fwd_wgmma_tile(q_len, dtype))
+      fault_note, fault_ratio, plain_ratio = "", None, None
+      if faults is not None:
+        faulty = with_library("flash_fwd", faults["flash_fwd"], kernel)
         fault_ratio = (faulty.float() - want.float()).abs().max().item() / tol
         check(fault_ratio > 1.0, f"{name} b={batch}: the planted fault (the "
               f"second K/V tile of each key range left out) within the "
               f"limit, {fault_ratio:.3g} of it")
         fault_note = f"; planted fault {fault_ratio:.3g}x the limit"
+        if dtype == torch.float32:
+          faulty = with_library("flash_fwd", faults["flash_fwd_plain"],
+                                kernel)
+          plain_ratio = (faulty - want).abs().max().item() / tol
+          check(plain_ratio > 1.0, f"{name} b={batch}: plain TF32 (the "
+                f"planted fault) within the limit, {plain_ratio:.3g} of it")
+          fault_note += f", plain TF32 {plain_ratio:.3g}x"
         del faulty
       # SDPA yardstick on the same inputs: [b, h, l, d], additive mask.
       qs = q.transpose(1, 2).contiguous()
@@ -664,7 +697,8 @@ def kernel_phase(gen, stream, shapes=SHAPES, runs=RUNS, fault_lib=None):
       rows.append(dict(shape=name, dtype=dt, batch=batch, heads=heads,
                        q_len=q_len, kv_len=kv_len, route=route, splits=splits,
                        max_abs_err=err, tolerance=tol, rel_rms=rms,
-                       fault_of_tolerance=fault_ratio, ms=ms,
+                       fault_of_tolerance=fault_ratio,
+                       plain_tf32_of_tolerance=plain_ratio, ms=ms,
                        eager_ms=eager_ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
                        bound_bf16_ms=bound_bf16))
@@ -762,6 +796,60 @@ def nan_check(gen) -> str:
             f"{int(torch.isnan(g).sum())} of {what}, plain at "
             f"{int(torch.isnan(w).sum())}")
     notes.append(f"{name} backward dO {sum(int(torch.isnan(g).sum()) for g in got)}")
+  return "; ".join(notes)
+
+
+def mma_sync_f32_check(gen, which: str) -> str:
+  """The f32 calls that stay on the mma.sync route, which the models never
+  make: `which` "fwd", the forward with a bias and at head_dim 32; "bwd",
+  the backward at head_dim 32 (and, on the wgmma route, with a bias). Each
+  routed as the library and fwd_route / bwd_route say, held against its
+  plain version at the f32 limits, two launches bitwise equal."""
+  notes, dev, b, q_len, kv_len, h = [], "cuda", 2, 256, 256, 4
+  cases = (((64, True), (32, False)) if which == "fwd"
+           else ((32, False), (64, True)))
+  for head_dim, with_bias in cases:
+    q = torch.randn(b, q_len, h, head_dim, device=dev,
+                    generator=gen) * head_dim ** -0.5
+    k, v = (torch.randn(b, kv_len, h, head_dim, device=dev, generator=gen)
+            for _ in range(2))
+    mask = torch.rand(b, kv_len, device=dev, generator=gen) > 0.25
+    bias = (torch.randn(b, h, q_len, kv_len, device=dev, generator=gen)
+            if with_bias else None)
+    attention.route_launches.clear()
+    if which == "fwd":
+      route = attention.fwd_route(torch.float32, head_dim, True, with_bias)
+      got = attention.flash_attention(q, k, v, bias, mask)
+      again = attention.flash_attention(q, k, v, bias, mask)
+      torch.cuda.synchronize()
+      errs = [(got - attention.attention_reference(q, k, v, bias, mask))
+              .abs().max().item() / TOLERANCE[torch.float32]]
+      same = torch.equal(got, again)
+    else:
+      route = attention.bwd_route(torch.float32, head_dim)
+      out, stats = attention.flash_attention(q, k, v, bias, mask,
+                                             return_stats=True)
+      dout = torch.randn(out.shape, device=dev, generator=gen)
+      args = (q, k, v, bias, mask, out, stats, dout)
+      attention.route_launches.clear()
+      got = attention.flash_attention_bwd(*args)
+      again = attention.flash_attention_bwd(*args)
+      torch.cuda.synchronize()
+      errs = [(g - w).abs().max().item()
+              / (BWD_TOLERANCE * max(1.0, w.abs().max().item()))
+              for g, w in zip(got, attention.flash_attention_bwd_reference(
+                  *args))]
+      same = all(torch.equal(x, y) for x, y in zip(got, again))
+    routed = attention.route_launches[which, "float32", route]
+    check(routed == 2, f"{which} d={head_dim} bias={with_bias}: {routed} of 2 "
+          f"calls on the {route} route ({dict(attention.route_launches)})")
+    check(max(errs) <= 1.0, f"{which} d={head_dim} bias={with_bias}, {route} "
+          f"route: error {max(errs):.3g} of the f32 limit")
+    check(same, f"{which} d={head_dim} bias={with_bias}: two launches differ")
+    notes.append(f"d={head_dim}{' with a bias' if with_bias else ''}, {route} "
+                 f"route, {max(errs):.3g} of the f32 limit, bitwise "
+                 f"reproducible")
+  attention.route_launches.clear()
   return "; ".join(notes)
 
 
@@ -1020,12 +1108,27 @@ def forward_ms(model, tokens: np.ndarray, stream: torch.cuda.Stream,
 
 def zero_counts() -> None:
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
 
 
 def launch_counts() -> tuple:
   return (attention.flash_attention.launches,
           quantize.quantized_matmul.launches)
+
+
+def f32_routes(label: str) -> str:
+  """The f32 calls of kernels #1 and #2 by route since the route counts
+  were last cleared: none may have taken the mma.sync route, and #1 must
+  have run on the wgmma route at least once."""
+  counts = attention.route_launches
+  sync = {k: v for k, v in counts.items()
+          if k[1] == "float32" and k[2] == "mma_sync" and v}
+  check(not sync, f"{label}: f32 calls on the mma.sync route {sync}")
+  check(counts["fwd", "float32", "wgmma"] > 0,
+        f"{label}: no f32 call of #1 on the wgmma route")
+  return (f"f32 calls by route: #1 wgmma {counts['fwd', 'float32', 'wgmma']}, "
+          f"#2 wgmma {counts['bwd', 'float32', 'wgmma']}, mma.sync none")
 
 
 def eager_render(synth, segments) -> dict:
@@ -1208,6 +1311,7 @@ def main_phase(seed: int, card: str, rows, stream):
   torch.cuda.reset_peak_memory_stats()
   resident = torch.cuda.memory_allocated() / 2**30
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   render = synth.render_song(segments)
@@ -1232,6 +1336,8 @@ def main_phase(seed: int, card: str, rows, stream):
   audio_s = tm["audio_seconds"]
   log(f"  mel {render.mel.shape} finite, audio {render.audio.shape} finite "
       f"({audio_s:.2f} s of audio)")
+  log(f"  {f32_routes('phase 5')} (replays add none: each captured call "
+      f"was counted once)")
   log(f"  flash_attention launches {launches} = expected {expected} "
       f"({SEGMENTS} segments x (2 encoders x {net.num_encoder_layers} "
       f"self-attention layers + {net.num_decoder_layers} decoder layers x 2 "
@@ -1309,6 +1415,7 @@ def int8_phase(seed: int, card: str, rows, qmm_rows, stream):
   torch.cuda.reset_peak_memory_stats()
   resident = torch.cuda.memory_allocated() / 2**30
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   render = synth.render_song(segments)
@@ -1481,11 +1588,17 @@ def sdpa_backward_ms(q, k, v, mask, dout, iters: int) -> float:
                                              retain_graph=True), iters)
 
 
-def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
+def bwd_kernel_phase(gen, batch: int, shapes=SHAPES, faults=None):
   """The backward kernel at the attention shapes of training (`shapes`;
   the context model's four by default; an optional sixth entry gives the
-  heads)."""
+  heads), every call on the wgmma route (f32, as the built library and
+  `attention.bwd_route` route it); with `faults` (the backward's planted
+  faults: "flash_bwd", a key tile of each dq key range left out, and
+  "flash_bwd_plain", plain TF32) each must land past the limit at each
+  shape."""
   rows = []
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  lib = attention._library("flash_bwd")  # pylint: disable=protected-access
   for name, q_len, kv_len, masked, _, *more in shapes:
     heads = more[0] if more else HEADS
     # Training attends over uncached K/V in [b, l, h, d].
@@ -1524,6 +1637,33 @@ def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
         worst = max(worst, err / tol)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two launches differ")
+    aligned = all(x.data_ptr() % attention.WGMMA_ALIGN == 0
+                  for x in (q, k, v, out, dout))
+    route = attention.bwd_route(q.dtype, HEAD_DIM, aligned)
+    built = ("wgmma" if lib.msd_flash_bwd_route(0, HEAD_DIM, int(aligned))
+             else "mma_sync")
+    check(route == built == "wgmma", f"{name}: f32 training takes the "
+          f"{built} route (bwd_route: {route})")
+    splits = attention.dq_key_split(batch, heads, q_len, kv_len, sms,
+                                    *attention.bwd_tile(q_len, q.dtype))
+    fault_note, fault_ratio, plain_ratio = "", None, None
+    if faults is not None:
+      ratios = []
+      for fault in ("flash_bwd", "flash_bwd_plain"):
+        faulty = with_library("flash_bwd", faults[fault], kernel)
+        ratios.append(max(
+            (g - w).abs().max().item()
+            / (BWD_TOLERANCE * max(1.0, w.abs().max().item()))
+            for g, w in zip(faulty, want)))
+        del faulty
+      fault_ratio, plain_ratio = ratios
+      check(fault_ratio > 1.0, f"{name}: the planted fault (a key tile of "
+            f"each dq key range left out) within the limit, "
+            f"{fault_ratio:.3g} of it")
+      check(plain_ratio > 1.0, f"{name}: plain TF32 (the planted fault) "
+            f"within the limit, {plain_ratio:.3g} of it")
+      fault_note = (f"; planted faults {fault_ratio:.3g}x (a key tile) and "
+                    f"{plain_ratio:.3g}x (plain TF32) the limit")
     del want, qkv
     iters = 3 if q_len > 256 else 20
     ms, plain_ms, lib_ms = (cuda_ms(kernel, iters), cuda_ms(plain, iters),
@@ -1534,16 +1674,20 @@ def bwd_kernel_phase(gen, batch: int, shapes=SHAPES):
         q, k, v, kv_mask=mask, return_stats=True), iters)
     bound, bound_by, bound_bf16 = bwd_bound_ms(batch, q_len, kv_len,
                                                heads=heads)
-    log(f"  {name} b={batch} h={heads} d={HEAD_DIM} float32: max_abs_err "
+    log(f"  {name} b={batch} h={heads} d={HEAD_DIM} float32, {route} route, "
+        f"dq key split {splits[0]} x {splits[1]} keys: max_abs_err "
         f"{max(errs):.3g} (tol {BWD_TOLERANCE} x max(1, |grad| max); at "
         f"worst {worst:.3g} of it), "
         f"finite{' with an all-masked row' if masked else ''}, bitwise "
-        f"reproducible; kernel {ms:.4f} ms, plain "
+        f"reproducible{fault_note}; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms; bound "
         f"{bound:.4f} ms ({bound_by}, 3xTF32 peak), {bound_bf16:.4f} ms at "
         f"the bf16 peak; the forward kernel with statistics {fwd_ms:.4f} ms")
     rows.append(dict(shape=name, batch=batch, heads=heads, q_len=q_len,
-                     kv_len=kv_len, max_abs_err=max(errs), ms=ms,
+                     kv_len=kv_len, route=route, dq_splits=splits[0],
+                     max_abs_err=max(errs), worst_of_tolerance=worst,
+                     fault_of_tolerance=fault_ratio,
+                     plain_tf32_of_tolerance=plain_ratio, ms=ms,
                      plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                      bound_by=bound_by, bound_bf16_ms=bound_bf16,
                      forward_ms=fwd_ms))
@@ -1576,6 +1720,7 @@ def train_phase(seed: int, card: str, bwd_rows):
           "--synthetic_examples", str(TRAIN_SONGS), "--device", "cuda"]
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
@@ -1590,6 +1735,7 @@ def train_phase(seed: int, card: str, bwd_rows):
   check(launches[0] == expected and launches[1] == expected,
         f"training launched flash_fwd {launches[0]} and flash_bwd "
         f"{launches[1]} times, expected {expected} each")
+  log(f"  {f32_routes('phase 11')}")
   check(state.step == TRAIN_STEPS, f"trained {state.step} steps")
   with open(os.path.join(model_dir, "metrics.jsonl")) as f:
     lines = [json.loads(l) for l in f]
@@ -1643,8 +1789,10 @@ def profile_step(t, state, experiment, seed: int, card: str,
     check(np.isfinite(metrics["loss"].item()), "profiled step's loss")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-  groups = {"flash_bwd (kernel #2)": ("flash_bwd", "bwd_wgmma"),
-            "flash_fwd (kernel #1)": ("flash_fwd", "fwd_wgmma"),
+  groups = {"flash_bwd (kernel #2)": ("flash_bwd", "bwd_wgmma", "bwd_tf32"),
+            "flash_fwd (kernel #1)": ("flash_fwd", "fwd_wgmma", "fwd_tf32"),
+            "tf32 split (the f32 routes' prologue, #1 and #2)": (
+                "tf32_split",),
             "matmul (cuBLAS)": ("gemm", "cutlass", "xmma", "gemv", "nvjet"),
             "other": ("",)}
   busy = {g: 0.0 for g in groups}
@@ -1719,6 +1867,7 @@ def step_check_phase(t, seed: int):
     hook = m.module.register_forward_hook(
         lambda module, args, out: outputs.append(out.detach().cpu()))
     launches = attention.flash_attention_bwd.launches
+    attention.route_launches.clear()
     kernel_fn = attention.flash_attention_diff
     if plain:
       attention.flash_attention_diff = attention.attention_reference
@@ -1732,6 +1881,8 @@ def step_check_phase(t, seed: int):
       hook.remove()
     used = attention.flash_attention_bwd.launches - launches
     attention.flash_attention_bwd.launches = launches  # not the main path's
+    if not plain and str(dev).startswith("cuda"):
+      f32_routes("phase 12")
     return (metrics["loss"].item(), {n: g.cpu() for n, g in grads.items()},
             outputs[0], used)
 
@@ -1979,6 +2130,7 @@ def stream_phase(card: str, synth, segments, render, experiment) -> tuple:
   """stream_song on phase 7's song with phase 7's noise: each segment's mel
   equals the batch render's bit for bit, and its audio is one segment."""
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   firsts, mels = [], []
@@ -2014,6 +2166,7 @@ def cli_phase(card: str, seed: int, experiment) -> int:
   midi = os.path.join("out", f"chip_smoke_seed{seed}.mid")
   wav = os.path.join("out", f"chip_smoke_seed{seed}_cli.wav")
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   seconds, timings = host_s(lambda: synthesize_midi.main([
       "--midi", midi, "--output", wav, "--size", "base", "--steps", "100",
@@ -2063,35 +2216,52 @@ def soundstream_phase(card: str, seed: int, mel: np.ndarray) -> dict:
   return dict(ms=ms, max_abs_err=err)
 
 
-# The planted faults of the two wgmma routes, each built from a copy of
-# the sources in phase 2: (header, the line, its faulty form) by library.
-# Phase 19's: the backward's dq pass leaves out the second key tile of each
-# of its key ranges (keys 64-127 of the range: their dS taken as 0). Phases
-# 3 and 22's: the forward leaves out the second K/V tile of each key range
-# (keys 64-127 of the range: their p taken as 0).
+# The planted faults of the wgmma routes, each built from a copy of the
+# sources in phase 2: by name, (library, [(header, the line, its faulty
+# form), ...]). "flash_fwd" (phases 3 and 22): the forward leaves out the
+# second K/V tile of each key range (keys 64-127 of the range: their p
+# taken as 0), in the bf16 and the f32 route. "flash_bwd" (phases 10, 19
+# and 22): the backward's dq pass leaves out the second key tile of each of
+# its key ranges (their dS taken as 0: keys 64-127 in bf16, keys 32-63 in
+# f32). "flash_fwd_plain" and "flash_bwd_plain" (phases 3, 10 and 22, f32):
+# the split's small terms taken as 0 (attention_mma.cuh `split_tf32`), so
+# the two correction products of every 3xTF32 product add nothing: plain
+# TF32.
+PLAIN_TF32 = ("attention_mma.cuh",
+              "return {big, round_tf32(__int_as_float(min(rest, 0x7fffefff)))};",
+              "return {big, 0u * rest};")
 FAULTS = {
-    "flash_bwd": ("flash_bwd_wgmma.cuh", "sc[i] = pv * (dp[i] - dl[r]);",
-                  "sc[i] = it == 1 ? 0.f : pv * (dp[i] - dl[r]);"),
-    "flash_fwd": ("flash_fwd_wgmma.cuh",
-                  "sc[i] = msd::exp2_ftz(sc[i] - m_run[r]);",
-                  "sc[i] = it == 1 ? 0.f : msd::exp2_ftz(sc[i] - m_run[r]);"),
+    "flash_fwd": ("flash_fwd", [
+        ("flash_fwd_wgmma.cuh", "sc[i] = msd::exp2_ftz(sc[i] - m_run[r]);",
+         "sc[i] = it == 1 ? 0.f : msd::exp2_ftz(sc[i] - m_run[r]);"),
+        ("flash_fwd_tf32.cuh",
+         "sc[i] = msd::exp2_ftz((sc[i] - m_run[r]) * msd::kLog2e);",
+         "sc[i] = it == 1 ? 0.f : msd::exp2_ftz((sc[i] - m_run[r]) * "
+         "msd::kLog2e);")]),
+    "flash_bwd": ("flash_bwd", [
+        (header, "sc[i] = pv * (dp[i] - dl[r]);",
+         "sc[i] = it == 1 ? 0.f : pv * (dp[i] - dl[r]);")
+        for header in ("flash_bwd_wgmma.cuh", "flash_bwd_tf32.cuh")]),
+    "flash_fwd_plain": ("flash_fwd", [PLAIN_TF32]),
+    "flash_bwd_plain": ("flash_bwd", [PLAIN_TF32]),
 }
 
 
 def start_fault_build(work: str, name: str):
-  """nvcc on a copy of csrc/ whose `name` library carries its FAULTS
-  entry, started now and joined by `finish_fault_build`: (library path,
+  """nvcc on a copy of csrc/ whose library carries the FAULTS entry
+  `name`, started now and joined by `finish_fault_build`: (library path,
   process)."""
-  header, line, fault = FAULTS[name]
+  lib, edits = FAULTS[name]
   shutil.rmtree(work, ignore_errors=True)
   shutil.copytree(_build.CSRC, work, ignore=shutil.ignore_patterns("build"))
-  path = os.path.join(work, header)
-  with open(path) as f:
-    text = f.read()
-  check(text.count(line) == 1, f"the fault's line is not in {header} once")
-  with open(path, "w") as f:
-    f.write(text.replace(line, fault))
-  src = os.path.join(work, f"{name}.cu")
+  for header, line, fault in edits:
+    path = os.path.join(work, header)
+    with open(path) as f:
+      text = f.read()
+    check(text.count(line) == 1, f"the fault's line is not in {header} once")
+    with open(path, "w") as f:
+      f.write(text.replace(line, fault))
+  src = os.path.join(work, f"{lib}.cu")
   out = os.path.join(work, f"lib{name}_fault.so")
   return out, subprocess.Popen(
       [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
@@ -2111,7 +2281,7 @@ def with_library(name: str, lib: ctypes.CDLL, fn):
   fault), its launches not counted as the main path's."""
   counter = (attention.flash_attention if name == "flash_fwd"
              else attention.flash_attention_bwd)
-  launches = counter.launches
+  launches, routes = counter.launches, attention.route_launches.copy()
   kept = _build._libraries[name]  # pylint: disable=protected-access
   _build._libraries[name] = lib  # pylint: disable=protected-access
   try:
@@ -2119,6 +2289,8 @@ def with_library(name: str, lib: ctypes.CDLL, fn):
   finally:
     _build._libraries[name] = kept  # pylint: disable=protected-access
     counter.launches = launches
+    attention.route_launches.clear()
+    attention.route_launches.update(routes)
 
 
 def bwd_bf16_tolerance(plain) -> float:
@@ -2145,11 +2317,13 @@ def route_rule_check() -> str:
               f"library's {built}, bwd_route's "
               f"{attention.bwd_route(dtype, head_dim, aligned)}")
         cases += 1
-  tiles = {q: attention.bwd_tile(q) for q in (256, 2048)}
-  check(all(t[1] == attention.WGMMA_HEAD_DIM for t in tiles.values()),
+  tiles = {(q, str(dtype)[6:]): attention.bwd_tile(q, dtype)
+           for q in (256, 2048) for dtype in attention._DTYPE_CODES}  # pylint: disable=protected-access
+  check(all(t[1] == (attention.WGMMA_HEAD_DIM if dt == "bfloat16" else 32)
+            for (_, dt), t in tiles.items()),
         f"the wgmma route's tiles {tiles}")
   return (f"{cases} (dtype, head_dim, alignment) cases route as bwd_route "
-          f"says; dq item rows and tile by q_len {tiles}")
+          f"says; dq item rows and tile by (q_len, dtype) {tiles}")
 
 
 def fwd_route_rule_check() -> str:
@@ -2170,11 +2344,13 @@ def fwd_route_rule_check() -> str:
                 f"{aligned} bias={bias}: the library's {built}, "
                 f"fwd_route's {mirror}")
           cases += 1
-  tiles = {q: attention.fwd_wgmma_tile(q) for q in (256, 2048)}
+  tiles = {(q, str(dtype)[6:]): attention.fwd_wgmma_tile(q, dtype)
+           for q in (256, 2048) for dtype in attention._DTYPE_CODES}  # pylint: disable=protected-access
   check(all(t[1] == attention.WGMMA_HEAD_DIM for t in tiles.values()),
         f"the wgmma route's tiles {tiles}")
   return (f"{cases} (dtype, head_dim, alignment, bias) cases route as "
-          f"fwd_route says; item rows and tile keys by q_len {tiles}")
+          f"fwd_route says; item rows and tile keys by (q_len, dtype) "
+          f"{tiles}")
 
 
 def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
@@ -2183,8 +2359,8 @@ def bwd_bf16_phase(gen, batch: int, fault_lib) -> list:
   same limit."""
   rows = []
   log(f"  route rule: {route_rule_check()}")
-  kernels = [line for line in ptxas_usage("flash_bwd") if "wgmma" in line
-             or "prologue" in line or "combine" in line]
+  kernels = [line for line in ptxas_usage("flash_bwd")
+             if line.startswith("bwd_wgmma::")]
   log("  the wgmma route's kernels (ptxas): " + " | ".join(kernels))
 
   def usage(q_len: int) -> str:
@@ -2295,6 +2471,7 @@ def bf16_train_phase(seed: int, card: str, f32_peak: float,
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   quantize.quantized_matmul.launches = 0
   state = runner.run(iter(batches), t.create_state(), seed=seed)
@@ -2534,6 +2711,7 @@ def cli_train_phase(card: str, seed: int) -> dict:
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   cache_lib.read_cache = counted_read
   t0 = time.perf_counter()
@@ -2544,6 +2722,7 @@ def cli_train_phase(card: str, seed: int) -> dict:
   wall = time.perf_counter() - t0
   launches = (attention.flash_attention.launches,
               attention.flash_attention_bwd.launches)
+  log(f"  {f32_routes('phase 21')}")
   peak = torch.cuda.max_memory_allocated() / 2**30
   check(state.step == 2, f"the CLI trained {state.step} steps")
   del t
@@ -2675,6 +2854,7 @@ def notes_only_phase(seed: int, card: str, rows, qmm_rows) -> dict:
   eager = eager_render(synth, segments[:1])
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   render = synth.render_song(segments)
@@ -2782,6 +2962,7 @@ def ar_phase(seed: int, card: str, rows, qmm_rows, gen, stream) -> dict:
   eager = eager_render(synth, segments[:1])
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   render = synth.render_song(segments)
@@ -2873,12 +3054,14 @@ def family_train_phase(seed: int, card: str, preset: str) -> dict:
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   t0 = time.perf_counter()
   state, t = train_cli.main(argv)
   wall = time.perf_counter() - t0
   launches = (attention.flash_attention.launches,
               attention.flash_attention_bwd.launches)
+  log(f"  {preset}: {f32_routes(f'phase 25, {preset}')}")
   peak = torch.cuda.max_memory_allocated() / 2**30
   family = type(t.model).__name__
   del t
@@ -3026,6 +3209,7 @@ def dataset_phase(card: str, seed: int, synth, qmm_rows, records,
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   quantize.quantized_matmul.launches = 0
   cache_lib.read_cache = counted_read
@@ -3092,6 +3276,7 @@ def dataset_phase(card: str, seed: int, synth, qmm_rows, records,
   check(len(segments) == FULL_SONG_SEGMENTS,
         f"{len(segments)} segments of {song_id}")
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   quantize.quantized_matmul.launches = 0
   t0 = time.perf_counter()
   render = synth.render_song(segments)
@@ -3587,6 +3772,7 @@ def transcriber_phase(card: str, seed: int, data) -> dict:
       "--checkpoint_period", str(TRANSCRIBER_STEPS), "--device", "cuda"]))
   launches = (attention.flash_attention.launches,
               attention.flash_attention_bwd.launches)
+  log(f"  {f32_routes('phase 28, the transcriber')}")
   # Each step: the encoder's self-attention and the decoder's
   # cross-attention in every layer, forward and backward; the one eval
   # (the last step: --log_period TRANSCRIBER_STEPS) forward only.
@@ -3778,6 +3964,7 @@ def distill_phase(card: str, seed: int) -> dict:
           str(TRAIN_SONGS), "--log_period", "1", "--seed", str(seed),
           "--device", "cuda"]
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   quantize.quantized_matmul.launches = 0
   resident = torch.cuda.memory_allocated() / 2**30
@@ -4432,6 +4619,7 @@ def train_steps(t, batches, seed: int) -> dict:
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   attention.flash_attention.launches = 0
+  attention.route_launches.clear()
   attention.flash_attention_bwd.launches = 0
   quantize.quantized_matmul.launches = 0
   rows, stamps = [], []
@@ -4446,6 +4634,7 @@ def train_steps(t, batches, seed: int) -> dict:
               launches=[attention.flash_attention.launches,
                         attention.flash_attention_bwd.launches,
                         quantize.quantized_matmul.launches],
+              routes=f32_routes("phase 30, sharded training"),
               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -4802,8 +4991,8 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  # 5 nvcc processes at once: the three kernels, and the two wgmma
-  # routes' planted faults; and phase 27's records, written in the
+  # 7 nvcc processes at once: the three kernels, and the wgmma routes'
+  # four planted-fault builds; and phase 27's records, written in the
   # background.
   records = start_dataset_records()
   fault_builds = {name: start_fault_build(
@@ -4817,7 +5006,7 @@ def main() -> int:
                 for name, build in fault_builds.items()}
   log(f"phase 2 build: flash_fwd.cu (both routes), qmm.cu and flash_bwd.cu "
       f"(both routes) with nvcc, and flash_fwd.cu and flash_bwd.cu with "
-      f"their wgmma routes' planted faults "
+      f"their wgmma routes' planted faults (a key tile left out; plain TF32) "
       f"({time.perf_counter() - t0:.2f} s)")
   for name in ("flash_fwd", "qmm", "flash_bwd"):
     usage = ptxas_usage(name)
@@ -4831,13 +5020,15 @@ def main() -> int:
 
   t0 = time.perf_counter()
   log(f"  forward route rule: {fwd_route_rule_check()}")
-  rows = kernel_phase(gen, capture, fault_lib=fault_libs["flash_fwd"])
+  rows = kernel_phase(gen, capture, faults=fault_libs)
   # The checks draw from a generator of their own, so that the phases
   # after them see the inputs they saw without them.
   check_gen = torch.Generator("cuda").manual_seed(args.seed + 1)
   log(f"  TF32 rounding: {tf32_rounding_check(check_gen)}")
   log(f"  NaN in, NaN out where the plain version's is (NaN outputs): "
       f"{nan_check(check_gen)}")
+  log(f"  f32 forward calls outside the models: "
+      f"{mma_sync_f32_check(check_gen, 'fwd')}")
   log(f"phase 3 attention kernel vs plain: {len(rows)} checks passed "
       f"({time.perf_counter() - t0:.2f} s)")
 
@@ -4880,7 +5071,9 @@ def main() -> int:
   torch.cuda.empty_cache()
 
   t0 = time.perf_counter()
-  bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH)
+  bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH, faults=fault_libs)
+  log(f"  f32 backward calls outside the models: "
+      f"{mma_sync_f32_check(check_gen, 'bwd')}")
   log(f"phase 10 attention backward kernel vs plain: {len(bwd_rows)} shapes "
       f"passed ({time.perf_counter() - t0:.2f} s)")
   torch.cuda.empty_cache()
@@ -4955,9 +5148,9 @@ def main() -> int:
       f"({time.perf_counter() - t0:.2f} s)")
 
   t0 = time.perf_counter()
-  family_rows = kernel_phase(gen, capture, FAMILY_SHAPES,
-                             fault_lib=fault_libs["flash_fwd"])
-  family_bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH, FAMILY_SHAPES)
+  family_rows = kernel_phase(gen, capture, FAMILY_SHAPES, faults=fault_libs)
+  family_bwd_rows = bwd_kernel_phase(gen, TRAIN_BATCH, FAMILY_SHAPES,
+                                     faults=fault_libs)
   log(f"phase 22 attention kernels at the notes-only and autoregressive "
       f"shapes: {len(family_rows)} forward and {len(family_bwd_rows)} "
       f"backward checks passed ({time.perf_counter() - t0:.2f} s)")
@@ -5137,6 +5330,17 @@ def main() -> int:
           r["bound_by"] == "operations" for r in f32) else "bytes",
       "library_ms": total("library_ms", f32),
       "per_shape": rows,
+      # The f32 route of the calls above (phases 3 and 22's planted faults
+      # at its calls).
+      "f32": {"route": "wgmma",
+              "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/"
+                        "flash_fwd_tf32.cuh",
+              "worst_fault_of_tolerance": min(
+                  r["fault_of_tolerance"] for r in f32
+                  if r["fault_of_tolerance"] is not None),
+              "worst_plain_tf32_of_tolerance": min(
+                  r["plain_tf32_of_tolerance"] for r in f32
+                  if r["plain_tf32_of_tolerance"] is not None)},
       # The bf16 route (phases 3 and 22), summed as above.
       "bf16": {"route": "wgmma",
                "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/"
@@ -5215,6 +5419,17 @@ def main() -> int:
           r["bound_by"] == "operations" for r in bwd_rows) else "bytes",
       "library_ms": total("library_ms", bwd_rows),
       "per_shape": bwd_rows,
+      # Every f32 call above took the wgmma route (phases 10 and 22's
+      # planted faults at their shapes).
+      "f32": {"route": "wgmma",
+              "source": "music_spectrogram_diffusion_tpu_torch/ops/csrc/"
+                        "flash_bwd_tf32.cuh",
+              "worst_fault_of_tolerance": min(
+                  r["fault_of_tolerance"] for r in bwd_rows
+                  if r["fault_of_tolerance"] is not None),
+              "worst_plain_tf32_of_tolerance": min(
+                  r["plain_tf32_of_tolerance"] for r in bwd_rows
+                  if r["plain_tf32_of_tolerance"] is not None)},
       "training": dict(train_summary, step_check=step_check,
                        resume=resume),
       # The bf16 configuration (phases 19-20), summed as above.

@@ -12,21 +12,24 @@ cannot launch raises.
 Both kernels compute on the tensor cores: bf16 products as bf16 mma, f32
 products as three TF32 products each (`split_tf32`, `einsum_3xtf32`, the
 plain versions of that arithmetic, which the tests use). The forward takes
-one of two routes (`fwd_route`): bf16 at head_dim 64 without a bias (every
-bf16 call of the models) on wgmma and TMA (`csrc/flash_fwd_wgmma.cuh`),
-every other call on mma.sync. Where a call's blocks cannot fill the card,
-the forward splits its keys into ranges and combines them (`fwd_key_split`
-on the wgmma route, `kv_split` on mma.sync; `attention_split_kv_reference`
-is its plain version).
+one of two routes (`fwd_route`): head_dim 64 without a bias (every call of
+the models) on wgmma and TMA (`csrc/flash_fwd_wgmma.cuh` in bf16,
+`csrc/flash_fwd_tf32.cuh` in f32, whose prologue splits K and V into
+their TF32 terms, `csrc/tf32_split.cuh`; `split_tf32_layouts` is the plain
+version of that split's layouts), every other call on mma.sync. Where a
+call's blocks cannot fill the card, the forward splits its keys into ranges
+and combines them (`fwd_key_split` on the wgmma route, `kv_split` on
+mma.sync; `attention_split_kv_reference` is its plain version).
 
 `flash_attention_diff` is the differentiable form (the training path), as
 the JAX package's `flash_attention_diff`: its forward is the forward kernel,
 which also writes each row's softmax max and sum, and its backward
 `flash_attention_bwd` launches `csrc/flash_bwd.cu` (TPU kernel
 `_flash_bwd_pallas`), in float32 or bfloat16, by one of two routes
-(`bwd_route`): bf16 at head_dim 64 on wgmma and TMA
-(`csrc/flash_bwd_wgmma.cuh`, its dq pass split along the keys by
-`dq_key_split` where the queries are few), every other call on mma.sync.
+(`bwd_route`): head_dim 64 on wgmma and TMA (`csrc/flash_bwd_wgmma.cuh` in
+bf16, `csrc/flash_bwd_tf32.cuh` in f32; the dq pass split along the keys
+by `dq_key_split` where the queries are few), every other call on
+mma.sync.
 On CPU tensors
 `flash_attention_bwd` runs `flash_attention_bwd_reference`, and
 `flash_attention_diff` is autograd through `attention_reference` in
@@ -41,6 +44,7 @@ MultiHeadAttention` after `shard_module_`), the rule of JAX's
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -51,6 +55,11 @@ from music_spectrogram_diffusion_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+# Launches of the two kernels by ("fwd" or "bwd", dtype name, route) since
+# the caller last cleared it: how a run shows which route its calls took. A
+# CUDA-graph replay adds nothing here; its calls were counted when they
+# were captured.
+route_launches = collections.Counter()
 
 
 def transpose_kv(key: torch.Tensor,
@@ -80,6 +89,35 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
   # to 0x7fffefff, so that it rounds to a NaN and not into the sign bit.
   return big, rna(torch.where(torch.isnan(rest), 0x7FFFEFFF,
                               rest.view(torch.int32).to(torch.int64)))
+
+
+TF32_GROUP = 8  # a staged k order permutes the k values of each 8
+
+
+def tf32_order(length: int) -> torch.Tensor:
+  """The k order of the tf32 routes' staged transposed operands
+  (`csrc/hopper.cuh` `tf32_perm`): position p holds k value
+  8 (p // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[p % 8], the order in which an f32
+  accumulator's columns make a tf32 A fragment (thread t holds columns
+  2t and 2t + 1, which the fragment takes as k t and t + 4). `length` is
+  a multiple of 8."""
+  p = torch.arange(length)
+  within = p % TF32_GROUP
+  return p - within + torch.where(within < 4, 2 * within, 2 * (within - 4) + 1)
+
+
+def split_tf32_layouts(x: torch.Tensor, len_pad: int):
+  """The plain version of `csrc/tf32_split.cuh` on one operand x, [b, len,
+  h, 64] (f32): its `split_tf32` terms (big, small) in the rows layout,
+  [b h, len_pad, 64], and the cols layout, [b h, 64, len_pad] with len in
+  `tf32_order`; zero past len. Returns ((rows_big, rows_small), (cols_big,
+  cols_small))."""
+  b, length, h, d = x.shape
+  rows = torch.zeros(b, h, len_pad, d, dtype=torch.float32)
+  rows[:, :, :length] = x.float().transpose(1, 2)
+  rows = rows.reshape(b * h, len_pad, d)
+  cols = rows[:, tf32_order(len_pad)].transpose(1, 2).contiguous()
+  return split_tf32(rows), split_tf32(cols)
 
 
 def einsum_3xtf32(equation: str, a: torch.Tensor,
@@ -172,12 +210,12 @@ FWD_COMBINE_TILES = 3
 def fwd_route(dtype: torch.dtype, head_dim: int, aligned: bool = True,
               has_bias: bool = False) -> str:
   """The forward kernel's route for a call, as `csrc/flash_fwd.cu`
-  `wgmma_route` chooses it: "wgmma" for bfloat16 at head_dim 64 without a
-  bias, with q, k, v, out and the key mask 16-byte aligned (`aligned`;
-  every bf16 call of the models, which pass a key mask and never a bias),
-  else "mma_sync" (float32, another head_dim, a misaligned tensor, or a
+  `wgmma_route` chooses it: "wgmma" for bfloat16 or float32 at head_dim 64
+  without a bias, with q, k, v, out and the key mask 16-byte aligned
+  (`aligned`; every call of the models, which pass a key mask and never a
+  bias), else "mma_sync" (another head_dim, a misaligned tensor, or a
   bias, which the mma.sync kernel adds to S). A route, not a fallback."""
-  if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and aligned
+  if (dtype in _DTYPE_CODES and head_dim == WGMMA_HEAD_DIM and aligned
       and not has_bias):
     return "wgmma"
   return "mma_sync"
@@ -211,13 +249,15 @@ def fwd_key_split(batch: int, heads: int, q_len: int, kv_len: int,
   return (1, kv_len) if splits == 1 else (splits, per * keys)
 
 
-def fwd_wgmma_tile(q_len: int) -> Tuple[int, int]:
+def fwd_wgmma_tile(q_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
   """(queries a work item owns, keys a K/V tile) of the forward's wgmma
-  route for q_len queries, as `csrc/flash_fwd.cu` is built (loads it;
-  needs the card): 192 where the queries fill such items, as at q = 2048;
-  else 128, as at q = 256."""
-  lib = _library("flash_fwd")
-  return lib.msd_flash_fwd_tile(0, q_len), lib.msd_flash_fwd_tile(1, q_len)
+  route for q_len queries of `dtype`, as `csrc/flash_fwd.cu` is built
+  (loads it; needs the card): in bf16 192 where the queries fill such
+  items, as at q = 2048, else 128, as at q = 256; in f32 128."""
+  lib, code = _library("flash_fwd"), _DTYPE_CODES[dtype]
+  return (lib.msd_flash_fwd_tile(0, q_len, code),
+          lib.msd_flash_fwd_tile(1, q_len, code))
 
 # The dq key split: splits until the dq pass has about this many work items
 # an SM, at most DQ_MAX_SPLITS.
@@ -227,11 +267,11 @@ DQ_MAX_SPLITS = 8
 
 def bwd_route(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
   """The backward kernel's route for a call, as `csrc/flash_bwd.cu`
-  `wgmma_route` chooses it: "wgmma" for bfloat16 at head_dim 64 with q, k,
-  v, out and dO 16-byte aligned (`aligned`; every training call of the
-  model), else "mma_sync" (float32, another head_dim, a misaligned
-  tensor). A route, not a fallback."""
-  if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and aligned:
+  `wgmma_route` chooses it: "wgmma" for bfloat16 or float32 at head_dim 64
+  with q, k, v, out and dO 16-byte aligned (`aligned`; every training call
+  of the models), else "mma_sync" (another head_dim, a misaligned tensor).
+  A route, not a fallback."""
+  if dtype in _DTYPE_CODES and head_dim == WGMMA_HEAD_DIM and aligned:
     return "wgmma"
   return "mma_sync"
 
@@ -257,13 +297,16 @@ def dq_key_split(batch: int, heads: int, q_len: int, kv_len: int,
   return -(-tiles // per), per * keys
 
 
-def bwd_tile(q_len: int) -> Tuple[int, int]:
+def bwd_tile(q_len: int,
+             dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
   """(queries a dq work item owns, rows a streamed tile) of the backward's
-  wgmma route for q_len queries, as `csrc/flash_bwd.cu` is built (loads
-  it; needs the card): the dq pass takes three warpgroups (192 rows) where
-  the queries fill such items, else two (128)."""
-  lib = _library("flash_bwd")
-  return lib.msd_flash_bwd_tile(0, q_len), lib.msd_flash_bwd_tile(1, q_len)
+  wgmma route for q_len queries of `dtype`, as `csrc/flash_bwd.cu` is built
+  (loads it; needs the card): in bf16 the dq pass takes three warpgroups
+  (192 rows) where the queries fill such items, else two (128), over tiles
+  of 64 keys; in f32 128 rows over tiles of 32 keys."""
+  lib, code = _library("flash_bwd"), _DTYPE_CODES[dtype]
+  return (lib.msd_flash_bwd_tile(0, q_len, code),
+          lib.msd_flash_bwd_tile(1, q_len, code))
 
 
 def fwd_tile(dtype: torch.dtype) -> Tuple[int, int]:
@@ -393,10 +436,11 @@ def flash_attention(query: torch.Tensor,
   `return_stats` also the softmax statistics, f32 [2, b, h, q] (each row's
   max, then its sum of exp(s - max)). On CUDA tensors the kernel runs
   (counted in `flash_attention.launches`) by the route its `wgmma_route`
-  picks (`fwd_route` here): bfloat16 at head_dim 64 without a bias, with
-  q, k, v, out and kv_mask 16-byte aligned, takes the wgmma route, its keys
-  split as `fwd_key_split` plans; every other call takes the mma.sync
-  route, split as `kv_split` plans. On CPU tensors the plain versions run.
+  picks (`fwd_route` here): bfloat16 or float32 at head_dim 64
+  without a bias, with q, k, v, out and kv_mask 16-byte aligned, takes the
+  wgmma route, its keys split as `fwd_key_split` plans; every other call
+  takes the mma.sync route, split as `kv_split` plans. On CPU tensors the
+  plain versions run.
   """
   kv_len = _check(query, key, value, bias, kv_mask, kv_transposed)
   if query.device.type == "cpu":
@@ -416,9 +460,15 @@ def flash_attention(query: torch.Tensor,
   aligned = all(t.data_ptr() % WGMMA_ALIGN == 0 for t in (
       query, key, value, out, *(() if kv_mask is None else (kv_mask,))))
   plan, tile = kv_split, lib.msd_fwd_tile[query.dtype]
-  if lib.msd_flash_fwd_route(_DTYPE_CODES[query.dtype], head_dim,
-                             int(aligned), int(bias is not None)):
-    plan, tile = fwd_key_split, fwd_wgmma_tile(q_len)
+  split = None
+  route = ("wgmma" if lib.msd_flash_fwd_route(
+      _DTYPE_CODES[query.dtype], head_dim, int(aligned), int(bias is not None))
+           else "mma_sync")
+  if route == "wgmma":
+    plan, tile = fwd_key_split, fwd_wgmma_tile(q_len, query.dtype)
+    if query.dtype == torch.float32:  # K's and V's split TF32 terms
+      split = torch.empty(
+          lib.msd_flash_fwd_split_floats(batch, heads, kv_len), **f32)
   splits, keys_per_split = plan(batch, heads, q_len, kv_len,
                                 _sm_count(query.device.index), *tile)
   part_acc = part_ml = None
@@ -432,11 +482,13 @@ def flash_attention(query: torch.Tensor,
       out.data_ptr(), stats.data_ptr() if stats is not None else None,
       part_acc.data_ptr() if part_acc is not None else None,
       part_ml.data_ptr() if part_ml is not None else None,
+      split.data_ptr() if split is not None else None,
       batch, heads, q_len, kv_len, head_dim,
       int(kv_transposed), bias.shape[1] if bias is not None else 1,
       _DTYPE_CODES[query.dtype], splits, keys_per_split, _stream(query))
   _raise_on(lib, err, "flash_fwd")
   flash_attention.launches += 1
+  route_launches["fwd", str(query.dtype)[6:], route] += 1
   return (out, stats) if return_stats else out
 
 
@@ -483,11 +535,11 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
   output's gradient); q, k, v, out and dout all of one dtype. Bias and mask
   get no gradient. On CUDA tensors it launches `csrc/flash_bwd.cu`
   (counted in `flash_attention_bwd.launches`) by the route its
-  `wgmma_route` picks (`bwd_route` here): bfloat16 at head_dim 64 with q,
-  k, v, out and dout 16-byte aligned takes the wgmma route, which computes
-  delta = rowsum(dO out) itself and splits its dq pass along the keys as
-  `dq_key_split` plans; every other call takes the mma.sync route, with
-  delta computed here in f32. On CPU tensors it runs
+  `wgmma_route` picks (`bwd_route` here): bfloat16 or float32 at head_dim
+  64 with q, k, v, out and dout 16-byte aligned takes the wgmma route,
+  which computes delta = rowsum(dO out) itself and splits its dq pass along
+  the keys as `dq_key_split` plans; every other call takes the mma.sync
+  route, with delta computed here in f32. On CPU tensors it runs
   `flash_attention_bwd_reference`. Returns (dq, dk, dv) in the inputs'
   dtype, in the layouts of q and k/v.
   """
@@ -518,12 +570,16 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
   aligned = all(t.data_ptr() % WGMMA_ALIGN == 0
                 for t in (query, key, value, out, dout))
   f32 = dict(dtype=torch.float32, device=query.device)
-  delta = rowstat = kterm = dq_part = None
+  delta = rowstat = kterm = dq_part = split = None
   splits, keys_per_split = 1, kv_len
-  if lib.msd_flash_bwd_route(code, head_dim, int(aligned)):
+  route = ("wgmma" if lib.msd_flash_bwd_route(code, head_dim, int(aligned))
+           else "mma_sync")
+  if route == "wgmma":
     # The wgmma route's f32 scratch: each row's m, 1 / l and delta, each
-    # key's mask term (lengths padded to whole blocks), the dq partials.
-    rows, keys, kv_rows = (lib.msd_flash_bwd_tile(i, q_len) for i in range(3))
+    # key's mask term (lengths padded to whole blocks), the dq partials,
+    # and in f32 the operands' split TF32 terms.
+    rows, keys, kv_rows = (lib.msd_flash_bwd_tile(i, q_len, code)
+                           for i in range(3))
     rowstat = torch.empty(batch, heads, -(-q_len // rows) * rows // keys, 3,
                           keys, **f32)
     kterm = torch.empty(batch, -(-kv_len // kv_rows) * kv_rows, **f32)
@@ -532,6 +588,9 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
         keys)
     if splits > 1:
       dq_part = torch.empty(splits, *query.shape, **f32)
+    if query.dtype == torch.float32:
+      split = torch.empty(lib.msd_flash_bwd_split_floats(
+          batch, heads, q_len, kv_len), **f32)
   else:
     # delta = rowsum(dO out), f32 [b, h, q]: computed outside the kernel, as
     # the JAX package does, and summed in f32 whatever the inputs' dtype.
@@ -548,11 +607,13 @@ def flash_attention_bwd(query, key, value, bias, kv_mask, out, stats, dout,
       query.data_ptr(), key.data_ptr(), value.data_ptr(), ptr(bias),
       ptr(kv_mask), stats.data_ptr(), ptr(delta), out.data_ptr(),
       dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-      ptr(rowstat), ptr(kterm), ptr(dq_part), batch, heads, q_len, kv_len,
+      ptr(rowstat), ptr(kterm), ptr(dq_part), ptr(split), batch, heads,
+      q_len, kv_len,
       head_dim, int(kv_transposed), bias.shape[1] if bias is not None else 1,
       code, splits, keys_per_split, _stream(query))
   _raise_on(lib, err, "flash_bwd")
   flash_attention_bwd.launches += 1
+  route_launches["bwd", str(query.dtype)[6:], route] += 1
   return dq, dk, dv
 
 
@@ -634,8 +695,8 @@ def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 # Pointer arguments, then int arguments, of each kernel's C entry (the
 # stream is the last pointer).
-_SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 9, 10),
-               "flash_bwd": ("msd_flash_bwd", 15, 10)}
+_SIGNATURES = {"flash_fwd": ("msd_flash_fwd", 10, 10),
+               "flash_bwd": ("msd_flash_bwd", 16, 10)}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -657,8 +718,10 @@ def _library(name: str) -> ctypes.CDLL:
       lib.msd_tf32_round_probe.restype = i32
       lib.msd_flash_fwd_route.argtypes = [i32, i32, i32, i32]
       lib.msd_flash_fwd_route.restype = i32
-      lib.msd_flash_fwd_tile.argtypes = [i32, i32]
+      lib.msd_flash_fwd_tile.argtypes = [i32, i32, i32]
       lib.msd_flash_fwd_tile.restype = i32
+      lib.msd_flash_fwd_split_floats.argtypes = [i32, i32, i32]
+      lib.msd_flash_fwd_split_floats.restype = ctypes.c_longlong
       # The block shape, asked once: kv_split plans every call by it.
       lib.msd_fwd_tile = {
           dtype: (lib.msd_flash_fwd_rows(code), lib.msd_flash_fwd_keys())
@@ -666,7 +729,9 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "flash_bwd":
       lib.msd_flash_bwd_route.argtypes = [i32, i32, i32]
       lib.msd_flash_bwd_route.restype = i32
-      lib.msd_flash_bwd_tile.argtypes = [i32, i32]
+      lib.msd_flash_bwd_tile.argtypes = [i32, i32, i32]
       lib.msd_flash_bwd_tile.restype = i32
+      lib.msd_flash_bwd_split_floats.argtypes = [i32, i32, i32, i32]
+      lib.msd_flash_bwd_split_floats.restype = ctypes.c_longlong
     lib._msd_typed = True
   return lib

@@ -28,11 +28,13 @@
 //
 // Two routes, chosen per call by `wgmma_route` (mirrored by
 // ops/attention.py `bwd_route`, which the CPU tests hold):
-// - bf16 at head_dim 64 with 16-byte-aligned q, k, v, out and dO (every
-//   training call of the model): the wgmma route of flash_bwd_wgmma.cuh,
-//   TMA-fed warpgroup products, which computes delta itself;
-// - every other call (f32; bf16 at another head_dim or misaligned): the
-//   mma.sync route below, with delta from the wrapper.
+// - head_dim 64 with 16-byte-aligned q, k, v, out and dO (every training
+//   call of the models): the wgmma route, TMA-fed warpgroup products, which
+//   computes delta itself: bf16 in flash_bwd_wgmma.cuh, f32 in
+//   flash_bwd_tf32.cuh (3xTF32 on tf32 wgmma, its operands split by a
+//   prologue into the scratch `split`);
+// - every other call (another head_dim, or misaligned): the mma.sync route
+//   below, with delta from the wrapper.
 // A route, not a fallback: nothing retries a call that fails on the other.
 //
 // The mma.sync route, as the TPU kernel computes it (mxu_bf16 on bf16
@@ -72,6 +74,7 @@
 // block's own rows are staged once. Every output is summed in a fixed order.
 
 #include "attention_mma.cuh"
+#include "flash_bwd_tf32.cuh"
 #include "flash_bwd_wgmma.cuh"
 
 namespace {
@@ -579,16 +582,18 @@ int dispatch(const Params& p, int batch, cudaStream_t stream) {
   return launch<128, T>(p, batch, stream);
 }
 
-// Whether bf16 calls at head_dim 64 take the wgmma route (false: every
-// call takes the mma.sync route, as before that route existed;
-// tools/torch_attention_variants.py bwd_old_route times the two).
+// Whether calls at head_dim 64 take the wgmma route, bf16 and f32 (false:
+// the mma.sync route, as before the routes existed;
+// tools/torch_attention_variants.py bwd_old_route and bwd_f32_old_route
+// time the two).
 constexpr bool kWgmmaRoute = true;
+constexpr bool kTf32Route = true;
 
-// The rule: the wgmma route takes bf16 at head_dim 64 with q, k, v, out and
-// dO 16-byte aligned (TMA's and the prologue's loads); the mma.sync route
-// every other call.
+// The rule: the wgmma route takes bf16 and f32 at head_dim 64 with q, k, v,
+// out and dO 16-byte aligned (TMA's and the prologue's loads); the mma.sync
+// route every other call.
 bool wgmma_route(int dtype, int head_dim, bool aligned) {
-  return kWgmmaRoute && dtype == 1 && head_dim == bwd_wgmma::kTile && aligned;
+  return kWgmmaRoute && (dtype == 1 || kTf32Route) && head_dim == bwd_wgmma::kTile && aligned;
 }
 
 }  // namespace
@@ -603,18 +608,19 @@ extern "C" {
 // bias_heads is 1 or `heads` (ignored without a bias). The mma.sync route
 // reads delta, f32 [b, h, q], and ignores out, rowstat, kterm, dq_part,
 // splits and keys_per_split. The wgmma route ignores delta and takes f32
-// scratch: rowstat [b, h, q_pad / 64, 3, 64] and kterm [b, kv_pad] (q padded
-// to msd_flash_bwd_tile(0, q_len) rows, kv to msd_flash_bwd_tile(2, .)), and with
-// splits > 1 dq_part [splits, b,
-// q, h, d]; its dq pass cuts the keys into `splits` ranges of
-// keys_per_split (a multiple of msd_flash_bwd_tile(1)) that cover kv_len,
-// each starting below it.
+// scratch: rowstat [b, h, q_pad / T, 3, T] and kterm [b, kv_pad] (T =
+// msd_flash_bwd_tile(1, q_len, dtype), q padded to msd_flash_bwd_tile(0,
+// ...) rows, kv to msd_flash_bwd_tile(2, ...)), with splits > 1 dq_part
+// [splits, b, q, h, d], and for f32 `split` (msd_flash_bwd_split_floats
+// floats); its dq pass cuts the keys into `splits` ranges of
+// keys_per_split (a multiple of T) that cover kv_len, each starting below
+// it.
 int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
                   const void* mask, const void* stats, const void* delta, const void* out,
                   const void* dout, void* dq, void* dk, void* dv, void* rowstat, void* kterm,
-                  void* dq_part, int batch, int heads, int q_len, int kv_len, int head_dim,
-                  int kv_transposed, int bias_heads, int dtype, int splits, int keys_per_split,
-                  void* stream) {
+                  void* dq_part, void* split, int batch, int heads, int q_len, int kv_len,
+                  int head_dim, int kv_transposed, int bias_heads, int dtype, int splits,
+                  int keys_per_split, void* stream) {
   if (batch < 1 || heads < 1 || q_len < 1 || kv_len < 1 || head_dim < 1 || head_dim > 128 ||
       (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -656,10 +662,42 @@ int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
   const bool aligned = msd::aligned16(q) && msd::aligned16(k) && msd::aligned16(v) &&
                        msd::aligned16(out) && msd::aligned16(dout);
   if (wgmma_route(dtype, head_dim, aligned)) {
+    const int unit = dtype == 0 ? bwd_tf32::kStream : bwd_wgmma::kTile;
     if (rowstat == nullptr || kterm == nullptr || splits < 1 || keys_per_split < 1 ||
-        keys_per_split % bwd_wgmma::kTile != 0 || (long long)splits * keys_per_split < kv_len ||
-        (long long)(splits - 1) * keys_per_split >= kv_len || (splits > 1 && dq_part == nullptr)) {
+        keys_per_split % unit != 0 || (long long)splits * keys_per_split < kv_len ||
+        (long long)(splits - 1) * keys_per_split >= kv_len || (splits > 1 && dq_part == nullptr) ||
+        (dtype == 0 && split == nullptr)) {
       return (int)cudaErrorInvalidValue;
+    }
+    if (dtype == 0) {
+      bwd_tf32::Params w;
+      memset(&w, 0, sizeof(w));
+      w.bias = p.bias;
+      w.dq = static_cast<float*>(splits > 1 ? dq_part : dq);
+      w.dk = static_cast<float*>(dk);
+      w.dv = static_cast<float*>(dv);
+      w.q_len = q_len;
+      w.kv_len = kv_len;
+      w.heads = heads;
+      w.q_pad = (q_len + bwd_tf32::kRows - 1) / bwd_tf32::kRows * bwd_tf32::kRows;
+      w.kv_pad = (kv_len + bwd_tf32::kRows - 1) / bwd_tf32::kRows * bwd_tf32::kRows;
+      w.splits = splits;
+      w.tiles_per_split = keys_per_split / bwd_tf32::kStream;
+      w.q_sb = p.q_sb;
+      w.q_sl = p.q_sl;
+      w.q_sh = p.q_sh;
+      w.kv_sb = p.kv_sb;
+      w.kv_sl = p.kv_sl;
+      w.kv_sh = p.kv_sh;
+      w.bias_sb = p.bias_sb;
+      w.bias_sh = p.bias_sh;
+      w.part_stride = (long long)batch * q_len * heads * head_dim;
+      return bwd_tf32::launch(
+          w, static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(out),
+          static_cast<const float*>(dout), p.m, p.mask, static_cast<float*>(rowstat),
+          static_cast<float*>(kterm), static_cast<float*>(split), static_cast<float*>(dq), batch,
+          s);
     }
     bwd_wgmma::Params w;
     w.bias = p.bias;
@@ -689,20 +727,31 @@ int msd_flash_bwd(const void* q, const void* k, const void* v, const void* bias,
   return dtype == 0 ? dispatch<float>(p, batch, s) : dispatch<bf16>(p, batch, s);
 }
 
-// 1 when a call of this dtype code and head_dim, with q, k, v, out and dO
-// 16-byte aligned (`aligned`), takes the wgmma route; 0 for the mma.sync
-// route.
+// 1 when a call of this dtype code (0 = float32, 1 = bfloat16) and
+// head_dim, with q, k, v, out and dO 16-byte aligned (`aligned`), takes the
+// wgmma route; 0 for the mma.sync route.
 int msd_flash_bwd_route(int dtype, int head_dim, int aligned) {
   return wgmma_route(dtype, head_dim, aligned != 0) ? 1 : 0;
 }
 
-// The wgmma route's block shape for q_len queries: 0, the queries a dq
-// work item owns (the padding of q for the scratch, the dq key split's
-// items); 1, the rows of a streamed tile (the unit of the dq key split); 2,
-// the keys a dkdv work item owns (the padding of kv for the scratch).
-int msd_flash_bwd_tile(int which, int q_len) {
+// The wgmma route's block shape for q_len queries of `dtype`: 0, the
+// queries a dq work item owns (the padding of q for the scratch, the dq key
+// split's items); 1, the rows of a streamed tile (the unit of the dq key
+// split and of rowstat); 2, the keys a dkdv work item owns (the padding of
+// kv for the scratch).
+int msd_flash_bwd_tile(int which, int q_len, int dtype) {
+  if (dtype == 0) return which == 1 ? bwd_tf32::kStream : bwd_tf32::kRows;
   return which == 0 ? 64 * bwd_wgmma::dq_wgs(q_len)
                     : (which == 1 ? bwd_wgmma::kTile : bwd_wgmma::DkdvShape::kRows);
+}
+
+// The f32 wgmma route's `split` scratch, in floats: q's, dO's, k's and v's
+// split terms, lengths padded to msd_flash_bwd_tile(0, q_len, 0) and
+// msd_flash_bwd_tile(2, q_len, 0).
+long long msd_flash_bwd_split_floats(int batch, int heads, int q_len, int kv_len) {
+  const int pad = bwd_tf32::kRows;
+  return bwd_tf32::split_floats(batch, heads, (q_len + pad - 1) / pad * pad,
+                                (kv_len + pad - 1) / pad * pad);
 }
 
 const char* msd_cuda_error_string(int code) {

@@ -19,8 +19,8 @@
 // [b, kv] (1 keeps the key). Inputs are all f32 or all bf16. bf16 products
 // are mma.sync m16n8k16 bf16 with f32 sums, p rounded to bf16 before the p·v
 // product (as the TPU kernel does with mxu_bf16); f32 products are 3xTF32
-// mma.sync m16n8k8 (attention_mma.cuh), accurate to f32's tolerance where
-// plain TF32 is not. The running max, the running sum and the softmax are
+// (mma.sync m16n8k8 below, attention_mma.cuh; wgmma m64n64k8 on the wgmma
+// route), accurate to f32's tolerance where plain TF32 is not. The running max, the running sum and the softmax are
 // f32 in registers.
 //
 // What bounds it on the card: at the serving and training shapes (q 256 or
@@ -44,11 +44,13 @@
 //   scratch, and `flash_fwd_combine_kernel` sums the ranges in ascending
 //   order. No atomics: two launches give the same bits.
 //
-// Two routes: bf16 calls at head_dim 64 without a bias, with q, k, v, out
-// and the mask 16-byte aligned (every bf16 call of the models), take the
-// wgmma route of flash_fwd_wgmma.cuh (`wgmma_route`, mirrored by
-// ops/attention.py `fwd_route`; its key ranges planned by `fwd_key_split`);
-// every other call takes the mma.sync kernel below.
+// Two routes: calls at head_dim 64 without a bias, with q, k, v, out and
+// the mask 16-byte aligned (every call of the models), take the wgmma route
+// (`wgmma_route`, mirrored by ops/attention.py `fwd_route`; its key ranges
+// planned by `fwd_key_split`): bf16 in flash_fwd_wgmma.cuh, f32 in
+// flash_fwd_tf32.cuh (3xTF32 on tf32 wgmma, with a prologue that splits K
+// and V into the scratch `split`); every other call takes the mma.sync
+// kernel below.
 //
 // Softmax statistics (training): given a `stats` pointer (null when
 // serving), the kernel also writes each row's max m over all keys and its
@@ -59,6 +61,7 @@
 // to -1e10 and exp(s - lse) would give 1 where the forward used 1 / kv_len.
 
 #include "attention_mma.cuh"
+#include "flash_fwd_tf32.cuh"
 #include "flash_fwd_wgmma.cuh"
 
 namespace {
@@ -412,17 +415,20 @@ int dispatch(const Params& p, cudaStream_t stream) {
   return launch<128, T>(p, stream);
 }
 
-// Whether bf16 calls at head_dim 64 take the wgmma route (false: every
-// call takes the mma.sync route, as before that route existed;
-// tools/torch_attention_variants.py fwd_old_route times the two).
+// Whether calls at head_dim 64 take the wgmma route, bf16 and f32 (false:
+// the mma.sync route, as before the routes existed;
+// tools/torch_attention_variants.py fwd_old_route and fwd_f32_old_route
+// time the two).
 constexpr bool kFwdWgmmaRoute = true;
+constexpr bool kFwdTf32Route = true;
 
-// The rule: the wgmma route takes bf16 at head_dim 64 without a bias, with
-// q, k, v, out and the key mask 16-byte aligned (TMA's loads); the mma.sync
-// route every other call. A call with a bias takes mma.sync, which adds
-// the bias tile to S.
+// The rule: the wgmma route takes bf16 and f32 at head_dim 64 without a
+// bias, with q, k, v, out and the key mask 16-byte aligned (TMA's loads);
+// the mma.sync route every other call. A call with a bias takes mma.sync,
+// which adds the bias tile to S.
 bool wgmma_route(int dtype, int head_dim, bool aligned, bool has_bias) {
-  return kFwdWgmmaRoute && dtype == 1 && head_dim == fwd_wgmma::kTile && aligned && !has_bias;
+  return kFwdWgmmaRoute && (dtype == 1 || kFwdTf32Route) && head_dim == fwd_wgmma::kTile &&
+         aligned && !has_bias;
 }
 
 }  // namespace
@@ -438,13 +444,15 @@ extern "C" {
 // splits > 1 every split must start below kv_len and keys_per_split be a
 // multiple of 64 (ignored when splits == 1); on the wgmma route the splits
 // must also cover kv_len (ops/attention.py `fwd_key_split` plans them, the
-// mma.sync route's by `kv_split`).
+// mma.sync route's by `kv_split`). The f32 wgmma route takes f32 scratch
+// `split` of msd_flash_fwd_split_floats floats (ignored elsewhere).
 // dtype: 0 = float32, 1 = bfloat16. bias_heads: 1 or `heads` (ignored
 // without a bias). Tensors are contiguous in the layouts named above.
 int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                   const void* mask, void* out, void* stats, void* part_acc, void* part_ml,
-                  int batch, int heads, int q_len, int kv_len, int head_dim, int kv_transposed,
-                  int bias_heads, int dtype, int splits, int keys_per_split, void* stream) {
+                  void* split, int batch, int heads, int q_len, int kv_len, int head_dim,
+                  int kv_transposed, int bias_heads, int dtype, int splits, int keys_per_split,
+                  void* stream) {
   if (batch < 1 || heads < 1 || q_len < 1 || kv_len < 1 || head_dim < 1 || head_dim > 128 ||
       (dtype != 0 && dtype != 1) || splits < 1 ||
       (splits > 1 && (keys_per_split < 1 || keys_per_split % kBlockK != 0 ||
@@ -492,6 +500,38 @@ int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
     if (splits > 1 && (long long)splits * keys_per_split < kv_len) {
       return (int)cudaErrorInvalidValue;
     }
+    const int tiles_per_split =
+        splits == 1 ? (kv_len + kBlockK - 1) / kBlockK : keys_per_split / kBlockK;
+    const long long rows = (long long)batch * heads * q_len;
+    const unsigned combine_blocks = (unsigned)((rows + kCombineRows - 1) / kCombineRows);
+    if (dtype == 0) {
+      if (split == nullptr) return (int)cudaErrorInvalidValue;
+      fwd_tf32::Params w;
+      w.out = static_cast<float*>(out);
+      w.stats = p.stats;
+      w.part_acc = p.part_acc;
+      w.part_ml = p.part_ml;
+      w.batch = batch;
+      w.heads = heads;
+      w.q_len = q_len;
+      w.kv_len = kv_len;
+      w.kv_pad = (kv_len + kBlockK - 1) / kBlockK * kBlockK;
+      w.splits = splits;
+      w.tiles_per_split = tiles_per_split;
+      w.masked = mask != nullptr;
+      w.q_sb = p.q_sb;
+      w.q_sl = p.q_sl;
+      w.q_sh = p.q_sh;
+      const long long n = (long long)batch * heads * w.kv_pad * 64;
+      float* sp = static_cast<float*>(split);
+      const fwd_tf32::Split parts = {sp, sp + n, sp + 2 * n, sp + 3 * n};
+      const int err = fwd_tf32::launch(w, parts, static_cast<const float*>(q),
+                                       static_cast<const float*>(k), static_cast<const float*>(v),
+                                       p.mask, p.kv_sb, p.kv_sl, p.kv_sh, s);
+      if (err != 0 || splits == 1) return err;
+      flash_fwd_combine_kernel<float><<<combine_blocks, 32 * kCombineRows, 0, s>>>(p);
+      return (int)cudaGetLastError();
+    }
     fwd_wgmma::Params w;
     w.out = out;
     w.stats = p.stats;
@@ -502,16 +542,14 @@ int msd_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
     w.q_len = q_len;
     w.kv_len = kv_len;
     w.splits = splits;
-    w.tiles_per_split = splits == 1 ? (kv_len + kBlockK - 1) / kBlockK : keys_per_split / kBlockK;
+    w.tiles_per_split = tiles_per_split;
     w.masked = mask != nullptr;
     w.q_sb = p.q_sb;
     w.q_sl = p.q_sl;
     w.q_sh = p.q_sh;
     const int err = fwd_wgmma::launch(w, q, k, v, p.mask, p.kv_sb, p.kv_sl, p.kv_sh, s);
     if (err != 0 || splits == 1) return err;
-    const long long rows = (long long)batch * heads * q_len;
-    flash_fwd_combine_kernel<__nv_bfloat16>
-        <<<(unsigned)((rows + kCombineRows - 1) / kCombineRows), 32 * kCombineRows, 0, s>>>(p);
+    flash_fwd_combine_kernel<__nv_bfloat16><<<combine_blocks, 32 * kCombineRows, 0, s>>>(p);
     return (int)cudaGetLastError();
   }
   return dtype == 0 ? dispatch<float>(p, s) : dispatch<__nv_bfloat16>(p, s);
@@ -524,11 +562,19 @@ int msd_flash_fwd_route(int dtype, int head_dim, int aligned, int has_bias) {
   return wgmma_route(dtype, head_dim, aligned != 0, has_bias != 0) ? 1 : 0;
 }
 
-// The wgmma route's block shape for q_len queries, which ops/attention.py
-// fwd_key_split plans the key ranges by: 0, the queries a work item owns;
-// 1, the keys a K/V tile.
-int msd_flash_fwd_tile(int which, int q_len) {
-  return which == 0 ? 64 * fwd_wgmma::wgs_for(q_len) : fwd_wgmma::kTile;
+// The wgmma route's block shape for q_len queries of `dtype` (0 =
+// float32, 1 = bfloat16), which ops/attention.py fwd_key_split plans the
+// key ranges by: 0, the queries a work item owns; 1, the keys a K/V tile.
+int msd_flash_fwd_tile(int which, int q_len, int dtype) {
+  if (which == 1) return dtype == 0 ? fwd_tf32::kTile : fwd_wgmma::kTile;
+  return dtype == 0 ? fwd_tf32::kRows : 64 * fwd_wgmma::wgs_for(q_len);
+}
+
+// The f32 wgmma route's scratch, in floats: K's split terms ([b h, kv_pad,
+// 64], big then small) and V's transposed ([b h, 64, kv_pad], big then
+// small), kv_pad = kv_len rounded up to 64.
+long long msd_flash_fwd_split_floats(int batch, int heads, int kv_len) {
+  return 4LL * batch * heads * ((kv_len + kBlockK - 1) / kBlockK * kBlockK) * 64;
 }
 
 // The mma.sync route's block shape, which ops/attention.py kv_split plans

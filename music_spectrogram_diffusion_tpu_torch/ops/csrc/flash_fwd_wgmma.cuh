@@ -429,17 +429,8 @@ inline int launch(const Params& p, const void* q, const void* k, const void* v,
       !msd::head_tile_map(&map_v, v, p.batch, p.heads, p.kv_len, kv_sb, kv_sl, kv_sh)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (mask != nullptr) {
-    // The mask as one row of b kv bytes, boxes of kMaskBox from 16-byte
-    // boundaries; bytes past the end read as zero, and keys past kv_len
-    // are never scored whatever their byte.
-    const cuuint64_t dims[1] = {(cuuint64_t)p.batch * p.kv_len};
-    const cuuint64_t strides[1] = {0};
-    const cuuint32_t box[1] = {kMaskBox};
-    if (!msd::make_map(&map_mask, mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dims, strides, box,
-                       CU_TENSOR_MAP_SWIZZLE_NONE)) {
-      return (int)cudaErrorInvalidValue;
-    }
+  if (mask != nullptr && !msd::key_mask_map(&map_mask, mask, p.batch, p.kv_len, kMaskBox)) {
+    return (int)cudaErrorInvalidValue;
   }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);

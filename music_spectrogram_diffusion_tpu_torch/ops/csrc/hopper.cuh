@@ -145,8 +145,118 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
+// The tf32 forms (m64nNk8, N = 64 or 32): f32 sums of tf32 products, each
+// operand a 32-bit word whose low 13 bits the tensor cores do not read
+// (the kernels hand them words already rounded: `split_tf32`). B comes from
+// shared memory K-major only (PTX ISA: the transposed-B form exists for
+// 16-bit types alone), so every tf32 route stages a K-major copy of the
+// operands that the bf16 routes read N-major. A K-major f32 tile in the
+// 128-byte swizzle holds 32 k values a 128-byte row: a depth of 64 is two
+// swizzle atoms (`tf32_desc`). A from registers is the m16n8k8 tf32
+// fragment of each warp's 16 rows: {(g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4)}.
+#define MSD_WGMMA_D16                                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+      "+f"(d[15])
+#define MSD_WGMMA_D16_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (+)= a b for one m64n32k8 tf32 step, a and b K-major tiles in shared
+// memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " MSD_WGMMA_D16_REGS
+      ", %16, %17, p, 1, 1;\n}\n"
+      : MSD_WGMMA_D16
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= a b for one m64nNk8 tf32 step (N = 2 x the accumulators a thread
+// holds), A in registers (the fragment named above) and b a K-major tile in
+// shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MSD_WGMMA_D32_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : MSD_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                              int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " MSD_WGMMA_D16_REGS
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : MSD_WGMMA_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+#undef MSD_WGMMA_D16
+#undef MSD_WGMMA_D16_REGS
 #undef MSD_WGMMA_D32
 #undef MSD_WGMMA_D32_REGS
+
+// The descriptor of k step kk (k values 8 kk .. 8 kk + 7) of a K-major f32
+// tile of `rows` rows in the 128-byte swizzle: k values 32 c .. 32 c + 31
+// are swizzle atom column c (rows x 128 bytes); a k step is 32 bytes of a
+// row.
+__device__ __forceinline__ uint64_t tf32_desc(const unsigned char* tile, int rows, int kk) {
+  return sw128_desc(tile + (kk >> 2) * rows * 128) + 2 * (kk & 3);
+}
+
+// Element (r, c) of such a tile, c in 0..63.
+__device__ __forceinline__ float tf32_tile_at(const unsigned char* tile, int rows, int r, int c) {
+  const int cc = c & 31;
+  return *reinterpret_cast<const float*>(tile + (c >> 5) * rows * 128 + r * 128 +
+                                         ((((cc >> 2) ^ (r & 7)) << 4) | ((cc & 3) << 2)));
+}
+
+// The split tf32 A fragment (big and small terms, attention_mma.cuh
+// `split_tf32`) of k step kk of a warp's 16 rows (from row r0) of such a
+// tile.
+__device__ __forceinline__ void tf32_frag_from_tile(uint32_t (&big)[4], uint32_t (&small)[4],
+                                                    const unsigned char* tile, int rows, int r0,
+                                                    int kk, int g, int t) {
+  const float x[4] = {tf32_tile_at(tile, rows, r0 + g, 8 * kk + t),
+                      tf32_tile_at(tile, rows, r0 + g + 8, 8 * kk + t),
+                      tf32_tile_at(tile, rows, r0 + g, 8 * kk + t + 4),
+                      tf32_tile_at(tile, rows, r0 + g + 8, 8 * kk + t + 4)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Tf32x2 s = split_tf32(x[i]);
+    big[i] = s.big;
+    small[i] = s.small;
+  }
+}
+
+// The split tf32 A fragment of k step kk of an accumulator (the keys or
+// queries of its columns 8 kk .. 8 kk + 7 as k), in the permuted k order of
+// attention_mma.cuh's `tf32_p_fragment`: A column t is column 8 kk + 2 t
+// and A column t + 4 is 8 kk + 2 t + 1, so the B operand's k rows must come
+// in that order (`tf32_perm`).
+template <int N>
+__device__ __forceinline__ void tf32_acc_frag(uint32_t (&big)[4], uint32_t (&small)[4],
+                                              const float (&d)[N], int kk) {
+  const float x[4] = {d[4 * kk + 0], d[4 * kk + 2], d[4 * kk + 1], d[4 * kk + 3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Tf32x2 s = split_tf32(x[i]);
+    big[i] = s.big;
+    small[i] = s.small;
+  }
+}
+
+// The k value that row p of a staged k order holds: within each group of
+// 8, rows 0..7 hold 0, 2, 4, 6, 1, 3, 5, 7 (the order `tf32_acc_frag`
+// reads).
+__device__ __forceinline__ int tf32_perm(int p) {
+  return 8 * (p >> 3) + ((p & 4) ? 2 * (p & 3) + 1 : 2 * (p & 3));
+}
 
 // The register A fragment of k step kk (columns 16 kk .. 16 kk + 15) of a
 // 64 x N accumulator, each value rounded to bf16.
@@ -206,6 +316,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
       "{%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A 3-D box of `map` at (c0 innermost, c1, c2), as `tma_load`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -277,6 +397,18 @@ inline bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType 
   return make_map(map, base, type, 2, dims, strides, box, swizzle);
 }
 
+// The key mask uint8 [b, kv] as one row of b kv bytes, boxes of `box` bytes
+// from 16-byte boundaries (TMA takes a box only from such a boundary; a
+// batch row starts anywhere when kv is not a multiple of 16); bytes past
+// the end read as zero (the attention kernels never score keys past kv).
+inline bool key_mask_map(CUtensorMap* map, const uint8_t* mask, int batch, int kv_len, int box) {
+  const cuuint64_t dims[1] = {(cuuint64_t)batch * kv_len};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t boxes[1] = {(cuuint32_t)box};
+  return make_map(map, mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, dims, strides, boxes,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // A [b, h, len, 64] view (strides in elements) of a bf16 tensor, 64 x 64
 // boxes in the 128-byte swizzle: one head's rows of q, k, v, out or dO in
 // either K/V layout (the attention kernels' wgmma routes); rows past len
@@ -287,6 +419,34 @@ inline bool head_tile_map(CUtensorMap* map, const void* base, int batch, int hea
   const cuuint64_t strides[3] = {(cuuint64_t)(2 * sl), (cuuint64_t)(2 * sh), (cuuint64_t)(2 * sb)};
   const cuuint32_t box[4] = {64, 64, 1, 1};
   return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The f32 tiles of the tf32 routes, 32 floats (128 bytes) wide in the
+// 128-byte swizzle: a [b, h, len, 64] view of an f32 tensor (strides in
+// elements), boxes of 64 rows x 32 columns (rows past len read as zero);
+// the rows layout of `SplitJob`, [b h, len_pad, 64], boxes of box_rows x 32;
+// and its cols layout, [b h, 64, len_pad], boxes of 64 rows x 32.
+inline bool f32_head_tile_map(CUtensorMap* map, const void* base, int batch, int heads, int len,
+                              long long sb, long long sl, long long sh) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)len, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(4 * sl), (cuuint64_t)(4 * sh), (cuuint64_t)(4 * sb)};
+  const cuuint32_t box[4] = {32, 64, 1, 1};
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+inline bool f32_rows_map(CUtensorMap* map, const void* base, int bh, int len_pad, int box_rows) {
+  const cuuint64_t dims[3] = {64, (cuuint64_t)len_pad, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {256, (cuuint64_t)len_pad * 256};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+}
+inline bool f32_cols_map(CUtensorMap* map, const void* base, int bh, int len_pad) {
+  const cuuint64_t dims[3] = {(cuuint64_t)len_pad, 64, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)len_pad * 4, (cuuint64_t)len_pad * 256};
+  const cuuint32_t box[3] = {32, 64, 1};
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dims, strides, box,
                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

@@ -1,18 +1,20 @@
 """The flash-attention forward's routing and its key split.
 
 `csrc/flash_fwd.cu` sends a call to one of two routes (`wgmma_route`, whose
-mirror `attention.fwd_route` is held here): bf16 at head_dim 64 without a
-bias, with 16-byte-aligned tensors, to the wgmma route of
-`csrc/flash_fwd_wgmma.cuh`; every other call, a call with a bias among
-them, to the mma.sync route. Every bf16 call that the three families make
-when they serve or train takes the wgmma route. The route cuts the keys into
-ranges where its work items cannot fill the card (`attention.fwd_key_split`,
-given the block shape the built kernel reports); every key must fall in one
-range, the ranges in order, each starting below kv_len. The CUDA kernels
-cannot run here; the `cuda`-marked test holds the routed kernel against its
-plain version on the card at ragged lengths, both K/V layouts, an
-all-masked row, with the statistics and with split-KV (it imports no JAX:
-`pytest --noconftest -m cuda`).
+mirror `attention.fwd_route` is held here): bf16 and f32 at head_dim 64
+without a bias, with 16-byte-aligned tensors, to the wgmma route
+(`csrc/flash_fwd_wgmma.cuh` in bf16, `csrc/flash_fwd_tf32.cuh` in f32);
+every other call, a call with a bias among them, to the mma.sync route.
+Every call that the three families make when they serve or train takes the
+wgmma route. The route cuts the keys into ranges where its work items
+cannot fill the card (`attention.fwd_key_split`, given the block shape the
+built kernel reports: 128 or 192 query rows in bf16, 128 in f32, over
+64-key tiles); every key must fall in one range, the ranges in order, each
+starting below kv_len. The CUDA kernels cannot run here; the
+`cuda`-marked tests hold the routed kernel against its plain version on
+the card at ragged lengths, both K/V layouts, an all-masked row, with the
+statistics and with split-KV (they import no JAX: `pytest --noconftest -m
+cuda`).
 """
 
 import dataclasses
@@ -25,10 +27,12 @@ from music_spectrogram_diffusion_tpu_torch.infer import inference
 from music_spectrogram_diffusion_tpu_torch.ops import attention
 
 # The H100's SMs, and the wgmma route's block shape as msd_flash_fwd_tile
-# reports it: the queries a work item owns (192 at q = 2048, where such
-# items fill the queries; else 128, as at q = 256) and the keys a K/V tile.
+# reports it: the queries a work item owns (bf16: 192 at q = 2048, where
+# such items fill the queries, else 128, as at q = 256; f32: 128) and the
+# keys a K/V tile.
 SMS, KEYS = 132, 64
 ROWS = {2048: 192, 256: 128}
+F32_ROWS = 128
 HEADS = 12
 # (q, kv): the attentions of the three families, serving and training
 # (chip_smoke.py SHAPES and FAMILY_SHAPES).
@@ -64,6 +68,37 @@ def test_fwd_key_split_at_the_main_shapes(q_len, kv_len, batch, heads):
   splits, per = attention.fwd_key_split(batch, heads, q_len, kv_len, SMS,
                                         ROWS[q_len], KEYS)
   _assert_covers(kv_len, splits, per)
+
+
+@pytest.mark.parametrize("q_len,kv_len", sorted(set(MAIN_SHAPES.values())))
+@pytest.mark.parametrize("batch", [1, 2, 8, 32])
+@pytest.mark.parametrize("heads", [HEADS, 6, 4, 3])
+def test_fwd_key_split_f32_tile_at_the_main_shapes(q_len, kv_len, batch,
+                                                   heads):
+  """The f32 route's block shape (128 query rows, 64-key tiles) at the
+  families' shapes, the shards' heads and the transcriber's 4."""
+  splits, per = attention.fwd_key_split(batch, heads, q_len, kv_len, SMS,
+                                        F32_ROWS, KEYS)
+  _assert_covers(kv_len, splits, per)
+
+
+def test_fwd_key_split_f32_plans():
+  """The f32 route's items are 128 query rows at every q_len: 2048 queries
+  make 16 items a head, which fill the card at b=2 with one range; the
+  cross-attentions' 48 or 24 items cut their keys into ranges."""
+  plan = {name: attention.fwd_key_split(2, HEADS, q, kv, SMS, F32_ROWS, KEYS)
+          for name, (q, kv) in MAIN_SHAPES.items()}
+  assert plan["encoder_self"] == (1, 2048)
+  assert plan["decoder_self"] == plan["context_self"] == (1, 256)
+  assert plan["cross"] == (2, 1152)  # 96 items of 18 tiles
+  assert plan["notes_cross"] == (2, 1024)  # 96 items of 16 tiles
+  assert attention.fwd_key_split(1, HEADS, 256, 2304, SMS, F32_ROWS,
+                                 KEYS) == (5, 512)  # 120 items of 8 tiles
+  for batch in (8, 32):
+    for q, kv in MAIN_SHAPES.values():
+      if q == 2048 or batch == 32:
+        assert attention.fwd_key_split(batch, HEADS, q, kv, SMS, F32_ROWS,
+                                       KEYS) == (1, kv)
 
 
 @pytest.mark.parametrize("q_len,kv_len", [(1, 1), (1, 65), (300, 2303),
@@ -107,10 +142,10 @@ def test_fwd_key_split_plans():
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("has_bias", [False, True])
 def test_fwd_route_rule(dtype, head_dim, aligned, has_bias):
-  """wgmma for bf16 at head_dim 64, aligned, without a bias; a bias goes to
-  mma.sync, which adds the bias tile to S."""
-  want = ("wgmma" if dtype == torch.bfloat16 and head_dim == 64 and aligned
-          and not has_bias else "mma_sync")
+  """wgmma for bf16 and f32 at head_dim 64, aligned, without a bias; a
+  bias goes to mma.sync, which adds the bias tile to S."""
+  want = ("wgmma" if head_dim == 64 and aligned and not has_bias
+          else "mma_sync")
   assert attention.fwd_route(dtype, head_dim, aligned, has_bias) == want
 
 
@@ -272,3 +307,41 @@ def test_cuda_split_kv_bitwise_and_in_a_graph(cuda_device):
     assert err <= LIMIT * want.float().abs().max().item(), (batch, err)
     assert torch.equal(out, again) and torch.equal(stats, stats_again)
     assert torch.equal(out, captured) and torch.equal(stats, captured_stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len", [1, 63, 65, 2303, 2304])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_cuda_routed_fwd_f32_matches_plain(cuda_device, kv_len, transposed):
+  """The routed f32 kernel (3xTF32 on wgmma) at q = 300 against its plain
+  version: out within 1e-4, finite with an all-masked row, the statistics
+  within 1e-4 (the row max absolutely below 1, the sum relatively), two
+  launches bitwise equal; the library routes f32 at head_dim 64 to it,
+  and plans by 128-row items."""
+  g = torch.Generator("cuda").manual_seed(kv_len + transposed)
+  qq, k, v, mask = (t if t.dtype == torch.bool else t.float()
+                    for t in _inputs(2, 300, kv_len, transposed, g,
+                                     cuda_device))
+  lib = attention._library("flash_fwd")  # pylint: disable=protected-access
+  assert lib.msd_flash_fwd_route(0, 64, 1, 0) == 1
+  assert lib.msd_flash_fwd_route(0, 64, 1, 1) == 0
+  assert attention.fwd_wgmma_tile(2048, torch.float32) == (F32_ROWS, KEYS)
+  attention.route_launches.clear()
+  out, stats = attention.flash_attention(qq, k, v, kv_mask=mask,
+                                         kv_transposed=transposed,
+                                         return_stats=True)
+  again = attention.flash_attention(qq, k, v, kv_mask=mask,
+                                    kv_transposed=transposed)
+  torch.cuda.synchronize()
+  assert attention.route_launches["fwd", "float32", "wgmma"] == 2
+  want = attention.attention_reference(qq, k, v, kv_mask=mask,
+                                       kv_transposed=transposed)
+  want_stats = attention.softmax_stats_reference(qq, k, kv_mask=mask,
+                                                 kv_transposed=transposed)
+  assert torch.isfinite(out).all() and torch.equal(out, again)
+  assert (out - want).abs().max().item() <= 1e-4
+  m_err = ((stats[0] - want_stats[0]).abs()
+           / want_stats[0].abs().clamp(min=1.0)).max().item()
+  l_err = ((stats[1] - want_stats[1]).abs() / want_stats[1]).max().item()
+  assert m_err <= 1e-4 and l_err <= 1e-4, (m_err, l_err)
+  assert (stats[0][-1] == -1e10).all()

@@ -18,6 +18,11 @@ tests hold against the plain attention and against the JAX package:
   whose keys are all masked.
 - `kv_split`: the policy gives one split where the grid fills the card and
   several for the b=1 cross-attention; every split starts below kv_len.
+- `split_tf32_layouts` / `tf32_order`: the tf32 routes' staged operands
+  (each value's split terms in its place, the transposed layout's keys in
+  the order an f32 accumulator makes a tf32 A fragment) give the routes'
+  two kinds of product within 2^-18 of float64 einsum, and NaN exactly
+  where float64 is not finite.
 
 The `cuda`-marked tests at the end hold the kernels themselves to the same
 arithmetic on the card (the split path, the statistics, two launches
@@ -258,6 +263,93 @@ def test_every_split_holds_a_scored_key():
     assert per % keys == 0
     assert (splits - 1) * per < kv <= splits * per
     assert b * h * -(-q // rows) < sm
+
+
+# ---- (iv) the tf32 routes' staged operands ---------------------------------
+
+
+def _staged_products(query, key, value, p, len_pad):
+  """S = q k^T and O = p v as the tf32 routes take them: k's and v's split
+  terms staged by `split_tf32_layouts` (k in the rows layout, v in the cols
+  layout), q and p split in registers, p's keys in `tf32_order` as its
+  accumulator makes the A fragment; each product 3xTF32 (small big, big
+  small, big big). query [n, q, d], key and value [b, len, h, d] (n = b h),
+  p [n, q, len_pad]."""
+  (k_big, k_small), _ = attention.split_tf32_layouts(key, len_pad)
+  _, (vt_big, vt_small) = attention.split_tf32_layouts(value, len_pad)
+  q_big, q_small = attention.split_tf32(query)
+  p_big, p_small = attention.split_tf32(p[..., attention.tf32_order(len_pad)])
+  s = sum(torch.einsum("nqd,nkd->nqk", a, b) for a, b in (
+      (q_small, k_big), (q_big, k_small), (q_big, k_big)))
+  o = sum(torch.einsum("nqp,ndp->nqd", a, b) for a, b in (
+      (p_small, vt_big), (p_big, vt_small), (p_big, vt_big)))
+  return s, o
+
+
+def _heads_first(x, len_pad):
+  """[b, len, h, d] -> float64 [b h, len_pad, d], zero past len."""
+  b, length, h, d = x.shape
+  out = torch.zeros(b, h, len_pad, d, dtype=torch.float64)
+  out[:, :, :length] = x.double().transpose(1, 2)
+  return out.reshape(b * h, len_pad, d)
+
+
+@pytest.mark.parametrize("length,len_pad", [(13, 64), (64, 64), (200, 256)])
+def test_staged_split_products_match_float64(length, len_pad):
+  """The staged terms equal split_tf32's of each value in its place (zero
+  past len), and the two products taken from them match float64 einsum
+  within 2^-18 of sum |a b| (3xTF32 carries about 2^-21; f32 sums)."""
+  r = np.random.RandomState(length)
+  b, h, d, q = 2, 3, 64, 5
+  key, value = (torch.from_numpy(r.randn(b, length, h, d).astype(np.float32))
+                for _ in range(2))
+  query = torch.from_numpy(r.randn(b * h, q, d).astype(np.float32))
+  p = torch.from_numpy(r.rand(b * h, q, len_pad).astype(np.float32))
+  p[..., length:] = 0.0
+  (rows_big, rows_small), (cols_big, cols_small) = (
+      attention.split_tf32_layouts(key, len_pad))
+  want_big, want_small = attention.split_tf32(
+      _heads_first(key, len_pad).float())
+  assert torch.equal(rows_big, want_big) and torch.equal(rows_small,
+                                                         want_small)
+  order = attention.tf32_order(len_pad)
+  assert sorted(order.tolist()) == list(range(len_pad))
+  assert torch.equal(cols_big, want_big[:, order].transpose(1, 2))
+  assert torch.equal(cols_small, want_small[:, order].transpose(1, 2))
+  s, o = _staged_products(query, key, value, p, len_pad)
+  k64, v64 = _heads_first(key, len_pad), _heads_first(value, len_pad)
+  q64, p64 = query.double(), p.double()
+  for got, want, scale in (
+      (s, torch.einsum("nqd,nkd->nqk", q64, k64),
+       torch.einsum("nqd,nkd->nqk", q64.abs(), k64.abs())),
+      (o, torch.einsum("nqk,nkd->nqd", p64, v64),
+       torch.einsum("nqk,nkd->nqd", p64.abs(), v64.abs()))):
+    assert ((got.double() - want).abs() <= 2.0 ** -18 * scale).all()
+
+
+def test_staged_split_products_keep_nan_and_inf():
+  """A NaN in k or an inf or NaN in v makes the staged 3xTF32 products NaN
+  exactly where float64 einsum is not finite (the small term of NaN and inf
+  is NaN: csrc/attention_mma.cuh), the padded rows included."""
+  r = np.random.RandomState(7)
+  b, h, d, q, length, len_pad = 1, 2, 64, 4, 21, 64
+  key, value = (torch.from_numpy(r.randn(b, length, h, d).astype(np.float32))
+                for _ in range(2))
+  key[0, 3, 1, 5] = float("nan")
+  value[0, 17, 0, 9] = float("inf")
+  value[0, 2, 1, 40] = float("-inf")
+  value.view(torch.int32)[0, 11, 1, 63] = 0x7FFFFFFF
+  query = torch.from_numpy(r.randn(b * h, q, d).astype(np.float32))
+  p = torch.from_numpy(r.rand(b * h, q, len_pad).astype(np.float32))
+  p[..., length:] = 0.0
+  p[0, 1, 17] = 0.0  # 0 x inf is NaN
+  s, o = _staged_products(query, key, value, p, len_pad)
+  k64, v64 = _heads_first(key, len_pad), _heads_first(value, len_pad)
+  want_s = torch.einsum("nqd,nkd->nqk", query.double(), k64)
+  want_o = torch.einsum("nqk,nkd->nqd", p.double(), v64)
+  for got, want in ((s, want_s), (o, want_o)):
+    assert (~torch.isfinite(want)).any()
+    assert torch.equal(torch.isnan(got), ~torch.isfinite(want))
 
 
 # ---- on the card -------------------------------------------------------------

@@ -9,9 +9,10 @@ times each in turns (base, variants, variants reversed, base) at the
 inputs of chip_smoke.py phases 3 and 22 (forward, the six shapes at b=2
 and b=1 in float32 and bfloat16, and the training encoder's 2048x2048 at
 b=8 in bfloat16: 25 runs, each timed as CUDA-graph replays; only when a
-chosen variant touches the forward), 10 (backward in float32, 4 training
-shapes at b=8) and 19 (backward in bfloat16, the same shapes), all of them
-or those named. For each forward run it also prints, once, the plain
+chosen variant touches the forward), 10, 22 and 28 (backward in float32:
+the six training shapes at b=8 and the transcriber's two at b=32, 4 heads)
+and 19 (backward in bfloat16, the context model's four shapes at b=8), all
+of them or those named. For each forward run it also prints, once, the plain
 version's and SDPA's times (graph replays; SDPA a yardstick only) and the
 bound. Each variant's results are held against the plain versions at
 chip_smoke's tolerances; a variant marked `same_bits` must also give the
@@ -33,9 +34,12 @@ variants:
   fwd_f32_4warps   f32 blocks of 4 warps (64 rows) instead of 8;
   fwd_bf16_8warps  bf16 blocks of 8 warps (128 rows) instead of 4;
   fwd_f32_3stages  a third f32 K/V stage;
-  fwd_old_route    bf16 calls that the forward's wgmma route takes go to the
-                   mma.sync route, as before it existed (the before of a
-                   before-and-after, other bits);
+  fwd_old_route    bf16 and f32 calls that the forward's wgmma route takes
+                   go to the mma.sync route, as before it existed (the
+                   before of a before-and-after, other bits);
+  fwd_f32_old_route  f32 calls that the forward's wgmma route takes go to
+                   the mma.sync route, as before its f32 route existed
+                   (other bits);
   fwd_4stages      the forward's wgmma route with a ring of 4 K/V tiles, not 6
                    (same bits);
   bwd_dkdv_16rows  dkdv streams 16 query rows a tile instead of 32 (d = 64);
@@ -47,9 +51,14 @@ variants:
   bwd_straight_sums  the mma.sync backward sums each output straight on the
                    tensor cores instead of per tile and then in f32 (other
                    bits);
-  bwd_old_route    bf16 calls that the wgmma route takes go to the mma.sync
-                   route, as before it existed (the before of a
+  bwd_old_route    bf16 and f32 calls that the wgmma route takes go to the
+                   mma.sync route, as before it existed (the before of a
                    before-and-after, other bits);
+  bwd_f32_old_route  f32 calls that the backward's wgmma route takes go to
+                   the mma.sync route, as before its f32 route existed
+                   (other bits);
+  bwd_f32_dq_2stages  the f32 route's dq pass with a ring of 2 streamed
+                   tiles, not 3 (same bits);
   bwd_dq_two_warpgroups  the wgmma route's dq pass with two consumer
                    warpgroups at every q_len, not three where the queries
                    fill 192-row items;
@@ -110,6 +119,9 @@ VARIANTS = {
     "fwd_old_route": ("flash_fwd", {
         "constexpr bool kFwdWgmmaRoute = true;":
         "constexpr bool kFwdWgmmaRoute = false;"}, False),
+    "fwd_f32_old_route": ("flash_fwd", {
+        "constexpr bool kFwdTf32Route = true;":
+        "constexpr bool kFwdTf32Route = false;"}, False),
     "fwd_4stages": ("flash_fwd", {
         "constexpr int kStages = 6;  // the TMA ring of K/V tiles":
         "constexpr int kStages = 4;  // the TMA ring of K/V tiles"}, True),
@@ -133,6 +145,11 @@ VARIANTS = {
     "bwd_old_route": ("flash_bwd", {"constexpr bool kWgmmaRoute = true;":
                                     "constexpr bool kWgmmaRoute = false;"},
                       False),
+    "bwd_f32_old_route": ("flash_bwd", {"constexpr bool kTf32Route = true;":
+                                        "constexpr bool kTf32Route = false;"},
+                          False),
+    "bwd_f32_dq_2stages": ("flash_bwd", {
+        "constexpr int kDqStages = 3;": "constexpr int kDqStages = 2;"}, True),
     "bwd_dq_two_warpgroups": ("flash_bwd", {
         "return (q_len + 191) / 192 * 192 * 8 <= 9 * q_len ? 3 : 2;":
         "return 2;"}, False),
@@ -248,15 +265,19 @@ def main() -> int:
                                              tr, dtype, gen)))
     stream = torch.cuda.Stream()
     bwd_runs = []
-    for dtype in (torch.float32, torch.bfloat16):
-      for shape, q_len, kv_len, masked, _ in cs.SHAPES:
-        q, k, v, mask = cs.attention_inputs(8, q_len, kv_len, masked, False,
-                                            dtype, gen)
-        out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
-                                               return_stats=True)
-        dout = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
-        bwd_runs.append((f"bwd {shape} b=8 {str(dtype)[6:]}",
-                         (q, k, v, None, mask, out, stats, dout)))
+    bwd_shapes = ([(s, 8, torch.float32) for s in cs.SHAPES + cs.FAMILY_SHAPES]
+                  + [(s, cs.TRANSCRIBER_BATCH, torch.float32)
+                     for s in cs.TRANSCRIBER_SHAPES]
+                  + [(s, 8, torch.bfloat16) for s in cs.SHAPES])
+    for (shape, q_len, kv_len, masked, _, *more), batch, dtype in bwd_shapes:
+      heads = more[0] if more else cs.HEADS
+      q, k, v, mask = cs.attention_inputs(batch, q_len, kv_len, masked, False,
+                                          dtype, gen, heads)
+      out, stats = attention.flash_attention(q, k, v, kv_mask=mask,
+                                             return_stats=True)
+      dout = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+      bwd_runs.append((f"bwd {shape} b={batch} h={heads} {str(dtype)[6:]}",
+                       (q, k, v, None, mask, out, stats, dout)))
 
     def use(name):
       for lib, handle in {**libs[None], **libs[name]}.items():
